@@ -230,3 +230,224 @@ def test_spmv_in_expression_and_in_place(gpu):
     p = (y.storage * dia_matvec_plain(A.n, A.m, A.device.offsets,
                                       A.device.vals, y.storage)).sum().item()
     assert abs(s - p) <= 1e-5 * abs(p)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["MIN", "MAX"])
+@pytest.mark.parametrize("where", ["first_block", "last_partial_block",
+                                   "nowhere"])
+def test_map_reduce_min_max_propagate_nan(gpu, kind, dt, where):
+    from vexcl_tpu_torch.ops.triton_reduce import REDUCE_BLOCK
+
+    n = 3 * REDUCE_BLOCK + 123
+    rng = np.random.default_rng(40)
+    npdt = np.float64 if dt == torch.float64 else np.float32
+    h = rng.random(n).astype(npdt) - 0.5
+    if where == "first_block":
+        h[17] = np.nan
+    elif where == "last_partial_block":
+        h[n - 5] = np.nan
+    x = _vec(gpu, h)
+    e, analysis, types, leaves = prepare(x * 2, n, gpu.device)
+    k = map_reduce(e, analysis, types, leaves, n, kind, gpu.device).item()
+    p = map_reduce_plain(e, analysis, types, leaves, n, kind,
+                         gpu.device).item()
+    if where == "nowhere":
+        assert k == p
+    else:
+        assert np.isnan(k) and np.isnan(p)
+    api = vex.Reductor(getattr(vex, kind))(x * 2)
+    assert np.isnan(api) if where != "nowhere" else api == k
+
+
+def _stencil_case(gpu, n, width, center, xdt, cdt, seed):
+    from vexcl_tpu_torch.ops.cuda_stencil import stencil_apply, stencil_plain
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(n, generator=g, dtype=torch.float64).to(xdt).to(gpu.device)
+    c = (torch.rand(width, generator=g, dtype=torch.float64) - 0.5).to(cdt)
+    c = c.to(gpu.device)
+    k = stencil_apply(x, c, center)
+    p = stencil_plain(x, c, center)
+    torch.cuda.synchronize()
+    assert k.dtype == p.dtype == vex.promote(xdt, cdt)
+    return k, p
+
+
+@pytest.mark.parametrize("pair", [(torch.float32, torch.float32),
+                                  (torch.float64, torch.float64),
+                                  (torch.float32, torch.float64),
+                                  (torch.float64, torch.float32)])
+@pytest.mark.parametrize("shape", [(N, 5, 2), (N, 3, 0), (N, 3, 2),
+                                   (N, 255, 40), (1 << 20, 129, 64),
+                                   (1000, 7, 6), (3, 5, 2), (1, 4, 1),
+                                   (N, 6000, 1234), (700, 6000, 5999)])
+def test_stencil_kernel_matches_plain(gpu, pair, shape):
+    """Tile kernel and, for 6000 taps, the L2 kernel; n < width too."""
+    n, width, center = shape
+    k, p = _stencil_case(gpu, n, width, center, *pair, seed=width + n)
+    tol = RTOL[k.dtype] * max(1, width // 8)
+    _close(k, p, tol)
+
+
+def test_stencil_api_in_place_and_operator(gpu):
+    from vexcl_tpu_torch.ops.cuda_stencil import stencil_apply, stencil_plain
+
+    rng = np.random.default_rng(41)
+    hx = rng.random(N).astype(np.float32)
+    x = _vec(gpu, hx)
+    y = vex.vector(N, dtype=torch.float32, context=gpu)
+    s = vex.stencil(np.asarray([0.1, 0.2, 0.4, 0.2, 0.1], np.float32), 2)
+    ref = stencil_plain(x.storage.clone(), s.coeff_on(gpu.device), 2)
+    before = stencil_apply.launches
+    y[:] = x * s
+    _close(y.storage, ref, RTOL[torch.float32])
+    x[:] = x * s                      # in place: reads the old x
+    _close(x.storage, ref, RTOL[torch.float32])
+    assert stencil_apply.launches == before + 2
+    op = vex.StencilOperator(3, 1, lambda X: X[0] + (X[-1] + X[1]) ** 3)
+    x = _vec(gpu, hx)
+    y[:] = op(x)
+    t = torch.from_numpy(hx).double()
+    tp = torch.cat([t[:1], t, t[-1:]])
+    _close(y.storage, tp[1:-1] + (tp[:-2] + tp[2:]) ** 3, 4e-6)
+
+
+def test_stencil_uncovered_pair_raises(gpu):
+    from vexcl_tpu_torch.ops.cuda_stencil import stencil_apply
+
+    x = torch.ones(100, dtype=torch.int32, device=gpu.device)
+    with pytest.raises(NotImplementedError):
+        stencil_apply(x, torch.ones(3, dtype=torch.float32,
+                                    device=gpu.device), 1)
+    with pytest.raises(NotImplementedError):
+        stencil_apply(x.float(), torch.ones(3, dtype=torch.float16,
+                                            device=gpu.device), 1)
+
+
+def _irregular(n, m, seed, long_rows=(), integer=False):
+    rng = np.random.default_rng(seed)
+    lens = rng.poisson(6, n)
+    lens[::9] = 0                                  # empty rows
+    for r in long_rows:
+        lens[r] = 700                              # above the spill length
+    ptr = np.concatenate([[0], np.cumsum(lens)])
+    col = rng.integers(0, m, int(ptr[-1]))
+    col[1::13] = col[0::13][:len(col[1::13])]      # some duplicates
+    val = (rng.integers(-4, 5, int(ptr[-1])).astype(np.float64) if integer
+           else rng.standard_normal(int(ptr[-1])))
+    return ptr, col, val
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fmt", ["csr", "ell", "hyb", "sellr"])
+@pytest.mark.parametrize("nm", [(5000, 5000), (3000, 7000), (7000, 300),
+                                (33, 33), (40000, 40000)])
+def test_sparse_kernels_match_plain(gpu, fmt, dt, nm):
+    """Each format's kernels against their plain versions on the same
+    stored arrays, on integer-valued data (exact in any order): empty
+    rows, duplicates, rectangular, rows above the SELL spill length."""
+    from vexcl_tpu_torch.sparse.cuda_sell import (csr_spmv, csr_spmv_plain,
+                                                  sell_spmv, sell_spmv_plain)
+    from vexcl_tpu_torch.sparse.formats import from_csr_host
+
+    n, m = nm
+    ptr, col, val = _irregular(n, m, n + m, long_rows=(1, n // 2),
+                               integer=True)
+    npdt = np.float64 if dt == torch.float64 else np.float32
+    A = from_csr_host(n, m, ptr, col, val.astype(npdt), fmt,
+                      device=gpu.device)
+    x = torch.from_numpy(np.random.default_rng(7).integers(-3, 4, m)
+                         .astype(npdt)).to(gpu.device)
+    before = (sell_spmv.launches, csr_spmv.launches)
+    k = A.apply(x)
+    if fmt == "csr":
+        p = csr_spmv_plain(n, A.ptr, A.col, A.val, x)
+    else:
+        p = sell_spmv_plain(n, A.slice_ptr, A.col, A.val, A.perm, x)
+        if A.tail is not None:
+            t = A.tail
+            csr_spmv_plain(n, t.ptr, t.col, t.val, x, t.rows, out=p)
+    torch.cuda.synchronize()
+    assert k.dtype == p.dtype == dt and torch.equal(k, p)
+    import scipy.sparse as sp
+    ref = sp.csr_matrix((val, col, ptr), shape=(n, m)) @ x.double().cpu().numpy()
+    assert np.array_equal(k.double().cpu().numpy(), ref)
+    launched = (sell_spmv.launches - before[0], csr_spmv.launches - before[1])
+    want_tail = fmt == "csr" or getattr(A, "tail", None) is not None
+    assert launched == (int(fmt != "csr"), int(want_tail))
+    if fmt == "sellr":
+        assert A.tail is not None              # the 700-entry rows spilled
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_sparse_kernels_random_values(gpu, dt):
+    n = 20000
+    ptr, col, val = _irregular(n, n, 3, long_rows=(5,))
+    npdt = np.float64 if dt == torch.float64 else np.float32
+    x = np.random.default_rng(8).standard_normal(n).astype(npdt)
+    ctx = gpu
+    X = vex.vector(data=x, context=ctx)
+    results = {}
+    for fmt in ("csr", "ell", "hyb", "sellr"):
+        A = vex.SpMat(n, n, ptr, col, val.astype(npdt), fmt=fmt, context=ctx)
+        Y = vex.vector(data=x, context=ctx)
+        Y[:] = 2 * (A * X) + Y
+        results[fmt] = Y.storage
+    for fmt in ("ell", "hyb", "sellr"):
+        _close(results[fmt], results["csr"], 1e-5 if dt == torch.float32
+               else 1e-12)
+
+
+def test_spmat_default_format_and_in_place(gpu):
+    from vexcl_tpu_torch.utils.poisson import poisson_7pt
+
+    n = 4000
+    ptr, col, val = _irregular(n, n, 4)
+    A = vex.SpMat(n, n, ptr, col, val.astype(np.float32), context=gpu)
+    assert A.device.format == "sellr"
+    P = vex.SpMat(512, 512, *poisson_7pt(8), context=gpu)
+    assert P.device.format == "dia"
+    hx = np.random.default_rng(9).random(n).astype(np.float32)
+    x = _vec(gpu, hx)
+    ref = A.device.apply(x.storage.clone())
+    x[:] = A * x                      # in place: SpMV first, then the write
+    _close(x.storage, ref, 0)
+
+
+def test_sparse_uncovered_pairs_raise(gpu):
+    n = 100
+    ptr, col, val = _irregular(n, n, 5)
+    for fmt in ("csr", "sellr"):
+        A = vex.SpMat(n, n, ptr, col, val.astype(np.float32), fmt=fmt,
+                      context=gpu)
+        with pytest.raises(NotImplementedError):
+            A.device.apply(torch.ones(n, dtype=torch.float64,
+                                      device=gpu.device))
+        B = vex.SpMat(n, n, ptr, col, val.astype(np.int32), fmt=fmt,
+                      context=gpu)
+        with pytest.raises(NotImplementedError):
+            B.device.apply(torch.ones(n, dtype=torch.int32,
+                                      device=gpu.device))
+
+
+@pytest.mark.parametrize("cache", [None, False])
+def test_ccsr_kernel_path_matches_plain(gpu, cache):
+    from vexcl_tpu_torch.utils.poisson import poisson_7pt_ccsr
+
+    m = 24
+    idx, row, col, val = poisson_7pt_ccsr(m, dtype=np.float32)
+    A = vex.SpMatCCSR(m ** 3, m ** 3, idx, row, col, val, context=gpu,
+                      cache_expansion=cache)
+    assert (A.cached_coeffs is not None) == (cache is None)
+    if cache is None:
+        assert A.cached_coeffs.dtype == torch.bfloat16
+    hx = np.random.default_rng(10).random(m ** 3).astype(np.float32)
+    x = _vec(gpu, hx)
+    before = dia_matvec.launches
+    y = vex.vector(m ** 3, context=gpu)
+    y[:] = A * x
+    assert dia_matvec.launches == before + 1
+    coeffs = A._expand()
+    ref = dia_matvec_plain(A.n, A.m, A.offset_union, coeffs, x.storage)
+    _close(y.storage, ref, 2e-6)

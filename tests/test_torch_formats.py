@@ -1,0 +1,282 @@
+"""Parity of the port's sparse formats with vexcl_tpu.
+
+``csr``, ``ell`` and ``hyb`` are held against ``vexcl_tpu.SpMat`` in the
+same format, and the port's ``sellr`` (SELL-C-sigma, built from the host
+CSR) against the JAX package's CSR result and, at one shape of
+tests/test_shuffle_spmv.py, against its shuffle-routed SELLR.  Also: the
+ELL width rule, the format policy for CUDA decided on the CPU, SpMatCCSR
+on its cached, uncached and general paths, the carry-across constructors
+from the JAX package's state, and rectangular, empty and duplicate cases.
+
+Tolerances: f64 1e-12 and f32 3e-5, relative to the largest magnitude
+(sums in another order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import vexcl_tpu as vex
+import vexcl_tpu_torch as vt
+from vexcl_tpu.sparse.formats import choose_ell_width as jax_ell_width
+from vexcl_tpu.sparse.shuffle import SELLR as JaxSELLR
+from vexcl_tpu.utils.poisson import poisson_7pt, poisson_7pt_ccsr
+from vexcl_tpu_torch.sparse import (CSR, ELL, SELLR, Hybrid, SpMatCCSR,
+                                    choose_ell_width, default_format)
+from vexcl_tpu_torch.sparse.sell import LONG_ROW
+
+FORMATS = ("csr", "ell", "hyb", "sellr")
+
+
+@pytest.fixture(scope="module")
+def tctx():
+    return vt.Context(vt.Filter.CPU, set_current=False)
+
+
+def _close(got, want, rtol):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    scale = max(1.0, np.abs(want).max(initial=0))
+    np.testing.assert_allclose(got, want, rtol=0, atol=rtol * scale)
+
+
+def random_csr(n, m, mean, seed, long_row=False, dup=False):
+    """Lognormal row lengths with empty rows; optionally one row above
+    the SELL spill length and duplicate (row, col) entries."""
+    rng = np.random.default_rng(seed)
+    lens = np.maximum(0, rng.lognormal(np.log(mean), 0.8, n)).astype(np.int64)
+    lens[::11] = 0
+    if long_row and n > 2:
+        lens[2] = LONG_ROW + 50
+    ptr = np.concatenate([[0], np.cumsum(lens)])
+    col = rng.integers(0, m, int(ptr[-1]))
+    if dup:
+        col[1::2] = col[0::2][:len(col[1::2])]
+    return ptr, col, rng.standard_normal(int(ptr[-1]))
+
+
+def _pair(ctx1, tctx, n, m, ptr, col, val, fmt, jfmt=None, dt=np.float64):
+    jA = vex.SpMat(n, m, ptr, col, val.astype(dt), fmt=jfmt or fmt,
+                   context=ctx1)
+    tA = vt.SpMat(n, m, ptr, col, val.astype(dt), fmt=fmt, context=tctx)
+    return jA, tA
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("shape", [(2000, 2000, 8), (700, 1500, 5),
+                                   (1500, 300, 12), (40, 40, 3)])
+@pytest.mark.parametrize("dt", [np.float64, np.float32])
+def test_format_matches_jax(ctx1, tctx, fmt, shape, dt):
+    n, m, mean = shape
+    ptr, col, val = random_csr(n, m, mean, seed=n + m, long_row=True)
+    jA, tA = _pair(ctx1, tctx, n, m, ptr, col, val, fmt,
+                   jfmt="csr" if fmt == "sellr" else None, dt=dt)
+    assert tA.device.format == fmt and tA.nnz == jA.nnz
+    hx = np.random.default_rng(61).standard_normal(m).astype(dt)
+    jx = vex.vector(data=hx, context=ctx1)
+    tx = vt.vector(data=hx, context=tctx)
+    rtol = 1e-12 if dt == np.float64 else 3e-5
+    ty = vt.vector(n, dtype=dt, context=tctx)
+    ty[:] = tA * tx
+    assert ty.dtype == vt.dtype_of(dt)
+    _close(ty, vex.eval(jA * jx), rtol)
+    jy = vex.vector(data=hx[:n] if m >= n else np.ones(n, dt), context=ctx1)
+    ty = vt.vector(data=np.asarray(jy), context=tctx)
+    jy[:] = 2 * (jA * jx) + jy
+    ty[:] = 2 * (tA * tx) + ty
+    _close(ty, jy, rtol)
+    # the size of Sum(A * x) is A's row count, also when n != m
+    s_t = vt.Reductor(vt.SUM)(2 * (tA * tx))
+    s_j = vex.Reductor(vex.SUM)(2 * (jA * jx))
+    assert abs(s_t - s_j) <= rtol * max(1.0, abs(s_j)) * np.sqrt(n)
+    if n == m:
+        s_t = vt.Reductor(vt.SUM)(tx * (tA * tx))
+        s_j = vex.Reductor(vex.SUM)(jx * (jA * jx))
+        assert abs(s_t - s_j) <= rtol * max(1.0, abs(s_j))
+
+
+def test_sellr_matches_jax_sellr(tctx):
+    """The port's SELL-32-sigma against the shuffle-routed SELLR, at a
+    shape of tests/test_shuffle_spmv.py."""
+    rng = np.random.default_rng(1008)
+    n = m = 1000
+    lens = np.maximum(1, rng.poisson(8, n))
+    ptr = np.concatenate([[0], np.cumsum(lens)])
+    col = rng.integers(0, m, int(ptr[-1]))
+    val = rng.standard_normal(int(ptr[-1]))
+    x = np.random.default_rng(62).standard_normal(m)
+    want = np.asarray(JaxSELLR(n, m, ptr, col, val).apply(x))
+    got = SELLR(n, m, ptr, col, val, device="cpu").apply(torch.from_numpy(x))
+    _close(got, want, 1e-12)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_in_place_spmv(ctx1, tctx, fmt):
+    n = 900
+    ptr, col, val = random_csr(n, n, 6, seed=63, long_row=True)
+    jA, tA = _pair(ctx1, tctx, n, n, ptr, col, val, fmt,
+                   jfmt="csr" if fmt == "sellr" else None)
+    hx = np.random.default_rng(64).standard_normal(n)
+    jx = vex.vector(data=hx, context=ctx1)
+    tx = vt.vector(data=hx, context=tctx)
+    jx[:] = jA * jx
+    tx[:] = tA * tx                   # the SpMV reads x before the write
+    _close(tx, jx, 1e-12)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("case", ["empty", "duplicates", "empty_rows",
+                                  "no_rows"])
+def test_edge_cases_match_jax(ctx1, tctx, fmt, case):
+    n, m = 300, 500
+    if case == "empty":
+        ptr, col, val = np.zeros(n + 1, np.int64), np.zeros(0, np.int64), \
+            np.zeros(0)
+    elif case == "duplicates":
+        ptr, col, val = random_csr(n, m, 6, seed=65, dup=True)
+    elif case == "empty_rows":
+        ptr, col, val = random_csr(n, m, 6, seed=66)
+        lens = np.diff(ptr)
+        lens[n // 3:] = 0
+        keep = np.arange(len(col)) < lens[:n // 3].sum()
+        ptr = np.concatenate([[0], np.cumsum(lens)])
+        col, val = col[keep], val[keep]
+    else:
+        n = 0
+        ptr, col, val = np.zeros(1, np.int64), np.zeros(0, np.int64), \
+            np.zeros(0)
+    hx = np.random.default_rng(67).standard_normal(m)
+    tA = vt.SpMat(n, m, ptr, col, val, fmt=fmt, context=tctx)
+    got = tA._matvec(torch.from_numpy(hx))
+    assert got.shape == (n,) and got.dtype == torch.float64
+    if n and len(col):
+        jA = vex.SpMat(n, m, ptr, col, val,
+                       fmt="csr" if fmt == "sellr" else fmt, context=ctx1)
+        _close(got, vex.eval(jA * vex.vector(data=hx, context=ctx1)), 1e-12)
+    else:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("lens", [
+    [0, 0, 0], [5], [3, 3, 3, 3], list(range(40)), [1] * 30 + [100] * 3,
+    list(np.random.default_rng(68).poisson(9, 1000)),
+    list(np.random.default_rng(69).lognormal(2.5, 0.8, 5000).astype(int)),
+])
+def test_choose_ell_width_matches_jax(lens):
+    lens = np.asarray(lens, dtype=np.int64)
+    assert choose_ell_width(lens) == jax_ell_width(lens)
+
+
+def test_format_policy(tctx):
+    """CPU contexts get CSR, CUDA contexts SELL-R, banded matrices DIA:
+    the CUDA decision is a function of the device type, checked here
+    without a card."""
+    assert default_format("cpu") == "csr"
+    assert default_format("cuda") == "sellr"
+    with pytest.raises(NotImplementedError):
+        default_format("mps")
+    n = 500
+    ptr, col, val = random_csr(n, n, 6, seed=70)
+    for dt in (np.float32, np.float64):
+        assert vt.SpMat(n, n, ptr, col, val.astype(dt),
+                        context=tctx).device.format == "csr"
+    P = vt.SpMat(512, 512, *poisson_7pt(8), context=tctx)
+    assert P.device.format == "dia"
+    A = vt.matrix(n, n, ptr, col, val, context=tctx)
+    assert A.device.format == "csr"
+    with pytest.raises(ValueError):
+        vt.SpMat(n, n, ptr, col, val, fmt="coo", context=tctx)
+    bad = col.copy()
+    bad[3] = n
+    with pytest.raises(ValueError):
+        vt.SpMat(n, n, ptr, bad, val, fmt="sellr", context=tctx)
+
+
+def test_sell_layout(tctx):
+    """Rows sorted by length in sigma windows, slices 32 rows wide, the
+    long row spilled to the CSR tail, padding slots with column -1."""
+    n = 3000
+    ptr, col, val = random_csr(n, n, 9, seed=71, long_row=True)
+    A = SELLR(n, n, ptr, col, val, device=tctx.device)
+    lens = np.diff(ptr)
+    assert A.tail is not None and A.tail.rows.tolist() == [2]
+    perm = A.perm.numpy()
+    assert sorted(perm.tolist()) == list(range(n))
+    sl = np.where(lens > LONG_ROW, 0, lens)[perm]
+    assert np.all(np.diff(sl) <= 0)              # one window at n = 3000
+    sp = A.slice_ptr.numpy()
+    assert len(sp) == -(-n // 32) + 1
+    assert int((A.col >= 0).sum()) + A.tail.nnz == A.nnz
+    assert A.slots < 1.3 * A.nnz
+
+
+@pytest.mark.parametrize("cache", [None, False])
+@pytest.mark.parametrize("dt", [np.float32, np.float64])
+def test_ccsr_matches_jax(ctx1, tctx, cache, dt):
+    m = 12
+    idx, row, col, val = poisson_7pt_ccsr(m, dtype=dt)
+    jA = vex.SpMatCCSR(m ** 3, m ** 3, idx, row, col, val, context=ctx1,
+                       cache_expansion=cache)
+    tA = vt.SpMatCCSR(m ** 3, m ** 3, idx, row, col, val, context=tctx,
+                      cache_expansion=cache)
+    assert (tA.cached_coeffs is None) == (jA._cached_coeffs is None)
+    if cache is None:
+        assert str(tA.cached_coeffs.dtype).endswith(
+            str(jA._cached_coeffs.dtype))
+    assert tA.offset_union == jA.offset_union and tA.width == jA.width
+    assert tA.nnz == jA.nnz and str(tA.dtype).endswith(str(jA.dtype))
+    hx = np.random.default_rng(72).random(m ** 3).astype(dt)
+    jx = vex.vector(data=hx, context=ctx1)
+    tx = vt.vector(data=hx, context=tctx)
+    rtol = 1e-12 if dt == np.float64 else 3e-5
+    _close(vt.eval(tA * tx), vex.eval(jA * jx), rtol)
+    # the same values as the DIA SpMat of the CSR Poisson matrix
+    P = vt.SpMat(m ** 3, m ** 3, *poisson_7pt(m, dtype=dt), context=tctx)
+    _close(vt.eval(tA * tx), vt.eval(P * tx), rtol)
+
+
+def test_ccsr_general_path_matches_jax(ctx1, tctx):
+    """More than 64 distinct offsets: the gather over per-row patterns."""
+    rng = np.random.default_rng(73)
+    n, nuniq, width = 2000, 6, 24
+    idx = rng.integers(0, nuniq, n).astype(np.int32)
+    lens = rng.integers(width // 2, width + 1, nuniq)
+    row = np.concatenate([[0], np.cumsum(lens)])
+    col = rng.integers(-300, 300, int(row[-1])).astype(np.int32)
+    val = rng.standard_normal(int(row[-1]))
+    jA = vex.SpMatCCSR(n, n, idx, row, col, val, context=ctx1)
+    tA = vt.SpMatCCSR(n, n, idx, row, col, val, context=tctx)
+    assert tA.offset_union is None and jA.offset_union is None
+    hx = rng.standard_normal(n)
+    _close(vt.eval(tA * vt.vector(data=hx, context=tctx)),
+           vex.eval(jA * vex.vector(data=hx, context=ctx1)), 1e-12)
+
+
+def test_carry_across_from_jax_state(ctx1, tctx):
+    """CSR, ELL, Hybrid and SpMatCCSR built from the JAX objects' state
+    give the JAX package's products."""
+    n, m = 800, 900
+    ptr, col, val = random_csr(n, m, 7, seed=74, long_row=True)
+    hx = np.random.default_rng(75).standard_normal(m)
+    x = torch.from_numpy(hx)
+    for fmt, cls in (("csr", CSR), ("ell", ELL), ("hyb", Hybrid)):
+        jd = vex.SpMat(n, m, ptr, col, val, fmt=fmt, context=ctx1).device
+        td = cls.from_arrays(n, m, *[np.asarray(a) for a in jd.leaves()],
+                             device=tctx.device)
+        assert td.nnz == jd.nnz
+        _close(td.apply(x), np.asarray(jd.apply(hx)), 1e-12)
+    mm = 10
+    idx, row, ccol, cval = poisson_7pt_ccsr(mm, dtype=np.float32)
+    for cache in (None, False):
+        jA = vex.SpMatCCSR(mm ** 3, mm ** 3, idx, row, ccol, cval,
+                           context=ctx1, cache_expansion=cache)
+        tA = SpMatCCSR.from_arrays(
+            mm ** 3, mm ** 3, *[np.asarray(a) for a in jA._leaves],
+            jA.offset_union, np.asarray(jA._union_table_dev),
+            None if jA._cached_coeffs is None
+            else np.asarray(jA._cached_coeffs), context=tctx)
+        if cache is None:
+            assert tA.cached_coeffs.dtype == torch.bfloat16
+        hx = np.random.default_rng(76).random(mm ** 3).astype(np.float32)
+        _close(vt.eval(tA * vt.vector(data=hx, context=tctx)),
+               vex.eval(jA * vex.vector(data=hx, context=ctx1)), 3e-5)

@@ -102,3 +102,21 @@ def test_reductor_kinds_and_dtypes(ctx1, tctx):
             == vex.Reductor(vex.SUM)(vex.element_index(0, n)))
     with pytest.raises(vt.ExpressionError):
         vt.Reductor(vt.SUM)(vt.constant(1.0) * 2)
+
+
+@pytest.mark.parametrize("dt", [np.float64, np.float32])
+@pytest.mark.parametrize("kind", ["MIN", "MAX"])
+@pytest.mark.parametrize("pos", [0, 4096 + 5, 3 * 4096 + 70])
+def test_min_max_propagate_nan(ctx1, tctx, kind, dt, pos):
+    """A NaN anywhere, at a size that is not a multiple of REDUCE_BLOCK,
+    makes MIN and MAX NaN in both packages (jnp.min/jnp.max)."""
+    from vexcl_tpu_torch.ops.triton_reduce import REDUCE_BLOCK
+
+    n = 3 * REDUCE_BLOCK + 77
+    x = (np.random.default_rng(24).random(n) - 0.5).astype(dt)
+    x[pos] = np.nan
+    jx = vex.vector(data=x, context=ctx1)
+    tx = vt.vector(data=x, context=tctx)
+    want = vex.Reductor(getattr(vex, kind))(jx * 2)
+    got = vt.Reductor(getattr(vt, kind))(tx * 2)
+    assert np.isnan(want) and np.isnan(got)

@@ -113,3 +113,50 @@ def test_config_flags_and_purge(tctx, monkeypatch):
     assert len(vt.kernel_cache) >= 1
     vt.purge_caches()
     assert len(vt.kernel_cache) == 0
+
+
+def shifted_laplacian(n, ptr, col, val):
+    """CSR of the shifted graph Laplacian of S: off-diagonal entries
+    -(|S| + |S|^T), diagonal the absolute off-diagonal row sum + 1
+    (symmetric, strictly diagonally dominant, so SPD)."""
+    rows = np.repeat(np.arange(n), np.diff(ptr))
+    off = rows != col
+    a = np.abs(val[off])
+    r = np.concatenate([rows[off], col[off], np.arange(n)])
+    c = np.concatenate([col[off], rows[off], np.arange(n)])
+    diag = np.bincount(r[:-n], weights=np.concatenate([a, a]), minlength=n)
+    v = np.concatenate([-a, -a, diag + 1])
+    order = np.argsort(r, kind="stable")
+    lap_ptr = np.concatenate([[0], np.cumsum(np.bincount(r, minlength=n))])
+    return lap_ptr, c[order], v[order]
+
+
+@pytest.mark.parametrize("fmt", [None, "sellr"])
+@pytest.mark.parametrize("dt", [np.float64, np.float32])
+def test_cg_on_shifted_laplacian_matches_jax(ctx1, tctx, fmt, dt):
+    """interop.cg on an unstructured SPD matrix: the port (CSR on a CPU
+    context by default, or SELL-R) against vexcl_tpu.interop.cg in f64;
+    f64 within 1e-9, the f32 solve within 1e-4."""
+    from vexcl_tpu.interop import cg as jax_cg
+
+    rng = np.random.default_rng(43)
+    n = 3000
+    lens = np.maximum(1, rng.lognormal(np.log(8) - 0.32, 0.8, n)).astype(int)
+    ptr = np.concatenate([[0], np.cumsum(lens)])
+    col = rng.integers(0, n, int(ptr[-1]))
+    val = rng.standard_normal(int(ptr[-1]))
+    lp, lc, lv = shifted_laplacian(n, ptr, col, val)
+    b = rng.random(n) - 0.5
+    jA = vex.SpMat(n, n, lp, lc, lv, context=ctx1)
+    ju, jit = jax_cg(jA, vex.vector(data=b, context=ctx1), tol=1e-10,
+                     maxiter=100)
+    tA = vt.SpMat(n, n, lp, lc, lv.astype(dt), fmt=fmt, context=tctx)
+    assert tA.device.format == (fmt or "csr")
+    tu, tit = cg(tA, from_numpy(b.astype(dt), context=tctx), tol=1e-10,
+                 maxiter=100)
+    assert tu.dtype == vt.dtype_of(dt) and 0 < jit
+    if dt == np.float64:
+        assert tit == jit
+    assert _rel(tu, ju) <= (1e-9 if dt == np.float64 else 1e-4)
+    r = b - to_numpy(vt.vector(tA * tu, context=tctx)).astype(np.float64)
+    assert np.linalg.norm(r) / np.linalg.norm(b) < 1e-4

@@ -21,7 +21,7 @@ import vexcl_tpu_torch as vt
 from vexcl_tpu.sparse.pallas_dia import dia_matvec_pallas_roll
 from vexcl_tpu.utils.poisson import poisson_7pt
 from vexcl_tpu_torch.sparse.cuda_dia import dia_matvec_plain
-from vexcl_tpu_torch.sparse.dia import DIA, try_build_dia
+from vexcl_tpu_torch.sparse.dia import DIA
 
 
 @pytest.fixture(scope="module")
@@ -143,16 +143,13 @@ def test_rectangular_and_empty_dia(ctx1, tctx):
                        torch.zeros(n, dtype=torch.float64))
 
 
-def test_formats_not_ported_raise(tctx):
+def test_vector_valued_matrices_raise(tctx):
+    """val of shape (nnz, k) needs multivector, not ported yet."""
     ptr, col, val = poisson_7pt(4)
-    for fmt in ("csr", "ell", "hyb", "sellr"):
-        with pytest.raises(NotImplementedError):
-            vt.SpMat(64, 64, ptr, col, val, fmt=fmt, context=tctx)
-    # an irregular matrix does not fit DIA and has no other format yet
-    rng = np.random.default_rng(36)
-    n = 200
-    cols = np.sort(rng.choice(n, (n, 5)), axis=1).ravel()
-    ptr = np.arange(0, 5 * n + 1, 5)
-    with pytest.raises(NotImplementedError):
-        vt.SpMat(n, n, ptr, cols, np.ones(5 * n), context=tctx)
-    assert try_build_dia(n, n, ptr, cols, np.ones(5 * n)) is None
+    vals = np.stack([val, 2 * val], axis=1)
+    for fmt in (None, "csr", "ell", "hyb", "sellr", "dia"):
+        with pytest.raises(NotImplementedError, match="multivector"):
+            vt.SpMat(64, 64, ptr, col, vals, fmt=fmt, context=tctx)
+    with pytest.raises(NotImplementedError, match="multivector"):
+        vt.SpMatCCSR(64, 64, np.zeros(64, np.int32), [0, 1], [0],
+                     np.ones((1, 2)), context=tctx)

@@ -2,10 +2,12 @@
 
 The same API as ``vexcl_tpu`` for the slice ported so far: lazy vector
 expressions, each assignment one generated Triton kernel; the Reductor
-(SUM/MIN/MAX) on a Triton map-reduce kernel; ``SpMat`` in DIA format on a
-hand-written CUDA kernel; and the Poisson CG solve built on all three.
-On CPU tensors every kernel's plain PyTorch version runs instead.  This
-package imports neither ``jax`` nor ``vexcl_tpu``::
+(SUM/MIN/MAX) on a Triton map-reduce kernel; ``SpMat`` in every format
+(DIA, CSR, ELL, hybrid, SELL-R) and ``SpMatCCSR`` on hand-written CUDA
+kernels (DIA, SELL-C-sigma, CSR-vector); ``stencil`` on a CUDA stencil
+kernel and ``StencilOperator`` on the expression kernel; and CG solves
+built on them.  On CPU tensors every kernel's plain PyTorch version runs
+instead.  This package imports neither ``jax`` nor ``vexcl_tpu``::
 
     import vexcl_tpu_torch as vex
 
@@ -30,7 +32,9 @@ from .expr import mathconst as constants
 from .expr.builtins import *  # noqa: F401,F403 - sin, cos, exp, ...
 from .ops.reductor import (MAX, MIN, MIN_MAX, SUM, SUM_Kahan,
                            CombineReductors, Reductor)
-from .sparse import SpMat, make_inline
+from .sparse import SpMat, SpMatCCSR, make_inline, matrix
+from .ops.stencil import StencilOperator, stencil, stencil_operator
+from . import interop
 from .utils.util import ExpressionError, alignup, nextpow2, precondition
 
 __version__ = "0.1.0"

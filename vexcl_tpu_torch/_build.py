@@ -1,9 +1,11 @@
 """Kernel builds from the package's own sources, at first use.
 
-* CUDA C++ (``csrc/*.cu``): ``nvcc`` builds a shared library with a plain
-  C interface, loaded with ``ctypes``.  The library's file name carries a
-  hash of the sources and flags, so an edited source rebuilds and an
-  unchanged one is loaded from ``config.build_dir``.
+* CUDA C++ (``csrc/*.cu``): ``nvcc`` builds one shared library per entry
+  of ``LIBRARIES``, each with a plain C interface, loaded with ``ctypes``.
+  The library's file name carries a hash of the sources and flags, so an
+  edited source rebuilds and an unchanged one is loaded from
+  ``config.build_dir``.  ``build_cuda_libraries`` starts every missing
+  build at once (one ``nvcc`` per library) and waits for all of them.
 * Triton: the expression emitter's generated sources are written as
   modules under ``<build_dir>/triton/`` and imported from there
   (``@triton.jit`` reads a kernel's source with ``inspect``, so the text
@@ -23,16 +25,24 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 from .config import config
 
-__all__ = ["cuda_library", "triton_module", "import_triton", "NVCC_FLAGS"]
+__all__ = ["cuda_library", "build_cuda_libraries", "triton_module",
+           "import_triton", "NVCC_FLAGS", "LIBRARIES"]
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+#: library name -> its sources under ``csrc/``
+LIBRARIES: Dict[str, Tuple[str, ...]] = {
+    "vexcl_dia": ("dia_spmv.cu",),
+    "vexcl_sell": ("spmv_sell.cu",),
+    "vexcl_stencil": ("stencil.cu",),
+}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -59,31 +69,56 @@ def _write_atomic(path: str, data: bytes) -> None:
     os.replace(tmp, path)
 
 
-def cuda_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """Build (once) and load ``lib<name>`` from ``csrc/<sources>``."""
+def _library_path(name: str) -> Tuple[str, List[str]]:
+    """(built library path, source paths) of ``LIBRARIES[name]``."""
+    paths = [os.path.join(CSRC_DIR, s) for s in LIBRARIES[name]]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in paths:
+        with open(p, "rb") as f:
+            h.update(f.read())
+    return (os.path.join(config.build_dir,
+                         f"lib{name}-{h.hexdigest()[:16]}.so"), paths)
+
+
+def build_cuda_libraries(names: Sequence[str] = tuple(LIBRARIES)) -> None:
+    """Build the named libraries that are not built yet, one ``nvcc``
+    process each, all started together; raise if any build fails."""
+    os.makedirs(config.build_dir, exist_ok=True)
+    jobs = []
+    with _lock:
+        for name in names:
+            out, paths = _library_path(name)
+            if os.path.exists(out):
+                continue
+            tmp = f"{out}.tmp{os.getpid()}"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths]
+            jobs.append((cmd, tmp, out, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for cmd, tmp, out, proc in jobs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{log}")
+            else:
+                os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def cuda_library(name: str) -> ctypes.CDLL:
+    """Build (once) and load ``lib<name>`` (an entry of ``LIBRARIES``)."""
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        paths = [os.path.join(CSRC_DIR, s) for s in sources]
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for p in paths:
-            with open(p, "rb") as f:
-                h.update(f.read())
-        os.makedirs(config.build_dir, exist_ok=True)
-        out = os.path.join(config.build_dir,
-                           f"lib{name}-{h.hexdigest()[:16]}.so")
-        if not os.path.exists(out):
-            tmp = f"{out}.tmp{os.getpid()}"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths]
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
-                    f"{r.stdout}{r.stderr}")
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(out)
-        _libs[name] = lib
+    build_cuda_libraries([name])
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(_library_path(name)[0])
+            _libs[name] = lib
         return lib
 
 

@@ -1,10 +1,11 @@
 """Thread-safe object/kernel caches with a global purge registry.
 
 Port of ``vexcl_tpu/cache.py`` (vexcl/cache.hpp:49-183: ``object_cache``,
-``kernel_cache``, ``purge_caches``).  The cached objects are built
-expression kernels keyed by (structural signature, leaf dtypes, scalar
-types, assignment op, output dtype); Triton keeps its own compiled-binary
-cache below that (``TRITON_CACHE_DIR``, see ``_build.py``).
+``kernel_cache``, ``purge_caches``) and its ``fn_token``.  The cached
+objects are built expression kernels keyed by (structural signature,
+leaf dtypes, scalar types, assignment op, output dtype); Triton keeps its
+own compiled-binary cache below that (``TRITON_CACHE_DIR``, see
+``_build.py``).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import threading
 from typing import Any, Callable, Dict, Hashable, List
 
-__all__ = ["ObjectCache", "kernel_cache", "purge_caches"]
+__all__ = ["ObjectCache", "kernel_cache", "purge_caches", "fn_token"]
 
 
 class ObjectCache:
@@ -66,8 +67,30 @@ def purge_caches() -> None:
         caches = list(_registry)
     for c in caches:
         c.purge()
+    with _fn_token_lock:
+        _fn_tokens.clear()
 
 
 #: The expression-kernel cache (kernel_cache analog, cache.hpp:165).
 kernel_cache = ObjectCache("kernels")
 
+
+# A user callable (a StencilOperator body) never appears in a structural
+# signature, so the signature carries a token of its identity: two
+# callables sharing a name must not share a kernel.  Tokens hold a strong
+# reference, so a collected function's id is never recycled onto a live
+# token; purge_caches drops them with the kernels.
+_fn_token_lock = threading.Lock()
+_fn_tokens: Dict[int, Any] = {}  # id(fn) -> (token, fn)
+_fn_next = [0]
+
+
+def fn_token(fn: Any) -> int:
+    """Per-process stable token identifying a callable for signature use."""
+    with _fn_token_lock:
+        hit = _fn_tokens.get(id(fn))
+        if hit is not None:
+            return hit[0]
+        _fn_next[0] += 1
+        _fn_tokens[id(fn)] = (_fn_next[0], fn)
+        return _fn_next[0]

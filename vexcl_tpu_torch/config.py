@@ -7,8 +7,9 @@ flags keep their names and environment variables.  The TPU-only knobs
 counterpart here: a CPU tensor takes each kernel's plain PyTorch version,
 and an assignment writes into the destination tensor in place.
 
-``build_dir`` replaces the XLA cache directory: the CUDA library built by
-``_build.py`` and the generated Triton sources live there.
+``build_dir`` replaces the XLA cache directory: the CUDA libraries built
+by ``_build.py`` and the generated Triton sources live there.
+``ccsr_cache_mb`` is the JAX package's ``VEXTPU_CCSR_CACHE_MB`` budget.
 """
 
 from __future__ import annotations
@@ -45,6 +46,12 @@ class _Config:
         #: the package, which .gitignore lists.
         self.build_dir: str = os.environ.get(
             "VEXTPU_TORCH_BUILD_DIR", os.path.join(_PKG_DIR, "_build"))
+
+        #: Device memory (MiB) up to which ``SpMatCCSR`` keeps its DIA
+        #: expansion (VEXTPU_CCSR_CACHE_MB, the JAX package's budget): 256
+        #: admits the 256^3 Poisson matrix (7 bf16 planes, 224 MiB).
+        self.ccsr_cache_mb: int = int(
+            os.environ.get("VEXTPU_CCSR_CACHE_MB", "256"))
 
 
 config = _Config()

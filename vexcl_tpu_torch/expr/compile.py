@@ -120,9 +120,11 @@ def _device_of(expr: Expr) -> torch.device:
 
 
 def evaluate(expr: Any, n: Optional[int] = None, op: str = "=",
-             out: Optional[torch.Tensor] = None, out_dtype=None):
+             out: Optional[torch.Tensor] = None, out_dtype=None,
+             device: Optional[torch.device] = None):
     """Evaluate one expression into ``out`` (in place) or into a new
-    tensor, combining with ``out``'s old value for compound ops."""
+    tensor on ``device`` (default: the expression's context's),
+    combining with ``out``'s old value for compound ops."""
     expr = as_expr(expr)
     combine = ASSIGN_OPS[op]
     if combine is not None:
@@ -138,7 +140,7 @@ def evaluate(expr: Any, n: Optional[int] = None, op: str = "=",
         if n is None:
             raise ValueError("expression has no size: include a vector or "
                              "give element_index an explicit length")
-        device = _device_of(expr)
+        device = device or _device_of(expr)
     expr, analysis, types, leaves = prepare(expr, n, device)
     if out is None:
         dt = (dtype_of(out_dtype) if out_dtype is not None

@@ -213,7 +213,10 @@ class Expr:
                 return n
         return None
 
-    def vector_terminals(self) -> List["VectorTerminal"]:
+    def vector_terminals(self, sized_only: bool = False
+                         ) -> List["VectorTerminal"]:
+        """The vector leaves; with ``sized_only``, only those reached
+        through size-preserving nodes (not beneath an SpMV)."""
         out: List[VectorTerminal] = []
         stack: List[Expr] = [self]
         seen = set()
@@ -224,7 +227,8 @@ class Expr:
             seen.add(id(e))
             if isinstance(e, VectorTerminal):
                 out.append(e)
-            stack.extend(e.children)
+            if e._size_transparent or not sized_only:
+                stack.extend(e.children)
         return out
 
     # -- python protocol ----------------------------------------------------
@@ -838,13 +842,14 @@ def if_else(cond: Any, a: Any, b: Any) -> Where:
 
 
 def expression_properties(expr: Expr):
-    """(size, context) deduced from the first vector terminal
-    (get_expression_properties, operations.hpp:1411)."""
+    """(size, context) of an expression (get_expression_properties,
+    operations.hpp:1411): the context of its first vector terminal; the
+    size of the first one outside any SpMV, else the size hint (an
+    SpMV's row count, so ``Sum(A * x)`` works for rectangular A)."""
     from ..context import current_context
 
     terms = expr.vector_terminals()
-    if terms:
-        v = terms[0].vec
-        return v.size, v.context
-    return expr.size_hint(), current_context(required=False)
+    ctx = terms[0].vec.context if terms else current_context(required=False)
+    sized = expr.vector_terminals(sized_only=True)
+    return (sized[0].vec.size if sized else expr.size_hint()), ctx
 

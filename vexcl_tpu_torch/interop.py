@@ -3,9 +3,9 @@
 Port of part of ``vexcl_tpu/interop.py`` (the vexcl/external/* analog):
 ``from_numpy``, ``to_numpy`` and ``cg``.  The JAX package's ``cg`` is one
 jitted ``lax.while_loop``; here it is written with the port's own API, so
-every step runs through the port's kernels: ``A * p`` the DIA kernel,
-each ``Sum`` the map-reduce kernel, each vector update the expression
-kernel.  The stopping rule is the JAX package's (interop.py:89-139):
+every step runs through the port's kernels: ``A * p`` the matrix's
+SpMV kernel (DIA, SELL, CSR), each ``Sum`` the map-reduce kernel, each
+vector update the expression kernel.  The stopping rule is the JAX package's (interop.py:89-139):
 iterate while ``r.r > tol*tol`` and ``it < maxiter``.  Each ``Sum``
 returns a host scalar, so every iteration synchronises with the device
 twice.

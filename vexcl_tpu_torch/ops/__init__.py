@@ -1,1 +1,1 @@
-"""Algorithm layer: the Reductor and its map-reduce kernel."""
+"""Algorithm layer: the Reductor and its map-reduce kernel, stencils."""

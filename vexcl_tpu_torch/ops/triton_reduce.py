@@ -17,7 +17,10 @@ Accumulation is in f32 for f32 (and 16-bit) values, as ``acc_dtype`` in
 the JAX kernel, in f64 for f64 and in i64 for integer SUM.  The kernel
 serves every size: the TPU's ``n >= 2*BLOCK`` threshold was a TPU choice.
 Pass 1 is bound by device memory bandwidth (one read of each leaf); pass
-2 reads ``n / BLOCK`` partials.  MIN and MAX do not propagate NaN.
+2 reads ``n / BLOCK`` partials.  MIN and MAX propagate NaN, as ``jnp.min``
+and ``jnp.max`` do: both passes combine floats with ``tl.minimum`` /
+``tl.maximum`` under ``propagate_nan=ALL`` (``tl.min`` and ``tl.max``
+drop NaN).  Tail lanes still hold the identity, +-inf.
 
 ``map_reduce`` is the wrapper: the kernel for CUDA tensors, the plain
 PyTorch reduction of the tree's ``emit`` for CPU tensors.
@@ -32,8 +35,8 @@ import torch
 from ..cache import kernel_cache
 from ..config import config
 from ..expr.node import Analysis, Expr
-from ..expr.triton_emit import (_HEADER, body, jit_header, kernel_key,
-                                launch_args, plain_value, tl_type)
+from ..expr.triton_emit import (_HEADER, _NAN_ALL, body, jit_header,
+                                kernel_key, launch_args, plain_value, tl_type)
 from ..types import dtype_of_code
 
 __all__ = ["map_reduce", "map_reduce_plain", "reduce_source", "acc_code",
@@ -76,18 +79,23 @@ def reduce_source(expr: Expr, analysis: Analysis, types: Dict[int, str],
     acc = acc_code(kind, types[id(expr)])
     lines, res = body(expr, analysis, types, acc)
     ident = f"tl.full([BLOCK], {_identity(kind, acc)}, {tl_type(acc)})"
-    red = {"SUM": "tl.sum", "MIN": "tl.min", "MAX": "tl.max"}[kind]
-    comb = {"SUM": "acc + v", "MIN": "tl.minimum(acc, v)",
-            "MAX": "tl.maximum(acc, v)"}[kind]
-    src = [_HEADER,
-           jit_header("partial_kernel", analysis, ["part_ptr"],
-                      ["n", "BLOCK: tl.constexpr"]),
-           "    pid = tl.program_id(0)\n",
-           "    offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)\n",
-           "    mask = offs < n\n"]
+    src = [_HEADER]
+    if kind == "SUM":
+        red, comb = "tl.sum({}, axis=0)", "acc + v"
+    else:
+        fn = "minimum" if kind == "MIN" else "maximum"
+        nan = f", {_NAN_ALL}" if dtype_of_code(acc).is_floating_point else ""
+        src.append(f"@triton.jit\ndef combine(a, b):\n"
+                   f"    return tl.{fn}(a, b{nan})\n\n\n")
+        red, comb = "tl.reduce({}, 0, combine)", "combine(acc, v)"
+    src += [jit_header("partial_kernel", analysis, ["part_ptr"],
+                       ["n", "BLOCK: tl.constexpr"]),
+            "    pid = tl.program_id(0)\n",
+            "    offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)\n",
+            "    mask = offs < n\n"]
     src += [f"    {line}\n" for line in lines]
     src += [f"    v = tl.where(mask, {res}, {ident})\n",
-            f"    tl.store(part_ptr + pid, {red}(v, axis=0))\n\n\n",
+            f"    tl.store(part_ptr + pid, {red.format('v')})\n\n\n",
             "@triton.jit\n",
             "def final_kernel(part_ptr, out_ptr, m, BLOCK: tl.constexpr):\n",
             f"    acc = {ident}\n",
@@ -95,7 +103,7 @@ def reduce_source(expr: Expr, analysis: Analysis, types: Dict[int, str],
             "        o = start + tl.arange(0, BLOCK)\n",
             f"        v = tl.load(part_ptr + o, mask=o < m, other={ident})\n",
             f"        acc = {comb}\n",
-            f"    tl.store(out_ptr, {red}(acc, axis=0))\n"]
+            f"    tl.store(out_ptr, {red.format('acc')})\n"]
     return "".join(src)
 
 

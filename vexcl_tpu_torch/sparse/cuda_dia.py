@@ -41,7 +41,7 @@ def result_dtype(vals_dtype: torch.dtype, x_dtype: torch.dtype) -> torch.dtype:
 def _lib():
     from .._build import cuda_library
 
-    lib = cuda_library("vexcl_dia", ["dia_spmv.cu"])
+    lib = cuda_library("vexcl_dia")
     if not getattr(lib, "_vex_bound", False):
         for name in _ENTRY.values():
             fn = getattr(lib, name)
