@@ -41,7 +41,11 @@ kernels (``y = 3*x``, a two-input axpy) and a user Triton kernel through
 card, a dlpack round trip, the profiler around the gbm run, and
 ``interop.bicgstab`` in f32 on the phase-6 matrix made non-symmetric and
 diagonally dominant, against the same BiCGStab in plain PyTorch f64 on
-the card.  Each phase's launch counters are set to 0 just before its API
+the card.  Last, after every solver phase (so that no solver follows
+these timings' profiler session or cuSPARSE call), the
+map-reduce's device time by the profiler and the DIA row's library call,
+cuSPARSE's CSR product of the Poisson 256^3 matrix in f32 on phase 3's
+x.  Each phase's launch counters are set to 0 just before its API
 run and read just after.  Times come from CUDA events (kernels) or the host clock
 around synchronised work (solves, construction).  The kernels line gives
 each kernel's bound, the larger of its bytes over the card's 3.35 TB/s
@@ -52,7 +56,13 @@ SM clock; the SM's 4 schedulers x 32 thread instructions a clock are the
 ceiling of integer work, which the INT32 and FMA pipes share), counted
 from this run's inputs, and the time of one PyTorch call that
 computes the same function where there is one (``library_ms``; the port
-never calls it).
+never calls it).  The map-reduce (``Sum(p*Ap)``, 256^3 f32) and CSR rows
+time the kernel and its library call in turns (kernel, library, library,
+kernel, ...: TURNS timings of 100 launches each) and give medians with
+their ranges (``ms_range``, ``library_ms_range``); the map-reduce row
+adds its device time per call by the profiler (``device_us``) and the
+host's time per call on the host clock without a sync (``host_us``, and
+``library_host_us`` for ``torch.dot``).
 
 Tolerances, relative to the largest magnitude of the plain result:
 f32 elementwise 1e-5 and f64 1e-12 (a few ulp: FMA contraction,
@@ -85,6 +95,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -112,6 +123,8 @@ SCAN_TOL = {"f32": 1e-5, "f64": 1e-12}
 RUN = 64                      # the bench's key runs (bench.py:584-609)
 RBK_N_LARGE = (1 << 25) + 7
 KERNEL_REPS = 100             # launches per timing of the kernels line
+TURNS = 5                     # timings each of a kernel and its library call
+HOST_CALLS = 200              # calls timed on the host clock, no sync
 HBM_BYTES_S = 3.35e12         # H100 SXM: NVIDIA's data sheet
 F32_OPS_S = 67e12
 # H100 SXM: 132 SMs, each issuing at most 4 warp instructions (128 thread
@@ -200,6 +213,36 @@ def cuda_ms(fn, reps: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def in_turns(kernel_fn, library_fn):
+    """A kernel and its library call timed in turns (kernel, library,
+    library, kernel, ...), TURNS timings of KERNEL_REPS launches each:
+    the median and the range of each, in ms."""
+    ks, ls = [], []
+    for r in range(TURNS):
+        pair = ((kernel_fn, ks), (library_fn, ls))
+        for fn, got in (pair if r % 2 == 0 else pair[::-1]):
+            got.append(cuda_ms(fn, KERNEL_REPS))
+    return {"ms": statistics.median(ks), "ms_range": [min(ks), max(ks)],
+            "library_ms": statistics.median(ls),
+            "library_ms_range": [min(ls), max(ls)]}
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host clock per call over ``calls`` calls without a sync, after one:
+    fewer launches than the launch queue holds, so it reads what the host
+    spends to enqueue a call, not the device's time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def bound(nbytes, nops=0, ops_s=F32_OPS_S):
@@ -574,7 +617,9 @@ def main() -> int:
                 abs_err, cuda_ms(lambda: dia_matvec(
                     D.n, D.m, D.offsets, D.offsets_dev, D.vals, x.storage),
                     KERNEL_REPS),
-                plain_ms, tensor_bytes(D.vals, x.storage, k), 2 * A.nnz, None)
+                plain_ms, tensor_bytes(D.vals, x.storage, k), 2 * A.nnz,
+                None)             # cuSPARSE's time: at the end
+            dia_xy = (x.storage, k)
             A_poisson256 = A      # the DIA SpMat that phase 7 compares with
         del A, D, x, y, y0, ref, k, p
         torch.cuda.empty_cache()
@@ -643,19 +688,31 @@ def main() -> int:
         3 * nrows * 4, 2 * nrows,
         cuda_ms(lambda: torch.add(rv.storage, pv.storage, alpha=0.7),
                 KERNEL_REPS))
-    e, an, ty, lv = prepare(pv * Apv, nrows, dev)
-    k = map_reduce(e, an, ty, lv, nrows, "SUM", dev).item()
+    pap = prepare(pv * Apv, nrows, dev)      # kept for the profiler, last
+    e, an, ty, lv = pap
+    pap_k = map_reduce(e, an, ty, lv, nrows, "SUM", dev).item()
     p_ = map_reduce_plain(e, an, ty, lv, nrows, "SUM", dev).item()
+
+    def sum_pap():
+        return map_reduce(*pap, nrows, "SUM", dev)
+
+    def dot_pap():
+        return torch.dot(pv.storage, Apv.storage)
+    turns = in_turns(sum_pap, dot_pap)
     kernels["reduce"] = kernel_row(
-        abs(k - p_),
-        cuda_ms(lambda: map_reduce(e, an, ty, lv, nrows, "SUM", dev),
-                KERNEL_REPS),
+        abs(pap_k - p_), turns["ms"],
         cuda_ms(lambda: map_reduce_plain(e, an, ty, lv, nrows, "SUM", dev),
                 KERNEL_REPS),
-        2 * nrows * 4, 2 * nrows,
-        cuda_ms(lambda: torch.dot(pv.storage, Apv.storage), KERNEL_REPS))
+        2 * nrows * 4, 2 * nrows, turns["library_ms"])
+    # the host's time per call (host clock; the device's comes from the
+    # profiler at the end): back to back, the events above read the
+    # larger of the two
+    kernels["reduce"].update(
+        ms_range=turns["ms_range"],
+        library_ms_range=turns["library_ms_range"],
+        host_us=host_us(sum_pap), library_host_us=host_us(dot_pap))
 
-    del solver, u, pv, rv, Apv, xr, b64, vals64, x64
+    del solver, u, rv, xr, b64, vals64, x64
     torch.cuda.empty_cache()
 
     # -- phase 5: the 1-D stencil -------------------------------------------
@@ -840,20 +897,28 @@ def main() -> int:
         rec = {"host_build_s": build_s, "launches": launches}
         if fmt == "csr":
             csr_ref = csr_spmv_plain(D.n, D.ptr, D.col, D.val, x32.storage)
-            k = csr_spmv(D.n, D.ptr, D.col, D.val, x32.storage)
+
+            def csr_kernel():
+                return csr_spmv(D.n, D.ptr, D.col, D.val, x32.storage,
+                                blocks=D.blocks)
+            k = csr_kernel()
             abs_err, rel = errors(k, csr_ref)
             check(rel <= SPMV_TOL["f32"], f"CSR kernel: rel err {rel}")
-            ms = cuda_ms(lambda: csr_spmv(D.n, D.ptr, D.col, D.val,
-                                          x32.storage))
+            check(torch.equal(csr_kernel(), k), "CSR kernel differs "
+                  "between two runs")
             plain_ms = cuda_ms(lambda: csr_spmv_plain(D.n, D.ptr, D.col,
                                                       D.val, x32.storage))
+            turns = in_turns(csr_kernel, lambda: lib_csr @ x32.storage)
+            ms = turns["ms"]
             kernels["csr"] = kernel_row(
-                abs_err, cuda_ms(lambda: csr_spmv(
-                    D.n, D.ptr, D.col, D.val, x32.storage), KERNEL_REPS),
-                plain_ms, tensor_bytes(D.ptr, D.col, D.val, x32.storage, k),
-                2 * nnz, lib_csr_ms)
+                abs_err, ms, plain_ms,
+                tensor_bytes(D.ptr, D.col, D.val, x32.storage, k),
+                2 * nnz, turns["library_ms"])
+            kernels["csr"].update(ms_range=turns["ms_range"],
+                                  library_ms_range=turns["library_ms_range"])
             main_launches["csr"] = launches["csr"]
-            rec.update(max_abs_err=abs_err, max_rel_err=rel, ms=ms,
+            rec.update(max_abs_err=abs_err, max_rel_err=rel,
+                       row_blocks=int(D.blocks.numel()) - 1, **turns,
                        plain_ms=plain_ms,
                        gflops=2 * nnz / (ms * 1e-3) / 1e9)
         else:
@@ -865,7 +930,7 @@ def main() -> int:
                 base = sell_spmv(D.n, D.slice_ptr, D.col, D.val, D.perm,
                                  x32.storage)
                 k = csr_spmv(D.n, T.ptr, T.col, T.val, x32.storage, T.rows,
-                             out=base.clone())
+                             out=base.clone(), blocks=T.blocks)
                 p = csr_spmv_plain(D.n, T.ptr, T.col, T.val, x32.storage,
                                    T.rows, out=base.clone())
                 _, rel = errors(k, p)
@@ -1538,6 +1603,39 @@ def main() -> int:
         "launches": launches})
     del A, b, u, bm, b64, xr, x64
     del ptr, col, val
+    torch.cuda.empty_cache()
+
+    # last, after every solver phase, so that no solver's ms per iteration
+    # (compared between versions of this script) follows these timings'
+    # profiler session or cuSPARSE call: the
+    # map-reduce's device time per call, and the DIA row's library call,
+    # cuSPARSE's CSR product of the Poisson matrix with f32 values (the
+    # DIA kernel reads bf16 planes) on phase 3's x
+    per_kernel, _ = profile_call(sum_pap, KERNEL_REPS)
+    kernels["reduce"]["device_us"] = sum(
+        v for name, v in per_kernel.items() if "reduce_kernel" in name)
+    check(kernels["reduce"]["device_us"] > 0,
+          "the profiler saw no map-reduce kernel")
+    report("reduce_sum_pAp_256^3_f32", {
+        "kernel": pap_k, "plain": p_, "profile": per_kernel,
+        **{key: kernels["reduce"][key] for key in (
+            "ms", "ms_range", "library_ms", "library_ms_range", "device_us",
+            "host_us", "library_host_us")}})
+    del pv, Apv, pap
+    ptr, col, val = poisson_7pt(POISSON_N, dtype=np.float32)
+    lib_dia = torch.sparse_csr_tensor(
+        torch.from_numpy(ptr).to(dev, torch.int32),
+        torch.from_numpy(col).to(dev, torch.int32),
+        torch.from_numpy(val).to(dev), size=(nrows, nrows),
+        check_invariants=False)
+    del ptr, col, val
+    _, lib_rel = errors(lib_dia @ dia_xy[0], dia_xy[1])
+    check(lib_rel <= SPMV_TOL["f32"], f"cuSPARSE Poisson: rel err {lib_rel}")
+    kernels["dia"]["library_ms"] = cuda_ms(lambda: lib_dia @ dia_xy[0],
+                                           KERNEL_REPS)
+    report("spmv_poisson256_cusparse_f32", {
+        "ms": kernels["dia"]["library_ms"], "max_rel_err_vs_dia": lib_rel})
+    del lib_dia, dia_xy
     torch.cuda.empty_cache()
 
     rows = [

@@ -161,15 +161,25 @@ def test_integer_floor_semantics_kernel(gpu):
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kind", ["SUM", "MIN", "MAX"])
-@pytest.mark.parametrize("n", [1000, N, (1 << 20) + 12345])
+# one element, a tile less one, one tile, and (5 << 20) + 777: 1281 tiles
+# of 4096, so on a 132-SM card the persistent grid's last round is ragged
+@pytest.mark.parametrize("n", [1, 4095, 4096, 1000, N, (1 << 20) + 12345,
+                               (5 << 20) + 777])
 def test_map_reduce_kernel_matches_plain(gpu, kind, dt, n):
+    """One launch per reduction, the plain result within tolerance, and
+    the same bits from three calls."""
     rng = np.random.default_rng(4)
     npdt = np.float64 if dt == torch.float64 else np.float32
     x = _vec(gpu, rng.random(n).astype(npdt))
     y = _vec(gpu, rng.random(n).astype(npdt) - 0.5)
     for expr in (x * y, vex.exp(x)):
         e, analysis, types, leaves = prepare(expr, n, gpu.device)
-        k = map_reduce(e, analysis, types, leaves, n, kind, gpu.device).item()
+        before = map_reduce.launches
+        ks = [map_reduce(e, analysis, types, leaves, n, kind, gpu.device)
+              for _ in range(3)]
+        assert map_reduce.launches == before + 3
+        assert all(torch.equal(a, ks[0]) for a in ks[1:])
+        k = ks[0].item()
         p = map_reduce_plain(e, analysis, types, leaves, n, kind,
                              gpu.device).item()
         tol = {torch.float32: 1e-5, torch.float64: 1e-10}[dt]
@@ -177,6 +187,27 @@ def test_map_reduce_kernel_matches_plain(gpu, kind, dt, n):
             assert abs(k - p) <= tol * max(1.0, abs(p)), (k, p)
         else:
             assert k == p
+
+
+def test_map_reduce_on_two_streams(gpu):
+    """Reductions enqueued on two streams at once each get their own
+    partials and ticket: every result is right."""
+    n = 1 << 22
+    a = _vec(gpu, np.ones(n, np.float32))
+    b = _vec(gpu, np.full(n, 2, np.float32))
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    res = []
+    for _ in range(20):
+        for s, v in ((s1, a), (s2, b)):
+            with torch.cuda.stream(s):
+                e, analysis, types, leaves = prepare(v * 1.0, n, gpu.device)
+                res.append((map_reduce(e, analysis, types, leaves, n, "SUM",
+                                       gpu.device), float(v.storage[0]) * n))
+    torch.cuda.synchronize()
+    assert all(r.item() == want for r, want in res)
+    i = _vec(gpu, np.arange(100000, dtype=np.int32))
+    assert vex.Reductor(vex.SUM)(i * 3) == 3 * 99999 * 100000 // 2
 
 
 def test_reductor_raises_on_uncovered_kinds(gpu):
@@ -388,6 +419,74 @@ def test_sparse_kernels_match_plain(gpu, fmt, dt, nm):
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["empty_rows", "row_100k", "one_block", "n1",
+                                  "n1_empty", "medium_rows", "hyb_tail",
+                                  "sellr_tail", "lognormal"])
+def test_csr_row_blocks_match_plain(gpu, case, dt):
+    """The row-block CSR kernel against its plain version: integer data
+    (exact in any order) for the shapes of the plan, random values within
+    the SpMV tolerance for the tails (``rows`` + ``out``) and the bench's
+    lognormal row lengths."""
+    from vexcl_tpu_torch.sparse.cuda_sell import csr_spmv, csr_spmv_plain
+    from vexcl_tpu_torch.sparse.formats import from_csr_host
+
+    rng = np.random.default_rng(16)
+    npdt = np.float64 if dt == torch.float64 else np.float32
+    m = 5000
+    lens = {"empty_rows": rng.poisson(6, 20000) * (np.arange(20000) % 9 > 0),
+            "row_100k": np.r_[rng.poisson(6, 1500), 100000,
+                              rng.poisson(6, 1500)],
+            "one_block": rng.poisson(5, 100), "n1": [7], "n1_empty": [0],
+            "medium_rows": rng.integers(0, 1500, 3000),
+            "lognormal": np.maximum(1, rng.lognormal(np.log(16) - 0.32, 0.8,
+                                                     50000).astype(int))
+            }.get(case, rng.poisson(8, 20000))
+    lens = np.asarray(lens, np.int64)
+    if case.endswith("tail"):
+        lens[[3, 700, 701]] = [300, 3000, 9000]   # past SELL's spill length
+    n = len(lens)
+    ptr = np.concatenate([[0], np.cumsum(lens)])
+    col = rng.integers(0, m, int(ptr[-1]))
+    exact = case not in ("hyb_tail", "sellr_tail", "lognormal")
+    val = (rng.integers(-4, 5, int(ptr[-1])) if exact
+           else rng.standard_normal(int(ptr[-1]))).astype(npdt)
+    x = torch.from_numpy((rng.integers(-3, 4, m) if exact
+                          else rng.standard_normal(m)).astype(npdt))
+    x = x.to(gpu.device)
+    fmt = case[:-5] if case.endswith("tail") else "csr"
+    A = from_csr_host(n, m, ptr, col, val, fmt, device=gpu.device)
+    T = A if fmt == "csr" else A.tail
+    base = None if fmt == "csr" else torch.from_numpy(
+        rng.standard_normal(n).astype(npdt)).to(gpu.device)
+    before = csr_spmv.launches
+    k = csr_spmv(n, T.ptr, T.col, T.val, x, T.rows,
+                 None if base is None else base.clone(), T.blocks)
+    p = csr_spmv_plain(n, T.ptr, T.col, T.val, x, T.rows,
+                       None if base is None else base.clone())
+    torch.cuda.synchronize()
+    assert csr_spmv.launches == before + 1
+    assert torch.equal(csr_spmv(n, T.ptr, T.col, T.val, x, T.rows,
+                                None if base is None else base.clone(),
+                                T.blocks), k)          # deterministic
+    if exact:
+        assert k.dtype == p.dtype == dt and torch.equal(k, p)
+    else:
+        _close(k, p, 1e-5 if dt == torch.float32 else 1e-12)
+        _close(A.apply(x), csr_spmv_plain(n, A.ptr, A.col, A.val, x)
+               if fmt == "csr" else _csr_plain_full(n, ptr, col, val, x),
+               1e-5 if dt == torch.float32 else 1e-12)
+
+
+def _csr_plain_full(n, ptr, col, val, x):
+    from vexcl_tpu_torch.sparse.cuda_sell import csr_spmv_plain
+
+    dev = x.device
+    return csr_spmv_plain(n, torch.from_numpy(ptr).to(dev),
+                          torch.from_numpy(col.astype(np.int32)).to(dev),
+                          torch.from_numpy(val).to(dev), x)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
 def test_sparse_kernels_random_values(gpu, dt):
     n = 20000
     ptr, col, val = _irregular(n, n, 3, long_rows=(5,))
@@ -436,6 +535,12 @@ def test_sparse_uncovered_pairs_raise(gpu):
         with pytest.raises(NotImplementedError):
             B.device.apply(torch.ones(n, dtype=torch.int32,
                                       device=gpu.device))
+    from vexcl_tpu_torch.sparse.cuda_sell import csr_spmv
+    from vexcl_tpu_torch.sparse.formats import CSR
+
+    D = CSR(n, n, ptr, col, val.astype(np.float32), device=gpu.device)
+    with pytest.raises(ValueError, match="row blocks"):   # the plan
+        csr_spmv(n, D.ptr, D.col, D.val, torch.ones(n, device=gpu.device))
 
 
 @pytest.mark.parametrize("cache", [None, False])

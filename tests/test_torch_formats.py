@@ -23,6 +23,9 @@ from vexcl_tpu.sparse.shuffle import SELLR as JaxSELLR
 from vexcl_tpu.utils.poisson import poisson_7pt, poisson_7pt_ccsr
 from vexcl_tpu_torch.sparse import (CSR, ELL, SELLR, Hybrid, SpMatCCSR,
                                     choose_ell_width, default_format)
+from vexcl_tpu_torch.sparse.cuda_sell import (ROW_BLOCK_ENTRIES,
+                                              ROW_BLOCK_ROWS, row_blocks)
+from vexcl_tpu_torch.sparse.formats import from_csr_host
 from vexcl_tpu_torch.sparse.sell import LONG_ROW
 
 FORMATS = ("csr", "ell", "hyb", "sellr")
@@ -190,6 +193,104 @@ def test_format_policy(tctx):
     bad[3] = n
     with pytest.raises(ValueError):
         vt.SpMat(n, n, ptr, bad, val, fmt="sellr", context=tctx)
+
+
+def _check_plan(ptr, blocks, nrows):
+    """Every stored row in exactly one block, blocks in row order; at
+    most ROW_BLOCK_ROWS rows and fewer than ROW_BLOCK_ENTRIES entries a
+    block, unless the block is one row."""
+    ptr = np.asarray(ptr, np.int64)
+    b = np.asarray(blocks)
+    assert b.dtype == np.int32 and len(ptr) == nrows + 1
+    assert b[0] == 0 and b[-1] == nrows
+    rows = np.diff(b)
+    assert np.all(rows > 0) and np.all(rows <= ROW_BLOCK_ROWS)
+    entries = ptr[b[1:]] - ptr[b[:-1]]
+    assert np.all((entries < ROW_BLOCK_ENTRIES) | (rows == 1))
+    return b
+
+
+def _plan_product(ptr, col, val, x, blocks):
+    """y = A x computed block by block as the CSR kernel walks the plan:
+    each block's products from its own run of entries, rows summed from
+    there."""
+    y = np.zeros(len(ptr) - 1)
+    for r0, r1 in zip(blocks[:-1], blocks[1:]):
+        e0 = ptr[r0]
+        prod = val[e0:ptr[r1]] * x[col[e0:ptr[r1]]]
+        for r in range(r0, r1):
+            y[r] = prod[ptr[r] - e0:ptr[r + 1] - e0].sum()
+    return y
+
+
+@pytest.mark.parametrize("case", ["lognormal", "long_rows", "short_rows",
+                                  "empty_rows", "empty", "no_rows",
+                                  "one_row"])
+def test_csr_row_block_plan(tctx, case):
+    rng = np.random.default_rng(80)
+    n, m = 3000, 4000
+    if case == "lognormal":
+        ptr, col, val = random_csr(n, m, 16, seed=81)
+    elif case == "long_rows":
+        lens = rng.poisson(20, n)
+        lens[[5, 6, 1000]] = [ROW_BLOCK_ENTRIES // 2 + 1, 5 * ROW_BLOCK_ENTRIES,
+                              ROW_BLOCK_ENTRIES - 1]
+        ptr = np.concatenate([[0], np.cumsum(lens)])
+        col = rng.integers(0, m, ptr[-1])
+        val = rng.standard_normal(ptr[-1])
+    elif case == "short_rows":
+        ptr = np.arange(n + 1, dtype=np.int64)       # one entry a row
+        col, val = rng.integers(0, m, n), rng.standard_normal(n)
+    elif case == "empty_rows":
+        ptr, col, val = random_csr(n, m, 6, seed=82)
+        ptr[n // 2:] = ptr[n // 2]                   # the second half empty
+        col, val = col[:ptr[-1]], val[:ptr[-1]]
+    elif case == "empty":
+        ptr, col, val = np.zeros(n + 1, np.int64), np.zeros(0, np.int64), \
+            np.zeros(0)
+    elif case == "no_rows":
+        n = 0
+        ptr, col, val = np.zeros(1, np.int64), np.zeros(0, np.int64), \
+            np.zeros(0)
+    else:
+        n = 1
+        ptr, col = np.array([0, 70]), rng.integers(0, m, 70)
+        val = rng.standard_normal(70)
+    A = CSR(n, m, ptr, col, val, device=tctx.device)
+    b = _check_plan(ptr, A.blocks.numpy(), n)
+    assert len(b) - 1 >= -(-n // ROW_BLOCK_ROWS)
+    assert np.array_equal(b, row_blocks(ptr))
+    x = rng.standard_normal(m)
+    want = A.apply(torch.from_numpy(x)).numpy()
+    _close(_plan_product(ptr, col, val, x, b), want, 1e-12)
+
+
+@pytest.mark.parametrize("fmt", ["hyb", "sellr"])
+def test_csr_tail_row_block_plan(tctx, fmt):
+    """The hybrid tail and the SELL long-row tail carry a plan over their
+    own stored rows (a subset of the matrix's, named by ``rows``)."""
+    n = 3000
+    ptr, col, val = random_csr(n, n, 9, seed=83, long_row=True)
+    ptr = ptr.copy()
+    lens = np.diff(ptr)
+    lens[[10, 11, 12]] = [LONG_ROW + 1, 3 * ROW_BLOCK_ENTRIES, 0]
+    ptr = np.concatenate([[0], np.cumsum(lens)])
+    rng = np.random.default_rng(84)
+    col, val = rng.integers(0, n, ptr[-1]), rng.standard_normal(ptr[-1])
+    A = from_csr_host(n, n, ptr, col, val, fmt, device=tctx.device)
+    T = A.tail
+    nrows = T.rows.numel()
+    b = _check_plan(T.ptr.numpy(), T.blocks.numpy(), nrows)
+    assert np.all(np.diff(T.rows.numpy()) > 0)
+    if fmt == "sellr":
+        assert T.rows.tolist() == [2, 10, 11]
+    x = rng.standard_normal(n)
+    got = np.zeros(n)
+    got[T.rows.numpy()] = _plan_product(T.ptr.numpy(), T.col.numpy(),
+                                        T.val.numpy(), x, b)
+    want = T.apply(torch.from_numpy(x),
+                   out=torch.zeros(n, dtype=torch.float64)).numpy()
+    _close(got, want, 1e-12)
 
 
 def test_sell_layout(tctx):

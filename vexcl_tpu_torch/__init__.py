@@ -4,7 +4,7 @@ The same API as ``vexcl_tpu`` for the slice ported so far: lazy vector
 expressions, each assignment one generated Triton kernel; the Reductor
 (SUM/MIN/MAX) on a Triton map-reduce kernel; ``SpMat`` in every format
 (DIA, CSR, ELL, hybrid, SELL-R) and ``SpMatCCSR`` on hand-written CUDA
-kernels (DIA, SELL-C-sigma, CSR-vector); ``stencil`` on a CUDA stencil
+kernels (DIA, SELL-C-sigma, row-block CSR); ``stencil`` on a CUDA stencil
 kernel and ``StencilOperator`` on the expression kernel; the scan family
 (``inclusive_scan``, ``exclusive_scan``, their ``_by_key`` forms and
 ``reduce_by_key``) on CUDA scan and stream-compaction kernels, and

@@ -10,19 +10,21 @@ kernels in ``csrc/spmv_sell.cu``:
   per slice.  Slice s stores its (w_s, 32) column and value planes
   column-major from ``slice_ptr[s]``; padding slots have column -1; the
   thread of sorted row r writes ``y[perm[r]]`` (``perm`` None: r);
-* ``csr_spmv``: CSR-vector, one warp per row; with ``rows`` the k-th
-  stored row is row ``rows[k]`` of y, and with ``out`` the result adds
-  onto ``out`` (a second launch into the same y, for the hybrid tail and
-  the SELL long rows).
+* ``csr_spmv``: CSR-Adaptive on row blocks (``row_blocks``): a block of
+  short rows stages its products in shared memory and sums each row from
+  there, a single long row is strided by the whole block; with ``rows``
+  the k-th stored row is row ``rows[k]`` of y, and with ``out`` the
+  result adds onto ``out`` (a second launch into the same y, for the
+  hybrid tail and the SELL long rows).
 
 Beside each, its plain PyTorch version on the same stored arrays: for
 SELL a gather, a multiply and a sum per row over the slot axis, scattered
 by ``perm``; for CSR an ``index_add_`` over row ids.  The wrappers run
 the plain version for CPU tensors and the kernel for CUDA tensors with
 (f32 values, f32 x) or (f64, f64); other pairs raise on CUDA.  Limits
-that remain: columns, ``perm`` and ``rows`` are int32, so n and m stay
-below 2^31; slot offsets and ``ptr`` are int64, so nnz is not bounded
-by int32.
+that remain: columns, ``perm``, ``rows`` and the row-block boundaries
+are int32, so n and m stay below 2^31; slot offsets and ``ptr`` are
+int64, so nnz is not bounded by int32.
 """
 
 from __future__ import annotations
@@ -30,14 +32,47 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..types import promote
 
-__all__ = ["C", "sell_spmv", "sell_spmv_plain", "csr_spmv", "csr_spmv_plain"]
+__all__ = ["C", "ROW_BLOCK_ENTRIES", "ROW_BLOCK_ROWS", "row_blocks",
+           "sell_spmv", "sell_spmv_plain", "csr_spmv", "csr_spmv_plain"]
 
 #: rows per slice: one warp
 C = 32
+
+#: a row block of the CSR kernel holds fewer entries than this (its
+#: shared-memory product buffer, ``kBlockEntries`` in csrc/spmv_sell.cu)
+#: and at most ``ROW_BLOCK_ROWS`` rows (its threads), or a single row
+ROW_BLOCK_ENTRIES = 2048
+ROW_BLOCK_ROWS = 256
+
+
+def row_blocks(ptr: np.ndarray) -> np.ndarray:
+    """The CSR kernel's row blocks: int32 boundaries ``b`` (nblocks + 1,
+    from 0 to the row count) such that rows ``b[i]:b[i+1]`` form block i.
+
+    One vectorised pass over ``ptr``: a block ends where a row starts in
+    another window of ``w = ROW_BLOCK_ENTRIES // 2`` entries, around
+    every row longer than ``w`` (which is then a block of its own), and
+    every ``ROW_BLOCK_ROWS`` rows.  The rows of a multi-row block are at
+    most w long and start inside one window, so they hold fewer than 2w
+    entries."""
+    ptr = np.asarray(ptr, dtype=np.int64)
+    n = len(ptr) - 1
+    w = ROW_BLOCK_ENTRIES // 2
+    cut = np.zeros(n + 1, dtype=bool)
+    cut[::ROW_BLOCK_ROWS] = True
+    cut[n] = True
+    start = ptr[:-1] // w
+    cut[1:n] |= start[1:] != start[:-1]
+    long = np.diff(ptr) > w
+    cut[:n] |= long
+    cut[1:] |= long
+    return np.flatnonzero(cut).astype(np.int32)
+
 
 _NAME = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -53,7 +88,7 @@ def _lib():
                                                    ctypes.c_void_p]
             fn.restype = ctypes.c_int
             fn = getattr(lib, f"vex_csr_spmv_{t}")
-            fn.argtypes = [ctypes.c_void_p] * 6 + [
+            fn.argtypes = [ctypes.c_void_p] * 7 + [
                 ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.vex_cuda_error_string.argtypes = [ctypes.c_int]
@@ -78,8 +113,9 @@ def _check(kind: str, x: torch.Tensor, val: torch.Tensor, index_arrays):
                              "device")
 
 
-def _run(lib, entry: str, *args) -> None:
-    x = args[4]
+def _run(lib, entry: str, x: torch.Tensor, *args) -> None:
+    """Launch ``entry`` on x's device and current stream; ``args`` are
+    tensors (passed as pointers), None (null) or ints."""
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = getattr(lib, entry)(*[a if isinstance(a, int) or a is None
@@ -130,7 +166,7 @@ def sell_spmv(n: int, slice_ptr: torch.Tensor, col: torch.Tensor,
     y = torch.empty(n, dtype=x.dtype, device=x.device)
     if n == 0:
         return y
-    _run(_lib(), f"vex_sell_spmv_{_NAME[x.dtype]}", slice_ptr, col, val,
+    _run(_lib(), f"vex_sell_spmv_{_NAME[x.dtype]}", x, slice_ptr, col, val,
          perm, x, y, n)
     sell_spmv.launches += 1
     return y
@@ -154,18 +190,28 @@ def csr_spmv_plain(n: int, ptr: torch.Tensor, col: torch.Tensor,
 
 def csr_spmv(n: int, ptr: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
              x: torch.Tensor, rows: Optional[torch.Tensor] = None,
-             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+             out: Optional[torch.Tensor] = None,
+             blocks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y (n) = the CSR rows times x; stored row k is row ``rows[k]`` of y
-    (all rows when ``rows`` is None).  With ``out``, adds onto it."""
+    (all rows when ``rows`` is None).  With ``out``, adds onto it.
+    ``blocks``, the kernel's plan, is ``row_blocks(ptr)`` on x's device,
+    as ``CSR`` keeps it; the kernel needs it, the plain version not."""
     if x.device.type == "cpu":
         return csr_spmv_plain(n, ptr, col, val, x, rows, out)
     if x.device.type != "cuda":
         raise NotImplementedError(f"no CSR kernel for {x.device}")
+    if blocks is None:
+        raise ValueError("CSR: the kernel needs the row blocks of ptr "
+                         "(row_blocks)")
     _check("CSR", x, val, [(ptr, torch.int64), (col, torch.int32),
-                          (rows, torch.int32), (out, x.dtype)])
+                          (rows, torch.int32), (out, x.dtype),
+                          (blocks, torch.int32)])
     nrows = ptr.shape[0] - 1
     if rows is None and nrows != n or out is not None and out.shape != (n,):
         raise ValueError(f"CSR: {nrows} stored rows for a result of {n}")
+    if blocks.dim() != 1 or blocks.shape[0] < 1 + (nrows > 0):
+        raise ValueError(f"CSR: row blocks of shape {tuple(blocks.shape)} "
+                         f"for {nrows} rows")
     if out is not None:
         y = out
     else:
@@ -173,8 +219,8 @@ def csr_spmv(n: int, ptr: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
             n, dtype=x.dtype, device=x.device)
     if nrows == 0:
         return y
-    _run(_lib(), f"vex_csr_spmv_{_NAME[x.dtype]}", ptr, col, val, rows, x, y,
-         nrows, int(out is not None))
+    _run(_lib(), f"vex_csr_spmv_{_NAME[x.dtype]}", x, ptr, col, val, blocks,
+         rows, x, y, blocks.shape[0] - 1, int(out is not None))
     csr_spmv.launches += 1
     return y
 

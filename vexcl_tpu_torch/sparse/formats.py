@@ -7,8 +7,9 @@ format is stored as SELL-32 slices for the SELL kernel of
 ``cuda_sell.py``: slice s holds its 32 rows' (w_s, 32) column and value
 planes column-major from ``slice_ptr[s]``, padding slots carry column -1.
 
-* ``CSR``: ptr (int64), col (int32), val; the CSR-vector kernel.  With
-  ``rows`` it holds a subset of the rows (the tails below).
+* ``CSR``: ptr (int64), col (int32), val and the row-block plan of the
+  CSR kernel (``blocks``, int32).  With ``rows`` it holds a subset of the
+  rows (the tails below).
 * ``ELL``: SELL-32-1 at the global width, the longest row: rows keep
   their natural order.
 * ``Hybrid``: that ELL part at the width of the reference's 3:1 rule
@@ -31,7 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .cuda_sell import C, csr_spmv, sell_spmv
+from .cuda_sell import C, csr_spmv, row_blocks, sell_spmv
 
 __all__ = ["CSR", "ELL", "Hybrid", "SlicedEll", "from_csr_host",
            "choose_ell_width", "check_csr"]
@@ -89,10 +90,12 @@ def choose_ell_width(row_len: np.ndarray) -> int:
 
 
 class CSR:
-    """Compressed sparse row (sparse/csr.hpp) on the CSR-vector kernel.
+    """Compressed sparse row (sparse/csr.hpp) on the row-block CSR kernel.
 
     ``rows`` (int32, optional) names the row of y that each stored row
-    is; the stored rows are then a subset, as in a hybrid tail."""
+    is; the stored rows are then a subset, as in a hybrid tail.
+    ``blocks`` (int32) is the kernel's plan over the stored rows
+    (``cuda_sell.row_blocks``), made once here."""
 
     format = "csr"
 
@@ -106,6 +109,7 @@ class CSR:
         self.col = _to(np.asarray(col)[:self.nnz], device, torch.int32)
         self.val = _to(np.asarray(val)[:self.nnz], device)
         self.rows = None if rows is None else _to(rows, device, torch.int32)
+        self.blocks = _to(row_blocks(ptr), device)
 
     @classmethod
     def from_arrays(cls, n: int, m: int, row_ids, col, val, *,
@@ -125,7 +129,7 @@ class CSR:
               out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """y = A x (with ``out``: out += A x)."""
         return csr_spmv(self.n, self.ptr, self.col, self.val, x, self.rows,
-                        out)
+                        out, self.blocks)
 
 
 def _tail(n: int, m: int, row: np.ndarray, drop: np.ndarray, col, val,

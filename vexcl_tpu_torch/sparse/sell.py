@@ -13,7 +13,7 @@ the port keeps the sort and drops the routes:
 * ``perm`` gives each sorted row its natural row, and the SELL kernel
   writes y there once: no y route, no atomics;
 * rows longer than ``LONG_ROW`` entries leave the slices for a CSR tail
-  that the CSR-vector kernel adds onto y, as the JAX format spills to
+  that the CSR kernel adds onto y, as the JAX format spills to
   its CSR tail (shuffle.py:1535-1536).
 
 Not ported, because they exist only for the TPU's lack of a gather: the
@@ -39,9 +39,9 @@ __all__ = ["SELLR", "SIGMA", "LONG_ROW", "sigma_order"]
 #: (and so, in a mesh matrix, their columns) near each other.
 SIGMA = 16384
 
-#: rows with more entries go to the CSR-vector kernel: from there on, a
-#: warp per row keeps each of its 32 lanes busy with at least 8 entries,
-#: where one SELL thread would carry the row alone.
+#: rows with more entries go to the CSR kernel, where a row block's
+#: threads share them (a row of over ``ROW_BLOCK_ENTRIES / 2`` entries
+#: takes a whole block) and one SELL thread would carry the row alone.
 LONG_ROW = 256
 
 
