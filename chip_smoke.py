@@ -6,6 +6,7 @@ eleven hand-written kernels against its plain PyTorch version on the same
 inputs:
 
     python3 chip_smoke.py [--seed 0] [--json results.json] [--profile]
+                          [--spills 32 256 ...]
 
 Phases: (1) the card and the kernel builds (one nvcc per CUDA source, all
 at once); (2) expressions and reductions at N = 2^24 (and 2^24 + 12345
@@ -16,11 +17,17 @@ the same CG in plain PyTorch f64 on the card; (5) the 1-D stencil at the
 bench's 2^26 f32 configuration (width 5), in place too, an asymmetric
 255-tap stencil, f64, a ``StencilOperator`` and n < width; (6) the
 irregular SpMV on the bench's lognormal matrix (2^20 rows, ~16.3M
-entries) through ``SpMat``, which picks SELL-R, in f32 and f64, and the
-csr, ell and hyb formats; (7) ``SpMatCCSR`` on Poisson 64^3 and 256^3
-against the DIA ``SpMat``; (8) ``interop.cg`` in f32 on the shifted graph
-Laplacian of the phase-6 matrix (~33M entries) against the same CG in
-plain PyTorch f64 on the card; (9) the scan family at the bench's sizes
+entries) through ``SpMat``, which picks CSR on the card (the policy of
+``sparse.default_format``), and through ``fmt="sellr"``, in f32 and f64:
+the SELL kernel and cuSPARSE on the same rows (those SELLR keeps in its
+slices), SELLR's product (SELL and its CSR tail), the CSR kernel and
+cuSPARSE on the whole matrix, timed in turns (with ``--spills``, the
+SELL kernel and SELLR's product at other spill lengths too); then the
+ell and hyb formats; (7)
+``SpMatCCSR`` on Poisson 64^3 and 256^3 against the DIA ``SpMat``; (8)
+``interop.cg`` in f32 on the shifted graph Laplacian of the phase-6
+matrix (~33M entries, the default format) against the same CG in plain
+PyTorch f64 on the card; (9) the scan family at the bench's sizes
 (bench.py:474-660): ``inclusive_scan`` of 2^24 f32 (and 2^24 + 12345, in
 place, f64), running MAX and MIN with a NaN, ``inclusive_scan_by_key``
 and ``exclusive_scan_by_key`` over i32 keys in runs of 64,
@@ -42,8 +49,11 @@ card, a dlpack round trip, the profiler around the gbm run, and
 ``interop.bicgstab`` in f32 on the phase-6 matrix made non-symmetric and
 diagonally dominant, against the same BiCGStab in plain PyTorch f64 on
 the card.  Last, after every solver phase (so that no solver follows
-these timings' profiler session or cuSPARSE call), the
-map-reduce's device time by the profiler and the DIA row's library call,
+these timings' profiler session or cuSPARSE call), the device time per
+call by the profiler of the map-reduce, the compaction (one and two
+payloads, and ``x[flags]``) and the irregular SpMV's SELL, CSR and
+cuSPARSE products (cuSPARSE on the SELL kernel's rows and on the whole
+matrix; f32 and f64), and the DIA row's library call,
 cuSPARSE's CSR product of the Poisson 256^3 matrix in f32 on phase 3's
 x.  Each phase's launch counters are set to 0 just before its API
 run and read just after.  Times come from CUDA events (kernels) or the host clock
@@ -56,13 +66,17 @@ SM clock; the SM's 4 schedulers x 32 thread instructions a clock are the
 ceiling of integer work, which the INT32 and FMA pipes share), counted
 from this run's inputs, and the time of one PyTorch call that
 computes the same function where there is one (``library_ms``; the port
-never calls it).  The map-reduce (``Sum(p*Ap)``, 256^3 f32) and CSR rows
-time the kernel and its library call in turns (kernel, library, library,
-kernel, ...: TURNS timings of 100 launches each) and give medians with
-their ranges (``ms_range``, ``library_ms_range``); the map-reduce row
-adds its device time per call by the profiler (``device_us``) and the
-host's time per call on the host clock without a sync (``host_us``, and
-``library_host_us`` for ``torch.dot``).
+never calls it).  The map-reduce (``Sum(p*Ap)``, 256^3 f32), SELL, CSR
+and compaction rows time the kernel and its library call in turns
+(kernel, library, library, kernel, ...: TURNS timings of 100 launches
+each; the SELL row's library call is cuSPARSE on the rows SELLR keeps in
+its slices, the same work) and give medians with their ranges (``ms_range``,
+``library_ms_range``), the device time per call by the profiler
+(``device_us``) and the host's time per call on the host clock without a
+sync (``host_us``; ``library_host_us`` for ``torch.dot``).  The
+compaction row times one payload, as ``x[flags]`` moves one; its
+``two_payload_*`` keys give the two-payload call that reduce_by_key
+makes.
 
 Tolerances, relative to the largest magnitude of the plain result:
 f32 elementwise 1e-5 and f64 1e-12 (a few ulp: FMA contraction,
@@ -215,18 +229,25 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def in_turns(kernel_fn, library_fn):
-    """A kernel and its library call timed in turns (kernel, library,
-    library, kernel, ...), TURNS timings of KERNEL_REPS launches each:
-    the median and the range of each, in ms."""
-    ks, ls = [], []
+def in_turns(fns):
+    """Functions timed in turns (in the given order, then reversed, ...),
+    TURNS timings of KERNEL_REPS launches each: name -> {"ms": median,
+    "ms_range": [min, max]}."""
+    got = {name: [] for name in fns}
+    order = list(fns)
     for r in range(TURNS):
-        pair = ((kernel_fn, ks), (library_fn, ls))
-        for fn, got in (pair if r % 2 == 0 else pair[::-1]):
-            got.append(cuda_ms(fn, KERNEL_REPS))
-    return {"ms": statistics.median(ks), "ms_range": [min(ks), max(ks)],
-            "library_ms": statistics.median(ls),
-            "library_ms_range": [min(ls), max(ls)]}
+        for name in (order if r % 2 == 0 else order[::-1]):
+            got[name].append(cuda_ms(fns[name], KERNEL_REPS))
+    return {name: {"ms": statistics.median(v), "ms_range": [min(v), max(v)]}
+            for name, v in got.items()}
+
+
+def turns_row(turns, kernel, library):
+    """The kernels line's timing keys from ``in_turns``: the kernel's and
+    its library call's medians and ranges."""
+    return {"ms": turns[kernel]["ms"], "ms_range": turns[kernel]["ms_range"],
+            "library_ms": turns[library]["ms"],
+            "library_ms_range": turns[library]["ms_range"]}
 
 
 def host_us(fn, calls: int = HOST_CALLS) -> float:
@@ -419,9 +440,14 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", help="also write every result to this file")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace phase 9's API calls and the Monte-Carlo "
-                         "models with torch.profiler and print the device "
-                         "time of each kernel")
+                    help="also trace ten Laplacian CG iterations, phase 9's "
+                         "API calls and the Monte-Carlo models with "
+                         "torch.profiler and print the device time of each "
+                         "kernel")
+    ap.add_argument("--spills", type=int, nargs="*", default=[],
+                    help="also time, in phase 6's turns, the SELL kernel and "
+                         "SELLR's product with rows spilled over each of "
+                         "these lengths instead of LONG_ROW")
     args = ap.parse_args()
 
     import numpy as np
@@ -447,8 +473,10 @@ def main() -> int:
     from vexcl_tpu_torch.ops.cuda_stencil import stencil_apply, stencil_plain
     from vexcl_tpu_torch.ops.triton_reduce import map_reduce, map_reduce_plain
     from vexcl_tpu_torch.sparse.cuda_dia import dia_matvec, dia_matvec_plain
+    from vexcl_tpu_torch.sparse import SELLR, default_format, sell
     from vexcl_tpu_torch.sparse.cuda_sell import (csr_spmv, csr_spmv_plain,
                                                   sell_spmv, sell_spmv_plain)
+    from vexcl_tpu_torch.sparse.sell import LONG_ROW
     from vexcl_tpu_torch.utils.poisson import poisson_7pt, poisson_7pt_ccsr
     from vexcl_tpu_torch._build import _library_path, triton_module
     from vexcl_tpu_torch.models import estimate_pi, gbm_terminal_mean
@@ -698,7 +726,8 @@ def main() -> int:
 
     def dot_pap():
         return torch.dot(pv.storage, Apv.storage)
-    turns = in_turns(sum_pap, dot_pap)
+    turns = turns_row(in_turns({"kernel": sum_pap, "library": dot_pap}),
+                      "kernel", "library")
     kernels["reduce"] = kernel_row(
         abs(pap_k - p_), turns["ms"],
         cuda_ms(lambda: map_reduce_plain(e, an, ty, lv, nrows, "SUM", dev),
@@ -810,141 +839,194 @@ def main() -> int:
     results["random_matrix"] = {"n": RANDOM_N, "nnz": nnz,
                                 "generate_s": time.perf_counter() - t}
 
-    def sell_plain(D, xt):
-        yp = sell_spmv_plain(D.n, D.slice_ptr, D.col, D.val, D.perm, xt)
-        if D.tail is not None:
-            T = D.tail
-            csr_spmv_plain(D.n, T.ptr, T.col, T.val, xt, T.rows, out=yp)
-        return yp
+    def spmv_keys(D):
+        """The counters a format's product launches."""
+        if D.format == "csr":
+            return ("csr",)
+        return ("sell",) + (("csr",) if D.tail is not None else ())
 
-    csr_ref = None
-    # the library's form: cuSPARSE's CSR product through torch.sparse
-    lib_csr = torch.sparse_csr_tensor(
-        torch.from_numpy(ptr).to(dev, torch.int32),
-        torch.from_numpy(col).to(dev, torch.int32),
-        torch.from_numpy(val).to(dev), size=(RANDOM_N, RANDOM_N),
-        check_invariants=False)
-    lib_csr_ms = None
+    def add_launches(got):
+        for key, v in got.items():
+            main_launches[key] = main_launches.get(key, 0) + v
+
+    def spmv_calls(S, Cr, lib, lib_sell, xt):
+        """The timed products on one x: the SELL kernel and cuSPARSE on
+        the same rows, SELLR's product (the SELL kernel and its CSR
+        tail), the CSR kernel and cuSPARSE on the whole matrix."""
+        return {"sell_spmv": lambda: sell_spmv(S.n, S.slice_ptr, S.col,
+                                               S.val, S.perm, xt),
+                "cusparse_sell_part": lambda: lib_sell @ xt,
+                "sellr_apply": lambda: S.apply(xt),
+                "csr_spmv": lambda: csr_spmv(Cr.n, Cr.ptr, Cr.col, Cr.val,
+                                             xt, blocks=Cr.blocks),
+                "cusparse": lambda: lib @ xt}
+
+    def cusparse(p_, c_, v_):
+        """cuSPARSE's CSR product through torch.sparse."""
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(p_).to(dev, torch.int32),
+            torch.from_numpy(c_).to(dev, torch.int32),
+            torch.from_numpy(v_).to(dev), size=(RANDOM_N, RANDOM_N),
+            check_invariants=False)
+
+    # the SELL kernel's own share of the product: the rows SELLR keeps in
+    # its slices (the longer ones go to its CSR tail), so that its library
+    # call does the same work
+    lens = np.diff(ptr)
+    kept = lens <= LONG_ROW
+    sell_ptr = np.concatenate([[0], np.cumsum(np.where(kept, lens, 0))])
+    sell_entries = np.repeat(kept, lens)
+    irregular = default_format("cuda")   # what SpMat picks on the card
+    spmv_timed = {}      # dtype -> timed calls, for the profiler at the end
     for dname, npdt, dt in (("f32", np.float32, torch.float32),
                             ("f64", np.float64, torch.float64)):
         t = time.perf_counter()
         A = vex.SpMat(RANDOM_N, RANDOM_N, ptr, col, val.astype(npdt),
                       context=ctx)
         build_s = time.perf_counter() - t
-        D = A.device
-        check(D.format == "sellr", f"{dname} lognormal: SpMat picked "
-              f"{D.format}, not sellr")
+        check(A.device.format == irregular == "csr", f"{dname} lognormal: "
+              f"SpMat picked {A.device.format}, the policy {irregular}, "
+              f"not csr")
+        B = vex.SpMat(RANDOM_N, RANDOM_N, ptr, col, val.astype(npdt),
+                      fmt="sellr", context=ctx)
+        S, Cr = B.device, A.device
         x, y = rand(RANDOM_N, dt), rand(RANDOM_N, dt)
-        y0 = y.storage.clone()
-        sums = {}
+        ref = csr_spmv_plain(Cr.n, Cr.ptr, Cr.col, Cr.val, x.storage)
+        for M in (A, B):
+            sums = {}
 
-        def spmv_api():
-            y[:] = A * x
-            sums["first"] = y.storage.clone()
-            y[:] = 2 * (A * x) + y
-        keys = ("sell", "csr") if D.tail is not None else ("sell",)
-        _, launches = counted(keys, spmv_api)
-        if dname == "f32":
-            main_launches["sell"] = launches["sell"]
-        ref = sell_plain(D, x.storage)
-        _, rel1 = errors(sums["first"], ref)
-        _, rel2 = errors(y.storage, 3 * ref)
-        check(max(rel1, rel2) <= 4 * SPMV_TOL[dname],
-              f"{dname} sellr y = A*x / 2*(A*x)+y: rel err {rel1}, {rel2}")
-        k = sell_spmv(D.n, D.slice_ptr, D.col, D.val, D.perm, x.storage)
-        p = sell_spmv_plain(D.n, D.slice_ptr, D.col, D.val, D.perm, x.storage)
+            def spmv_api():
+                y[:] = M * x
+                sums["first"] = y.storage.clone()
+                y[:] = 2 * (M * x) + y
+            _, launches = counted(spmv_keys(M.device), spmv_api)
+            if dname == "f32":
+                add_launches(launches)
+            _, rel1 = errors(sums["first"], ref)
+            _, rel2 = errors(y.storage, 3 * ref)
+            check(max(rel1, rel2) <= 4 * SPMV_TOL[dname],
+                  f"{dname} {M.device.format} y = A*x / 2*(A*x)+y: rel err "
+                  f"{rel1}, {rel2}")
+        sell_rec = {"expr_max_rel_err": max(rel1, rel2), "launches": launches}
+        k = sell_spmv(S.n, S.slice_ptr, S.col, S.val, S.perm, x.storage)
+        p = sell_spmv_plain(S.n, S.slice_ptr, S.col, S.val, S.perm, x.storage)
         abs_err, rel = errors(k, p)
         check(rel <= SPMV_TOL[dname], f"{dname} SELL kernel: rel err {rel}")
-        ms = cuda_ms(lambda: sell_spmv(D.n, D.slice_ptr, D.col, D.val,
-                                       D.perm, x.storage))
+        _, sellr_rel = errors(S.apply(x.storage), ref)
+        check(sellr_rel <= SPMV_TOL[dname], f"{dname} SELLR product: rel "
+              f"err {sellr_rel}")
+        lib = cusparse(ptr, col, val.astype(npdt))
+        lib_sell = cusparse(sell_ptr, col[sell_entries],
+                            val[sell_entries].astype(npdt))
+        kc = csr_spmv(Cr.n, Cr.ptr, Cr.col, Cr.val, x.storage,
+                      blocks=Cr.blocks)
+        csr_abs, csr_rel = errors(kc, ref)
+        check(csr_rel <= SPMV_TOL[dname], f"{dname} CSR kernel: rel err "
+              f"{csr_rel}")
+        check(torch.equal(csr_spmv(Cr.n, Cr.ptr, Cr.col, Cr.val, x.storage,
+                                   blocks=Cr.blocks), kc),
+              "CSR kernel differs between two runs")
+        _, lib_rel = errors(lib @ x.storage, ref)
+        check(lib_rel <= SPMV_TOL[dname], f"{dname} cuSPARSE CSR: rel "
+              f"{lib_rel}")
+        _, lib_sell_rel = errors(lib_sell @ x.storage, p)
+        check(lib_sell_rel <= SPMV_TOL[dname], f"{dname} cuSPARSE on the "
+              f"SELL part: rel {lib_sell_rel}")
+        xt = x.storage
+        fns = spmv_calls(S, Cr, lib, lib_sell, xt)
+        spills = {}
+        for spill in args.spills:
+            sell.LONG_ROW = spill
+            try:
+                M = SELLR(RANDOM_N, RANDOM_N, ptr, col, val.astype(npdt),
+                          device=dev)
+            finally:
+                sell.LONG_ROW = LONG_ROW
+            _, spill_rel = errors(M.apply(xt), ref)
+            check(spill_rel <= SPMV_TOL[dname], f"{dname} SELLR spilling "
+                  f"over {spill}: rel err {spill_rel}")
+            fns[f"sell_spmv_spill_{spill}"] = lambda M=M, xt=xt: sell_spmv(
+                M.n, M.slice_ptr, M.col, M.val, M.perm, xt)
+            fns[f"sellr_apply_spill_{spill}"] = (
+                lambda M=M, xt=xt: M.apply(xt))
+            spills[spill] = {"slots_over_nnz": M.slots / nnz,
+                             "tail_nnz": 0 if M.tail is None else M.tail.nnz}
+        turns = in_turns(fns)
+        spmv_timed[dname] = {name: fns[name] for name in (
+            "sell_spmv", "cusparse_sell_part", "csr_spmv", "cusparse")}
         plain_ms = cuda_ms(lambda: sell_spmv_plain(
-            D.n, D.slice_ptr, D.col, D.val, D.perm, x.storage))
-        apply_ms = cuda_ms(lambda: D.apply(x.storage))
-        rec = {"host_build_s": build_s, "slots_over_nnz": D.slots / nnz,
-               "tail_rows": 0 if D.tail is None else int(D.tail.rows.numel()),
-               "tail_nnz": 0 if D.tail is None else D.tail.nnz,
+            S.n, S.slice_ptr, S.col, S.val, S.perm, xt))
+        csr_plain_ms = cuda_ms(lambda: csr_spmv_plain(Cr.n, Cr.ptr, Cr.col,
+                                                      Cr.val, xt))
+        rec = {"host_build_s": build_s, "format": irregular,
+               "slots_over_nnz": S.slots / nnz,
+               "tail_rows": 0 if S.tail is None else int(S.tail.rows.numel()),
+               "tail_nnz": 0 if S.tail is None else S.tail.nnz,
                "max_abs_err": abs_err, "max_rel_err": rel,
-               "expr_max_rel_err": max(rel1, rel2), "sell_ms": ms,
-               "sell_plain_ms": plain_ms, "apply_ms": apply_ms,
-               "gflops": 2 * nnz / (apply_ms * 1e-3) / 1e9,
-               "launches": launches,
+               "sellr_max_rel_err": sellr_rel,
+               "csr_max_rel_err": csr_rel, "cusparse_max_rel_err": lib_rel,
+               "cusparse_sell_part_max_rel_err": lib_sell_rel,
+               **{f"sellr_{key}": v for key, v in sell_rec.items()},
+               "row_blocks": int(Cr.blocks.numel()) - 1,
+               "sell_plain_ms": plain_ms, "csr_plain_ms": csr_plain_ms,
+               "turns": turns, "spills": spills,
+               "gflops": 2 * nnz / (turns["csr_spmv"]["ms"] * 1e-3) / 1e9,
                "api_ms": cuda_ms(lambda: y.assign(A * x))}
-        report(f"spmv_random_sellr_{dname}", rec)
+        report(f"spmv_random_{dname}", rec)
         if dname == "f32":
-            _, lib_rel = errors(lib_csr @ x.storage, ref)
-            check(lib_rel <= SPMV_TOL["f32"], f"cuSPARSE CSR: rel {lib_rel}")
-            lib_csr_ms = cuda_ms(lambda: lib_csr @ x.storage, KERNEL_REPS)
             kernels["sell"] = kernel_row(
-                abs_err, cuda_ms(lambda: sell_spmv(
-                    D.n, D.slice_ptr, D.col, D.val, D.perm, x.storage),
-                    KERNEL_REPS),
-                plain_ms, tensor_bytes(D.slice_ptr, D.col, D.val, D.perm,
-                                 x.storage, k), 2 * nnz, lib_csr_ms)
-            x32 = x
-        del A, D, y, y0, ref, k, p
+                abs_err, turns["sell_spmv"]["ms"], plain_ms,
+                tensor_bytes(S.slice_ptr, S.col, S.val, S.perm, xt, k),
+                2 * int(sell_entries.sum()), None)
+            kernels["sell"].update(
+                turns_row(turns, "sell_spmv", "cusparse_sell_part"),
+                host_us=host_us(fns["sell_spmv"]))
+            kernels["csr"] = kernel_row(
+                csr_abs, turns["csr_spmv"]["ms"], csr_plain_ms,
+                tensor_bytes(Cr.ptr, Cr.col, Cr.val, xt, kc),
+                2 * nnz, None)
+            kernels["csr"].update(turns_row(turns, "csr_spmv", "cusparse"),
+                                  host_us=host_us(fns["csr_spmv"]))
+            x32, csr_ref = x, ref
+        del A, B, M, S, Cr, fns, spills, y, ref, k, p, kc, lib, lib_sell
+        del xt
         torch.cuda.empty_cache()
+    del lens, kept, sell_ptr, sell_entries
 
     # the other formats, f32, against the plain CSR result
-    for fmt in ("csr", "hyb", "ell"):
+    for fmt in ("hyb", "ell"):
         t = time.perf_counter()
         A = vex.SpMat(RANDOM_N, RANDOM_N, ptr, col, val, fmt=fmt,
                       context=ctx)
         build_s = time.perf_counter() - t
         D = A.device
         y = vex.vector(RANDOM_N, dtype=torch.float32, context=ctx)
-        _, launches = counted(("csr",) if fmt != "ell" else ("sell",),
-                              lambda: y.assign(A * x32))
-        rec = {"host_build_s": build_s, "launches": launches}
-        if fmt == "csr":
-            csr_ref = csr_spmv_plain(D.n, D.ptr, D.col, D.val, x32.storage)
-
-            def csr_kernel():
-                return csr_spmv(D.n, D.ptr, D.col, D.val, x32.storage,
-                                blocks=D.blocks)
-            k = csr_kernel()
-            abs_err, rel = errors(k, csr_ref)
-            check(rel <= SPMV_TOL["f32"], f"CSR kernel: rel err {rel}")
-            check(torch.equal(csr_kernel(), k), "CSR kernel differs "
-                  "between two runs")
-            plain_ms = cuda_ms(lambda: csr_spmv_plain(D.n, D.ptr, D.col,
-                                                      D.val, x32.storage))
-            turns = in_turns(csr_kernel, lambda: lib_csr @ x32.storage)
-            ms = turns["ms"]
-            kernels["csr"] = kernel_row(
-                abs_err, ms, plain_ms,
-                tensor_bytes(D.ptr, D.col, D.val, x32.storage, k),
-                2 * nnz, turns["library_ms"])
-            kernels["csr"].update(ms_range=turns["ms_range"],
-                                  library_ms_range=turns["library_ms_range"])
-            main_launches["csr"] = launches["csr"]
-            rec.update(max_abs_err=abs_err, max_rel_err=rel,
-                       row_blocks=int(D.blocks.numel()) - 1, **turns,
-                       plain_ms=plain_ms,
-                       gflops=2 * nnz / (ms * 1e-3) / 1e9)
-        else:
-            rec["slots_over_nnz"] = D.slots / nnz
-            if fmt == "hyb":
-                T = D.tail
-                rec.update(ell_width=D.width, tail_rows=int(T.rows.numel()),
-                           tail_nnz=T.nnz)
-                base = sell_spmv(D.n, D.slice_ptr, D.col, D.val, D.perm,
-                                 x32.storage)
-                k = csr_spmv(D.n, T.ptr, T.col, T.val, x32.storage, T.rows,
-                             out=base.clone(), blocks=T.blocks)
-                p = csr_spmv_plain(D.n, T.ptr, T.col, T.val, x32.storage,
-                                   T.rows, out=base.clone())
-                _, rel = errors(k, p)
-                check(rel <= SPMV_TOL["f32"], f"hyb tail CSR: rel err {rel}")
-                rec["tail_max_rel_err"] = rel
-            ms = cuda_ms(lambda: D.apply(x32.storage))
-            rec.update(ms=ms, gflops=2 * nnz / (ms * 1e-3) / 1e9)
+        _, launches = counted(spmv_keys(D), lambda: y.assign(A * x32))
+        add_launches(launches)
+        rec = {"host_build_s": build_s, "launches": launches,
+               "slots_over_nnz": D.slots / nnz}
+        if fmt == "hyb":
+            T = D.tail
+            rec.update(ell_width=D.width, tail_rows=int(T.rows.numel()),
+                       tail_nnz=T.nnz)
+            base = sell_spmv(D.n, D.slice_ptr, D.col, D.val, D.perm,
+                             x32.storage)
+            k = csr_spmv(D.n, T.ptr, T.col, T.val, x32.storage, T.rows,
+                         out=base.clone(), blocks=T.blocks)
+            p = csr_spmv_plain(D.n, T.ptr, T.col, T.val, x32.storage,
+                               T.rows, out=base.clone())
+            _, rel = errors(k, p)
+            check(rel <= SPMV_TOL["f32"], f"hyb tail CSR: rel err {rel}")
+            rec["tail_max_rel_err"] = rel
+        ms = cuda_ms(lambda: D.apply(x32.storage))
+        rec.update(ms=ms, gflops=2 * nnz / (ms * 1e-3) / 1e9)
         _, rel = errors(y.storage, csr_ref)
         check(rel <= SPMV_TOL["f32"], f"{fmt} vs plain CSR: rel err {rel}")
         rec["vs_plain_csr_max_rel_err"] = rel
         report(f"spmv_random_{fmt}_f32", rec)
         del A, D, y
         torch.cuda.empty_cache()
-    del x32, csr_ref, lib_csr
+    del x32, csr_ref
 
     # -- phase 7: SpMatCCSR on Poisson 64^3 and 256^3 ------------------------
     for m in (64, POISSON_N):
@@ -983,14 +1065,13 @@ def main() -> int:
                   context=ctx)
     build_s = time.perf_counter() - t
     D = A.device
-    check(D.format == "sellr", f"Laplacian: SpMat picked {D.format}")
+    check(D.format == irregular, f"Laplacian: SpMat picked {D.format}")
     b_host = (np.random.default_rng(args.seed + 8).random(RANDOM_N)
               - 0.5).astype(np.float32)
     b = vex.vector(data=b_host, context=ctx)
     tol = LAPLACE_CG_TOL * float(np.linalg.norm(b_host.astype(np.float64)))
     vex.interop.cg(A, b, tol=tol, maxiter=3)         # compiles the kernels
-    keys = ("expr", "reduce", "sell") + (("csr",) if D.tail is not None
-                                         else ())
+    keys = ("expr", "reduce") + spmv_keys(D)
     t = time.perf_counter()
     (u, iters), launches = counted(keys, lambda: vex.interop.cg(
         A, b, tol=tol, maxiter=BICGSTAB_MAXITER))
@@ -1018,13 +1099,19 @@ def main() -> int:
           f"Laplacian CG residual fell only to {res_rel} of |b|")
     report("cg_laplacian_f32", {
         "n": RANDOM_N, "nnz": int(lp[-1]), "host_build_s": build_s,
-        "slots_over_nnz": D.slots / int(lp[-1]),
-        "tail_rows": 0 if D.tail is None else int(D.tail.rows.numel()),
+        "format": D.format,
+        "tail_rows": 0 if getattr(D, "tail", None) is None
+        else int(D.tail.rows.numel()),
         "iterations": iters, "plain_f64_iterations": it,
         "ms_per_iter": solve_s / iters * 1e3,
         "plain_f64_ms_per_iter": plain_solve_s / it * 1e3,
         "x_rel_err_vs_f64": x_rel, "residual_over_b": res_rel,
         "launches": launches})
+    if args.profile:       # where an iteration's time goes: 10 of them
+        per_kernel, busy = profile_call(lambda: vex.interop.cg(
+            A, b, tol=0.0, maxiter=10), 1)
+        report("profile_cg_laplacian_10_iterations", {
+            "device_busy": busy, **per_kernel})
     del A, D, b, u, lap, b64, xr, x64
     torch.cuda.empty_cache()
 
@@ -1187,18 +1274,38 @@ def main() -> int:
     check(int(kc) == int(pc) == nruns and torch.equal(kv[:nruns], pv_[:nruns])
           and torch.equal(kk[:nruns], pk[:nruns]),
           "compaction kernel differs from plain")
-    ms = cuda_ms(lambda: compact_apply(tails, incl, keys.storage),
-                 KERNEL_REPS)
-    plain_ms = cuda_ms(lambda: compact_plain(tails, incl, keys.storage),
-                       KERNEL_REPS)
-    # the library's form of a one-payload compaction: boolean-mask indexing
+    # the row times one payload, the function of its library call,
+    # boolean-mask indexing; reduce_by_key moves two
     tails_b = tails.bool()
-    check(torch.equal(incl[tails_b], kv[:nruns]), "x[flags] differs")
+    kc1, kv1 = compact_apply(tails, incl)
+    check(int(kc1) == nruns and torch.equal(kv1[:nruns], pv_[:nruns])
+          and torch.equal(incl[tails_b], kv1[:nruns]),
+          "one-payload compaction or x[flags] differs from plain")
+    # bound to these tensors: the profiler at the end calls them again
+    compact_calls = {
+        "compact": lambda f=tails, v=incl: compact_apply(f, v),
+        "library": lambda f=tails_b, v=incl: v[f],
+        "compact_two": lambda f=tails, v=incl, k=keys.storage: compact_apply(
+            f, v, k)}
+    turns = in_turns(compact_calls)
+    plain_ms = cuda_ms(lambda: compact_plain(tails, incl), KERNEL_REPS)
+    two_bytes = (tensor_bytes(tails) + nruns * 2 * (
+        incl.element_size() + keys.storage.element_size()) + 8)
     kernels["compact"] = kernel_row(
-        0.0, ms, plain_ms,
-        tensor_bytes(tails) + nruns * 2 * (incl.element_size()
-                                     + keys.storage.element_size()) + 8,
-        0, cuda_ms(lambda: incl[tails_b], KERNEL_REPS))
+        0.0, turns["compact"]["ms"], plain_ms,
+        tensor_bytes(tails) + nruns * 2 * incl.element_size() + 8, 0,
+        turns["library"]["ms"])
+    kernels["compact"].update(
+        turns_row(turns, "compact", "library"),
+        host_us=host_us(compact_calls["compact"]),
+        two_payload_ms=turns["compact_two"]["ms"],
+        two_payload_ms_range=turns["compact_two"]["ms_range"],
+        two_payload_plain_ms=cuda_ms(lambda: compact_plain(
+            tails, incl, keys.storage), KERNEL_REPS),
+        two_payload_bound_ms=bound(two_bytes)[0],
+        two_payload_host_us=host_us(compact_calls["compact_two"]))
+    ms = kernels["compact"]["two_payload_ms"]
+    plain_ms = kernels["compact"]["two_payload_plain_ms"]
     api_ms = cuda_ms(lambda: vex.reduce_by_key(keys, x), KERNEL_REPS)
     report("reduce_by_key_runs64_f32", {
         "runs": m, "max_rel_err": rel, "launches": launches,
@@ -1217,7 +1324,7 @@ def main() -> int:
             per_kernel, busy = profile_call(fn)
             report(f"profile_{tag}_2^24", {"device_busy": busy,
                                            **per_kernel})
-    del okeys, ovals, ref64, tails, tails_b, incl, kc, kv, kk, pc, pv_, pk
+    del okeys, ovals, ref64, kc, kv, kk, pc, pv_, pk, kc1, kv1
     del keys, x
     del heads
     torch.cuda.empty_cache()
@@ -1566,8 +1673,9 @@ def main() -> int:
     b = vex.vector(data=b_host, context=ctx)
     tol = BICGSTAB_TOL * float(np.linalg.norm(b_host.astype(np.float64)))
     vex.interop.bicgstab(A, b, tol=tol, maxiter=2)    # compiles the kernels
-    keys = ("expr", "reduce", "sell") + (("csr",) if A.device.tail is not None
-                                         else ())
+    check(A.device.format == irregular,
+          f"BiCGStab: SpMat picked {A.device.format}")
+    keys = ("expr", "reduce") + spmv_keys(A.device)
     torch.cuda.synchronize()
     t = time.perf_counter()
     (u, iters), launches = counted(keys, lambda: vex.interop.bicgstab(
@@ -1622,6 +1730,32 @@ def main() -> int:
             "ms", "ms_range", "library_ms", "library_ms_range", "device_us",
             "host_us", "library_host_us")}})
     del pv, Apv, pap
+    # the redesigned rows' device time per call: the compaction (one and
+    # two payloads) and the irregular SpMV's three products, f32 and f64
+    prof = {}
+    for name, fn in compact_calls.items():
+        per_kernel, _ = profile_call(fn, KERNEL_REPS)
+        prof[name] = sum(per_kernel.values())
+        if name == "compact":
+            check(any("compact_kernel" in k_ for k_ in per_kernel)
+                  and len(per_kernel) == 1,
+                  f"a compaction is not one kernel: {per_kernel}")
+    for dname, calls in spmv_timed.items():
+        for name, fn in calls.items():
+            per_kernel, _ = profile_call(fn, KERNEL_REPS)
+            prof[f"{name}_{dname}"] = sum(per_kernel.values())
+    kernels["compact"].update(device_us=prof["compact"],
+                              library_device_us=prof["library"],
+                              two_payload_device_us=prof["compact_two"])
+    kernels["sell"].update(device_us=prof["sell_spmv_f32"],
+                           library_device_us=prof["cusparse_sell_part_f32"])
+    kernels["csr"].update(device_us=prof["csr_spmv_f32"],
+                          library_device_us=prof["cusparse_f32"])
+    check(all(v > 0 for v in prof.values()),
+          f"the profiler saw no kernel of a call: {prof}")
+    report("profile_device_us_per_call", prof)
+    del compact_calls, spmv_timed, tails, tails_b, incl
+    torch.cuda.empty_cache()
     ptr, col, val = poisson_7pt(POISSON_N, dtype=np.float32)
     lib_dia = torch.sparse_csr_tensor(
         torch.from_numpy(ptr).to(dev, torch.int32),

@@ -477,6 +477,102 @@ def test_csr_row_blocks_match_plain(gpu, case, dt):
                1e-5 if dt == torch.float32 else 1e-12)
 
 
+def _exact_sparse(n, m, lens, seed):
+    """CSR arrays of integer values (exact in any summation order)."""
+    rng = np.random.default_rng(seed)
+    lens = np.asarray(lens, np.int64)
+    ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    col = rng.integers(0, max(m, 1), int(ptr[-1]))
+    val = rng.integers(-4, 5, int(ptr[-1])).astype(np.float64)
+    return ptr, col, val
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["ell_w5", "ell_w7", "hyb_w6", "sellr_n33",
+                                  "sellr_n1", "empty", "no_rows", "spill",
+                                  "spill_all"])
+def test_sell_packet_shapes_match_plain(gpu, case, dt):
+    """The SELL kernel's packet layout at the shapes where it pads: widths
+    not a multiple of 4 (ELL, the hybrid's ELL part), n not a multiple of
+    32, an empty matrix, no rows, SELLR with rows just under, at, over and
+    three times ``LONG_ROW``, and SELLR with every row spilled.  Integer
+    data: exact against the plain version and scipy."""
+    import scipy.sparse as sp
+
+    from vexcl_tpu_torch.sparse import ELL, SELLR, Hybrid
+    from vexcl_tpu_torch.sparse.cuda_sell import (csr_spmv_plain, sell_spmv,
+                                                  sell_spmv_plain)
+    from vexcl_tpu_torch.sparse.sell import LONG_ROW
+
+    rng = np.random.default_rng(17)
+    npdt = np.float64 if dt == torch.float64 else np.float32
+    m = 3001
+    if case == "ell_w5":
+        n, lens, cls = 1000, rng.integers(0, 6, 1000), ELL
+    elif case == "ell_w7":
+        n, lens, cls = 77, rng.integers(0, 8, 77), ELL
+    elif case == "hyb_w6":
+        n, lens, cls = 5000, rng.poisson(6, 5000), Hybrid
+    elif case.startswith("sellr"):
+        n = int(case[7:])
+        lens, cls = rng.poisson(9, n), SELLR
+    elif case in ("empty", "no_rows"):
+        n = 500 if case == "empty" else 0
+        lens, cls = np.zeros(n, np.int64), SELLR
+    elif case == "spill":
+        n, cls = 20000, SELLR
+        lens = np.maximum(1, rng.lognormal(np.log(16) - 0.32, 0.8, n)
+                          .astype(np.int64))
+        lens[[5, 6, 7, 8]] = [LONG_ROW - 1, LONG_ROW, LONG_ROW + 1,
+                              3 * LONG_ROW]
+    else:
+        n, cls = 300, SELLR
+        lens = rng.integers(LONG_ROW + 1, 2 * LONG_ROW, n)
+    ptr, col, val = _exact_sparse(n, m, lens, 18)
+    mats = [cls(n, m, ptr, col, val.astype(npdt), device=gpu.device)]
+    if cls is SELLR and case in ("empty", "no_rows"):
+        mats += [c(n, m, ptr, col, val.astype(npdt), device=gpu.device)
+                 for c in (ELL, Hybrid)]
+    x = torch.from_numpy(rng.integers(-3, 4, m).astype(npdt)).to(gpu.device)
+    want = sp.csr_matrix((val, col, ptr), shape=(n, m)) @ \
+        x.double().cpu().numpy()
+    for A in mats:
+        assert A.slots % (4 * 32) == 0
+        assert torch.all(A.slice_ptr % 4 == 0)
+        k = sell_spmv(n, A.slice_ptr, A.col, A.val, A.perm, x)
+        p = sell_spmv_plain(n, A.slice_ptr, A.col, A.val, A.perm, x)
+        torch.cuda.synchronize()
+        assert k.dtype == p.dtype == dt and torch.equal(k, p)
+        y = A.apply(x)
+        assert np.array_equal(y.double().cpu().numpy(), want)
+        if A.tail is not None:
+            T = A.tail
+            p = csr_spmv_plain(n, T.ptr, T.col, T.val, x, T.rows, out=p)
+            assert torch.equal(y, p)
+    if case.startswith("spill"):
+        spilled = mats[0].tail.rows.tolist()
+        assert spilled == np.flatnonzero(lens > LONG_ROW).tolist()
+    if case == "spill":
+        assert 7 in spilled and 8 in spilled and 6 not in spilled
+    elif case == "spill_all":
+        assert len(spilled) == n
+
+
+def test_sell_rejects_unaligned_planes(gpu):
+    """The kernel loads 16-byte packets: planes that are views off a
+    16-byte boundary raise instead of faulting."""
+    from vexcl_tpu_torch.sparse import SELLR
+    from vexcl_tpu_torch.sparse.cuda_sell import sell_spmv
+
+    n = 64
+    ptr, col, val = _exact_sparse(n, n, np.full(n, 3), 19)
+    A = SELLR(n, n, ptr, col, val.astype(np.float32), device=gpu.device)
+    x = torch.ones(n, device=gpu.device)
+    colv = torch.cat([A.col.new_zeros(1), A.col])[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        sell_spmv(n, A.slice_ptr, colv, A.val, A.perm, x)
+
+
 def _csr_plain_full(n, ptr, col, val, x):
     from vexcl_tpu_torch.sparse.cuda_sell import csr_spmv_plain
 
@@ -511,7 +607,7 @@ def test_spmat_default_format_and_in_place(gpu):
     n = 4000
     ptr, col, val = _irregular(n, n, 4)
     A = vex.SpMat(n, n, ptr, col, val.astype(np.float32), context=gpu)
-    assert A.device.format == "sellr"
+    assert A.device.format == "csr"
     P = vex.SpMat(512, 512, *poisson_7pt(8), context=gpu)
     assert P.device.format == "dia"
     hx = np.random.default_rng(9).random(n).astype(np.float32)
@@ -694,6 +790,146 @@ def test_compact_kernel_rejects_what_it_cannot_move(gpu):
         compact_apply(f.int(), torch.ones(10, device=gpu.device))
     with pytest.raises(NotImplementedError):
         scan_apply(torch.ones(10, dtype=torch.float16, device=gpu.device))
+
+
+COMPACT_N = (1, 15, 4096, 4097, (1 << 24) + 3)
+
+
+def _mixed_payloads(n, g, dev):
+    """Eight payloads of every width: 4, 8, 2, 1 (bool), 8, 1, 4, 2 bytes."""
+    def ints(lo, hi, dt):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev, dtype=dt)
+    return [torch.rand(n, generator=g, device=dev),
+            ints(-2 ** 62, 2 ** 62, torch.int64),
+            ints(-999, 999, torch.int16),
+            torch.rand(n, generator=g, device=dev) < 0.5,
+            torch.rand(n, generator=g, device=dev, dtype=torch.float64),
+            ints(0, 256, torch.uint8),
+            ints(-2 ** 31, 2 ** 31 - 1, torch.int32),
+            torch.rand(n, generator=g, device=dev).to(torch.bfloat16)]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("share", [0.0, 1 / 64, 0.5, 1.0])
+@pytest.mark.parametrize("n", COMPACT_N)
+def test_compact_single_pass_matches_plain(gpu, n, share, offset):
+    """The single-pass kernel bitwise against the plain version: tiny n,
+    n below and above one tile, 2^24 + 3; no, few, half and all flags
+    set; eight payloads of mixed widths; a flags view at a 1-byte offset
+    (not 16-byte aligned); three calls alike (the scratch is left reset),
+    one launch each, bool flags alike."""
+    from vexcl_tpu_torch.ops.cuda_compact import compact_apply, compact_plain
+
+    dev = gpu.device
+    g = torch.Generator(device=dev).manual_seed(n + offset)
+    buf = (torch.rand(n + offset, generator=g, device=dev) < share)
+    flags = buf.to(torch.uint8)[offset:]
+    assert flags.is_contiguous() and (flags.data_ptr() % 16 != 0) == (
+        offset != 0)
+    payloads = _mixed_payloads(n, g, dev)
+    pc, *p = compact_plain(flags, *payloads)
+    m = int(pc)
+    before = compact_apply.launches
+    runs = [compact_apply(flags, *payloads) for _ in range(3)]
+    runs.append(compact_apply(buf[offset:], *payloads))     # bool flags
+    torch.cuda.synchronize()
+    assert compact_apply.launches == before + 4
+    assert m == int(flags.sum())
+    for kc, *k in runs:
+        assert kc.dtype == torch.int64 and kc.shape == () and int(kc) == m
+        for a, b in zip(k, p):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert torch.equal(a[:m], b[:m])
+
+
+@pytest.mark.parametrize("n, share", [((1 << 24) + 3, 0.5),
+                                      ((1 << 25) + 7, 1 / 64)])
+def test_compact_count_over_many_calls(gpu, n, share):
+    """Fifty calls in a row, each count right: the last block reads the
+    count before it clears the status words for the next call."""
+    from vexcl_tpu_torch.ops.cuda_compact import compact_apply
+
+    dev = gpu.device
+    g = torch.Generator(device=dev).manual_seed(22)
+    flags = (torch.rand(n, generator=g, device=dev) < share).to(torch.uint8)
+    x = torch.arange(n, device=dev, dtype=torch.int32)
+    counts = torch.stack([compact_apply(flags, x)[0] for _ in range(50)])
+    assert torch.all(counts == flags.sum()).item()
+
+
+def test_compact_on_two_streams(gpu):
+    """Compactions enqueued on two streams at once each get their own
+    status words and tickets: every result is right."""
+    from vexcl_tpu_torch.ops.cuda_compact import compact_apply
+
+    dev = gpu.device
+    n = (1 << 22) + 5
+    g = torch.Generator(device=dev).manual_seed(21)
+    flags = [(torch.rand(n, generator=g, device=dev) < s).to(torch.uint8)
+             for s in (0.3, 0.7)]
+    a = torch.arange(n, device=dev)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    res = []
+    for _ in range(20):
+        for s, f in zip((s1, s2), flags):
+            with torch.cuda.stream(s):
+                res.append((f, compact_apply(f, a)))
+    torch.cuda.synchronize()
+    for f, (c, o) in res:
+        m = int(f.sum())
+        assert int(c) == m and torch.equal(o[:m], a[f.bool()])
+
+
+def test_compact_scratch_is_bounded(gpu, monkeypatch):
+    """More streams than the cache keeps, in turns: the oldest scratch is
+    freed, a stream that comes back gets a new one, and every result is
+    right."""
+    from vexcl_tpu_torch.ops import cuda_compact
+    from vexcl_tpu_torch.ops.cuda_compact import compact_apply
+
+    monkeypatch.setattr(cuda_compact, "MAX_STREAMS", 2)
+    dev = gpu.device
+    n = (1 << 20) + 9
+    g = torch.Generator(device=dev).manual_seed(23)
+    flags = (torch.rand(n, generator=g, device=dev) < 0.4).to(torch.uint8)
+    a = torch.arange(n, device=dev)
+    want = a[flags.bool()]
+    streams = [torch.cuda.Stream() for _ in range(4)]
+    torch.cuda.synchronize()
+    res = []
+    for _ in range(3):
+        for s in streams:
+            with torch.cuda.stream(s):
+                res.append(compact_apply(flags, a))
+    torch.cuda.synchronize()
+    assert len(cuda_compact._scratch) <= 2
+    for c, o in res:
+        assert int(c) == want.numel() and torch.equal(o[:want.numel()], want)
+
+
+def test_compact_is_one_kernel_launch(gpu):
+    """A call is one kernel on the card: no fill, no second pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vexcl_tpu_torch.ops.cuda_compact import compact_apply
+
+    dev = gpu.device
+    n = 1 << 20
+    flags = (torch.arange(n, device=dev) % 64 == 0).to(torch.uint8)
+    x = torch.rand(n, device=dev)
+    compact_apply(flags, x, x)            # the scratch, at first use
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            compact_apply(flags, x, x)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    assert len(kernels) == 1 and "compact_kernel" in kernels[0][0]
+    assert kernels[0][1] == 3
 
 
 def test_scan_family_api_runs_the_kernels(gpu):

@@ -23,7 +23,7 @@ from vexcl_tpu.sparse.shuffle import SELLR as JaxSELLR
 from vexcl_tpu.utils.poisson import poisson_7pt, poisson_7pt_ccsr
 from vexcl_tpu_torch.sparse import (CSR, ELL, SELLR, Hybrid, SpMatCCSR,
                                     choose_ell_width, default_format)
-from vexcl_tpu_torch.sparse.cuda_sell import (ROW_BLOCK_ENTRIES,
+from vexcl_tpu_torch.sparse.cuda_sell import (C, PACKET, ROW_BLOCK_ENTRIES,
                                               ROW_BLOCK_ROWS, row_blocks)
 from vexcl_tpu_torch.sparse.formats import from_csr_host
 from vexcl_tpu_torch.sparse.sell import LONG_ROW
@@ -171,11 +171,11 @@ def test_choose_ell_width_matches_jax(lens):
 
 
 def test_format_policy(tctx):
-    """CPU contexts get CSR, CUDA contexts SELL-R, banded matrices DIA:
-    the CUDA decision is a function of the device type, checked here
-    without a card."""
+    """CPU and CUDA contexts get CSR (the row-block kernel is faster on
+    the card than SELL-R), banded matrices DIA: the CUDA decision is a
+    function of the device type, checked here without a card."""
     assert default_format("cpu") == "csr"
-    assert default_format("cuda") == "sellr"
+    assert default_format("cuda") == "csr"
     with pytest.raises(NotImplementedError):
         default_format("mps")
     n = 500
@@ -283,7 +283,8 @@ def test_csr_tail_row_block_plan(tctx, fmt):
     b = _check_plan(T.ptr.numpy(), T.blocks.numpy(), nrows)
     assert np.all(np.diff(T.rows.numpy()) > 0)
     if fmt == "sellr":
-        assert T.rows.tolist() == [2, 10, 11]
+        assert T.rows.tolist() == np.flatnonzero(lens > LONG_ROW).tolist()
+        assert {2, 10, 11} <= set(T.rows.tolist())
     x = rng.standard_normal(n)
     got = np.zeros(n)
     got[T.rows.numpy()] = _plan_product(T.ptr.numpy(), T.col.numpy(),
@@ -293,22 +294,89 @@ def test_csr_tail_row_block_plan(tctx, fmt):
     _close(got, want, 1e-12)
 
 
+def _rows_of_planes(A):
+    """Each stored row's slots, read back from the packet layout: slice s
+    is a (w / 4, 32, 4) plane from slice_ptr[s], packet k of lane l holding
+    slots 4k .. 4k + 3 of the slice's row l.  Returns (cols, vals), lists
+    of one array of w slots per stored row."""
+    sp = A.slice_ptr.numpy()
+    pc, pv = A.col.numpy(), A.val.numpy()
+    assert np.all(sp % (PACKET * C) == 0)
+    cols, vals = [], []
+    for s in range(len(sp) - 1):
+        w = (sp[s + 1] - sp[s]) // C
+        assert w % PACKET == 0
+
+        def plane(a):
+            return a[sp[s]:sp[s + 1]].reshape(w // PACKET, C, PACKET) \
+                .transpose(1, 0, 2).reshape(C, w)
+        cols += list(plane(pc))
+        vals += list(plane(pv))
+    return cols, vals
+
+
 def test_sell_layout(tctx):
-    """Rows sorted by length in sigma windows, slices 32 rows wide, the
-    long row spilled to the CSR tail, padding slots with column -1."""
+    """The packet layout of SELLR: rows sorted by length in sigma windows,
+    slices of 32 rows at a width that is a multiple of 4 (and less than 4
+    over the slice's longest row), each row's first entries in order in
+    its lane's packets, padding slots with column -1 and value 0, the rows
+    over the spill length in the CSR tail."""
     n = 3000
     ptr, col, val = random_csr(n, n, 9, seed=71, long_row=True)
     A = SELLR(n, n, ptr, col, val, device=tctx.device)
     lens = np.diff(ptr)
-    assert A.tail is not None and A.tail.rows.tolist() == [2]
+    long = np.flatnonzero(lens > LONG_ROW)
+    assert A.tail is not None and A.tail.rows.tolist() == long.tolist()
+    assert 2 in long
     perm = A.perm.numpy()
     assert sorted(perm.tolist()) == list(range(n))
     sl = np.where(lens > LONG_ROW, 0, lens)[perm]
     assert np.all(np.diff(sl) <= 0)              # one window at n = 3000
     sp = A.slice_ptr.numpy()
-    assert len(sp) == -(-n // 32) + 1
+    assert len(sp) == -(-n // C) + 1
+    cols, vals = _rows_of_planes(A)
+    assert len(cols) == len(sp[:-1]) * C
+    for r in range(len(cols)):
+        w = len(cols[r])
+        top = sl[r // C * C:(r // C + 1) * C].max()
+        assert top <= w < top + PACKET
+        k = sl[r] if r < n else 0
+        if r < n:
+            e = ptr[perm[r]]
+            assert np.array_equal(cols[r][:k], col[e:e + k])
+            assert np.array_equal(vals[r][:k], val[e:e + k])
+        assert np.all(cols[r][k:] == -1) and np.all(vals[r][k:] == 0)
     assert int((A.col >= 0).sum()) + A.tail.nnz == A.nnz
     assert A.slots < 1.3 * A.nnz
+
+
+@pytest.mark.parametrize("fmt", ["ell", "hyb"])
+@pytest.mark.parametrize("n, mean", [(777, 5), (64, 3), (1000, 9)])
+def test_from_jax_leaves_packet_layout(ctx1, tctx, fmt, n, mean):
+    """The JAX package's row-major (n, w) ELL planes, and the hybrid's ELL
+    part with its tail, carried into the packet layout: every row's slots
+    where the kernel reads them (w rounded up to a multiple of 4, n not a
+    multiple of 32), and the product of vexcl_tpu's matrix."""
+    ptr, col, val = random_csr(n, n, mean, seed=n + mean)
+    jd = vex.SpMat(n, n, ptr, col, val, fmt=fmt, context=ctx1).device
+    leaves = [np.asarray(a) for a in jd.leaves()]
+    cls = ELL if fmt == "ell" else Hybrid
+    td = cls.from_arrays(n, n, *leaves, device=tctx.device)
+    ell_col, ell_val = leaves[0].reshape(n, -1), leaves[1].reshape(n, -1)
+    w = ell_col.shape[1]
+    assert td.width == w and td.perm is None and td.nnz == jd.nnz
+    cols, vals = _rows_of_planes(td)
+    w4 = -(-w // PACKET) * PACKET
+    assert all(len(c) == w4 for c in cols) and len(cols) == -(-n // C) * C
+    for r in range(len(cols)):
+        want_c = ell_col[r] if r < n else np.full(w, -1)
+        want_v = ell_val[r] if r < n else np.zeros(w)
+        assert np.array_equal(cols[r][:w], want_c)
+        assert np.array_equal(vals[r][:w], want_v)
+        assert np.all(cols[r][w:] == -1) and np.all(vals[r][w:] == 0)
+    assert (td.tail is not None) == (len(leaves) > 2 and len(leaves[2]) > 0)
+    hx = np.random.default_rng(77).standard_normal(n)
+    _close(td.apply(torch.from_numpy(hx)), np.asarray(jd.apply(hx)), 1e-12)
 
 
 @pytest.mark.parametrize("cache", [None, False])

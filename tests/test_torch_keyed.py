@@ -104,6 +104,43 @@ def test_compact_plain_matches_pallas(p):
         assert got.shape == (n,)
 
 
+def test_compact_apply_views_and_widths_match_pallas():
+    """The compaction entry point on the CPU: a flags view at a 1-byte
+    offset (as the kernel reads one on the card), bool and u8 flags, and
+    payloads of every width the kernel moves; the 32- and 64-bit payloads
+    against the JAX kernel's result, the 8- and 16-bit ones (which it does
+    not take) against numpy's selection."""
+    from vexcl_tpu_torch.ops.cuda_compact import compact_apply
+
+    rng = np.random.default_rng(73)
+    n = 5000 + 3
+    buf = (rng.random(n + 1) < 0.3).astype(np.uint8)
+    f = buf[1:]
+    wide = [rng.standard_normal(n).astype(np.float32),
+            rng.integers(-2 ** 40, 2 ** 40, n).astype(np.int64),
+            rng.standard_normal(n)]
+    narrow = [rng.integers(0, 256, n).astype(np.uint8),
+              rng.integers(-999, 999, n).astype(np.int16),
+              rng.random(n) < 0.5]
+    pos, counts, *comp = pallas_compact(jnp.asarray(f.astype(np.int8)),
+                                        *[jnp.asarray(a) for a in wide])
+    counts = np.asarray(counts).astype(np.int64)
+    keep = np.arange(np.asarray(pos).shape[1])[None, :] < counts[:, None]
+    tflags = torch.from_numpy(buf)[1:]
+    assert tflags.storage_offset() == 1
+    for flags in (tflags, tflags.bool()):
+        count, *outs = compact_apply(
+            flags, *[torch.from_numpy(a) for a in wide + narrow])
+        m = int(count)
+        assert m == counts.sum() == f.sum()
+        for got, want in zip(outs, comp):
+            np.testing.assert_array_equal(got[:m].numpy(),
+                                          np.asarray(want)[keep])
+        for got, a in zip(outs[len(wide):], narrow):
+            assert got.dtype == torch.from_numpy(a).dtype
+            np.testing.assert_array_equal(got[:m].numpy(), a[f != 0])
+
+
 def _keys(rng, n):
     k1 = np.sort(rng.integers(0, n // 40, n)).astype(np.int32)
     k2 = (rng.random(n) < 0.5).astype(np.int64)

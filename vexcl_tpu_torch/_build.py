@@ -47,7 +47,7 @@ LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "vexcl_sell": ("spmv_sell.cu",),
     "vexcl_stencil": ("stencil.cu",),
     "vexcl_scan": ("scan.cu", "scan_common.cuh"),
-    "vexcl_compact": ("compact.cu", "scan_common.cuh"),
+    "vexcl_compact": ("compact.cu",),
     "vexcl_philox": ("philox.cu",),
 }
 

@@ -16,13 +16,27 @@
 // * column sums: each thread accumulates its own row in a register.
 //
 // sell_spmv_kernel: one thread per row, one warp per slice of 32 rows.
-// Slice s holds its (w_s, 32) column and value planes column-major from
-// slice_ptr[s], so at every step the warp reads 32 neighbouring int32
-// columns and 32 neighbouring values: coalesced.  Rows were sorted by
-// length inside windows of sigma rows on the host, so the 32 rows of a
-// slice have similar lengths and little padding.  Padding slots carry
-// column -1 and are skipped: their value is never multiplied (0 * NaN is
-// NaN).  Slice offsets are int64; columns and perm are int32.
+// Slice s holds its rows' slots from slice_ptr[s] (a multiple of 4) as a
+// (w_s / 4, 32, 4) plane, w_s a multiple of 4: packet k of lane l is
+// slots 4k .. 4k + 3 of the slice's row l, at slice_ptr[s] + 128 k + 4 l.
+// So a lane loads four columns with one 16-byte load and four values with
+// one (f32) or two (f64), and a warp's load covers 512 (or 1024)
+// neighbouring bytes: coalesced.  Rows were sorted by length inside
+// windows of sigma rows on the host, so the 32 rows of a slice have
+// similar lengths and little padding; rows longer than the SELLR spill
+// length go to the CSR kernel (a slice is no wider than that).  Padding
+// slots carry column -1 and are skipped: their value is never multiplied
+// (0 * NaN is NaN).  Slice offsets are int64; columns and perm are int32.
+//
+// What bounds it.  The same gathers as the CSR kernel below (one per
+// entry, each a 32-byte L2 sector), plus the padding's bytes of col and
+// val.  Taken one slot at a time (a column load, then the value and
+// x[col]), each thread keeps about one gather in flight behind its column
+// load.  Here a thread issues two packets' column and value
+// loads, then their eight gathers, before its first multiply: eight
+// independent gathers in flight per thread, as the row blocks of the CSR
+// kernel keep many in flight per block.  The row's sum is one register,
+// written once to y[perm[r]].
 //
 // csr_spmv_kernel: CSR-Adaptive (Greathouse and Daga, SC'14) on row
 // blocks.  It serves fmt="csr", the CSR tail of the hybrid format and the
@@ -56,7 +70,9 @@
 //
 // Both kernels are bound by memory: per stored slot 4 bytes of column and
 // 4 or 8 of value from device memory, and a gather of x that L2 serves.
-// Accumulation is in the value type.
+// Accumulation is in the value type.  The SELL kernel needs col and val
+// 16-byte aligned (the wrapper checks); the CSR kernel takes 16-byte loads
+// where they are.
 //
 // Plain C interface for ctypes: each entry launches on the given stream
 // and returns cudaGetLastError().
@@ -69,26 +85,6 @@ namespace {
 
 constexpr int kC = 32;
 constexpr int kThreads = 256;
-
-template <typename T>
-__global__ void sell_spmv_kernel(const int64_t* __restrict__ slice_ptr,
-                                 const int32_t* __restrict__ col,
-                                 const T* __restrict__ val,
-                                 const int32_t* __restrict__ perm,
-                                 const T* __restrict__ x, T* __restrict__ y,
-                                 int64_t n) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  const int64_t s = r / kC;
-  const int64_t end = slice_ptr[s + 1];
-  T sum = 0;
-#pragma unroll 4
-  for (int64_t k = slice_ptr[s] + (r % kC); k < end; k += kC) {
-    const int32_t c = col[k];
-    if (c >= 0) sum += val[k] * __ldg(x + c);
-  }
-  y[perm != nullptr ? static_cast<int64_t>(perm[r]) : r] = sum;
-}
 
 // a block holds fewer entries than this unless it holds one row; must
 // equal cuda_sell.ROW_BLOCK_ENTRIES (and a block at most kThreads rows,
@@ -137,6 +133,63 @@ __device__ __forceinline__ void products4(const int32_t* __restrict__ col,
       p[j] = k >= e0 && k < e1 ? val[k] * __ldg(x + col[k]) : T(0);
     }
   }
+}
+
+template <typename T>
+__device__ __forceinline__ T gather(const T* __restrict__ x, int32_t c) {
+  return c >= 0 ? __ldg(x + c) : T(0);
+}
+
+// sum += the four products of one packet (values v, gathered x g), in
+// slot order
+template <typename T>
+__device__ __forceinline__ void fma_packet(T& sum, const T (&v)[4],
+                                           const T (&g)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) sum += v[j] * g[j];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    sell_spmv_kernel(const int64_t* __restrict__ slice_ptr,
+                     const int32_t* __restrict__ col,
+                     const T* __restrict__ val,
+                     const int32_t* __restrict__ perm,
+                     const T* __restrict__ x, T* __restrict__ y, int64_t n) {
+  const int64_t r =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  const int64_t s = r / kC;
+  const int64_t b0 = slice_ptr[s];
+  const int64_t packets = (slice_ptr[s + 1] - b0) / (4 * kC);
+  const int64_t first = b0 + 4 * (r % kC);   // this lane's packet 0
+  T sum = 0;
+  int64_t k = 0;
+  for (; k + 2 <= packets; k += 2) {
+    const int64_t o0 = first + k * 4 * kC;
+    const int64_t o1 = o0 + 4 * kC;
+    const int4 c0 = __ldcs(reinterpret_cast<const int4*>(col + o0));
+    const int4 c1 = __ldcs(reinterpret_cast<const int4*>(col + o1));
+    T v0[4], v1[4];
+    load4(val + o0, v0);
+    load4(val + o1, v1);
+    const T g0[4] = {gather(x, c0.x), gather(x, c0.y), gather(x, c0.z),
+                     gather(x, c0.w)};
+    const T g1[4] = {gather(x, c1.x), gather(x, c1.y), gather(x, c1.z),
+                     gather(x, c1.w)};
+    fma_packet(sum, v0, g0);
+    fma_packet(sum, v1, g1);
+  }
+  if (k < packets) {
+    const int64_t o0 = first + k * 4 * kC;
+    const int4 c0 = __ldcs(reinterpret_cast<const int4*>(col + o0));
+    T v0[4];
+    load4(val + o0, v0);
+    const T g0[4] = {gather(x, c0.x), gather(x, c0.y), gather(x, c0.z),
+                     gather(x, c0.w)};
+    fma_packet(sum, v0, g0);
+  }
+  y[perm != nullptr ? static_cast<int64_t>(perm[r]) : r] = sum;
 }
 
 template <typename T>

@@ -5,23 +5,31 @@ Replaces ``vexcl_tpu/ops/pallas_compact.py::_compact_kernel``
 (``pallas_compact``) and the compaction half of
 ``pallas_rbk.py::_fused_kernel`` (``pallas_segscan_rowcompact``).  Those
 compact within a block by lane rolls and leave the assembly of the
-blocks to a sort; the kernel, ``csrc/compact.cu``, scans the flags and
-scatters each flagged element to its global slot directly (its source
-note gives the design and bound).
+blocks to a sort; the kernel, ``csrc/compact.cu``, is one single-pass
+launch with decoupled look-back that scatters each flagged element to
+its global slot directly (its source note gives the design and bound).
 
 ``compact_apply(flags, *payloads) -> (count, *compacted)``: ``flags`` is
-a u8 or bool tensor; each payload is a tensor of its length with 1-, 2-,
-4- or 8-byte elements (at most eight of them), moved bit for bit.
-``count`` is a 0-d int64 tensor on the device, and each compacted tensor
-has the payload's length: its first ``count`` entries are the payload's
-flagged elements in their original order, the rest is undefined.  On a
-CPU tensor the plain version runs; on a CUDA tensor the kernel launches.
+a u8 or bool tensor (any contiguous view: the kernel reads an unaligned
+start itself); each payload is a tensor of its length with 1-, 2-, 4- or
+8-byte elements (at most eight of them), moved bit for bit.  ``count``
+is a 0-d int64 tensor on the device, and each compacted tensor has the
+payload's length: its first ``count`` entries are the payload's flagged
+elements in their original order, the rest is undefined.  On a CPU
+tensor the plain version runs; on a CUDA tensor the kernel launches.
+
+The kernel's scratch (a status word per tile and two counters, left
+zeroed by every launch) is allocated once per (device, stream), for at
+most ``MAX_STREAMS`` streams, and grows only when a call needs more
+tiles: keyed by stream, two compactions enqueued on two streams never
+share a ticket.  A call allocates its
+outputs and the 0-d count, nothing else, and launches once.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -30,6 +38,12 @@ __all__ = ["compact_apply", "compact_plain", "MAX_PAYLOADS"]
 #: payloads one launch moves (csrc/compact.cu ``kMaxPayloads``)
 MAX_PAYLOADS = 8
 
+#: status words allocated at least (one per tile of 32768 flags: 2^27)
+_MIN_TILES = 4096
+
+_LOG2 = {1: 0, 2: 1, 4: 2, 8: 3}
+_FLAG_TYPES = (torch.uint8, torch.bool)
+
 
 def _lib():
     from .._build import cuda_library
@@ -37,7 +51,7 @@ def _lib():
     lib = cuda_library("vexcl_compact")
     if not getattr(lib, "_vex_bound", False):
         lib.vex_compact.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p]
         lib.vex_compact.restype = ctypes.c_int
@@ -47,6 +61,33 @@ def _lib():
         lib.tile = lib.vex_compact_tile()
         lib._vex_bound = True
     return lib
+
+
+#: (device, raw stream) -> (status words int64, counters int32)
+_scratch: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+#: streams whose scratch is kept; past it the oldest entry is freed, and
+#: its stream, if it comes back, gets a new one.  PyTorch hands out its
+#: streams from a pool of 32 per priority and device, so only external
+#: streams reach this.  Freeing is safe: the allocator gives the memory
+#: back only to later allocations on the same stream.
+MAX_STREAMS = 64
+
+
+def _scratch_for(device: torch.device, stream: int, tiles: int):
+    """The zeroed status words (at least ``tiles``) and counters of this
+    stream on ``device``; allocated at first use and when a call needs
+    more tiles than they hold."""
+    key = (device, stream)
+    s = _scratch.get(key)
+    if s is None or s[0].numel() < tiles:
+        cap = max(tiles, _MIN_TILES, 2 * s[0].numel() if s else 0)
+        s = (torch.zeros(cap, dtype=torch.int64, device=device),
+             torch.zeros(2, dtype=torch.int32, device=device))
+        _scratch[key] = s
+        while len(_scratch) > MAX_STREAMS:
+            del _scratch[next(iter(_scratch))]
+    return s
 
 
 def compact_plain(flags: torch.Tensor,
@@ -71,42 +112,47 @@ def compact_apply(flags: torch.Tensor,
     if flags.ndim != 1 or any(p.shape != flags.shape for p in payloads):
         raise ValueError("compaction: flags and payloads must be 1-D tensors "
                          "of one length")
-    if flags.device.type == "cpu":
+    device = flags.device
+    if device.type == "cpu":
         return compact_plain(flags, *payloads)
-    if flags.device.type != "cuda":
-        raise NotImplementedError(f"no compaction kernel for {flags.device}")
-    if flags.dtype == torch.bool:
-        flags = flags.view(torch.uint8)
-    if flags.dtype != torch.uint8:
+    if device.type != "cuda":
+        raise NotImplementedError(f"no compaction kernel for {device}")
+    if flags.dtype not in _FLAG_TYPES:
         raise NotImplementedError(f"compaction kernel takes u8 or bool "
                                   f"flags, not {flags.dtype}")
-    if len(payloads) > MAX_PAYLOADS:
+    k = len(payloads)
+    if k > MAX_PAYLOADS:
         raise NotImplementedError(f"compaction kernel moves at most "
                                   f"{MAX_PAYLOADS} payloads")
-    for p in payloads:
-        if p.element_size() not in (1, 2, 4, 8):
+    codes = 0
+    for q, p in enumerate(payloads):
+        code = _LOG2.get(p.element_size())
+        if code is None:
             raise NotImplementedError(f"compaction kernel has no form for "
                                       f"{p.element_size()}-byte {p.dtype}")
-    if not all(t.device == flags.device and t.is_contiguous()
+        codes |= code << (2 * q)
+    if not all(t.device == device and t.is_contiguous()
                for t in (flags, *payloads)):
         raise ValueError("compaction operands must be contiguous on one "
                          "device")
-    outs = [torch.empty_like(p) for p in payloads]
-    count = torch.zeros((), dtype=torch.int64, device=flags.device)
-    if n == 0:
-        return (count, *outs)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     lib = _lib()
-    first = torch.empty(-(-n // lib.tile), dtype=torch.int64,
-                        device=flags.device)
-    k = len(payloads)
-    srcs = (ctypes.c_void_p * max(k, 1))(*[p.data_ptr() for p in payloads])
-    dsts = (ctypes.c_void_p * max(k, 1))(*[o.data_ptr() for o in outs])
-    sizes = (ctypes.c_int64 * max(k, 1))(*[p.element_size()
-                                           for p in payloads])
-    stream = torch.cuda.current_stream(flags.device).cuda_stream
-    with torch.cuda.device(flags.device):
-        rc = lib.vex_compact(flags.data_ptr(), n, k, srcs, dsts, sizes,
-                             count.data_ptr(), first.data_ptr(), stream)
+    # the raw stream handle (~0.1 us; a Stream object costs ~3 us)
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    status, counters = _scratch_for(device, stream,
+                                    max(1, -(-(n + 15) // lib.tile)))
+    outs = [torch.empty_like(p) for p in payloads]
+    count = torch.empty((), dtype=torch.int64, device=device)
+    ptrs = (ctypes.c_void_p * max(2 * k, 1))(
+        *[t.data_ptr() for t in (*payloads, *outs)])
+    args = (flags.data_ptr(), n, k, codes, ptrs, count.data_ptr(),
+            status.data_ptr(), counters.data_ptr(), stream)
+    if torch.cuda.current_device() == device.index:
+        rc = lib.vex_compact(*args)
+    else:
+        with torch.cuda.device(device):
+            rc = lib.vex_compact(*args)
     if rc != 0:
         raise RuntimeError("compaction kernel launch failed: "
                            + lib.vex_cuda_error_string(rc).decode())

@@ -150,6 +150,8 @@ def reduce_source(expr: Expr, analysis: Analysis, types: Dict[int, str],
 
 #: (device, stream, accumulator dtype) -> (partials, ticket)
 _scratch: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+#: entries kept; past it the oldest is freed (see ``cuda_compact``)
+_MAX_ENTRIES = 64
 _sm_count: Dict[torch.device, int] = {}
 
 
@@ -174,6 +176,8 @@ def _scratch_for(device: torch.device, dtype: torch.dtype):
         s = (torch.empty(_programs(device), dtype=dtype, device=device),
              torch.zeros(1, dtype=torch.int32, device=device))
         _scratch[key] = s
+        while len(_scratch) > _MAX_ENTRIES:
+            del _scratch[next(iter(_scratch))]
     return s
 
 

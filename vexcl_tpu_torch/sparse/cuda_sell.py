@@ -7,9 +7,11 @@ to width-class order and back, per-class column sums; the source of
 kernels in ``csrc/spmv_sell.cu``:
 
 * ``sell_spmv``: SELL-C-sigma with C = 32, one thread per row, one warp
-  per slice.  Slice s stores its (w_s, 32) column and value planes
-  column-major from ``slice_ptr[s]``; padding slots have column -1; the
-  thread of sorted row r writes ``y[perm[r]]`` (``perm`` None: r);
+  per slice.  Slice s stores its column and value planes from
+  ``slice_ptr[s]`` in packets of ``PACKET`` = 4 consecutive slots of a
+  row: a (w_s / 4, 32, 4) plane, w_s a multiple of 4, so a lane loads a
+  packet with one 16-byte load; padding slots have column -1; the thread
+  of sorted row r writes ``y[perm[r]]`` (``perm`` None: r);
 * ``csr_spmv``: CSR-Adaptive on row blocks (``row_blocks``): a block of
   short rows stages its products in shared memory and sums each row from
   there, a single long row is strided by the whole block; with ``rows``
@@ -37,11 +39,15 @@ import torch
 
 from ..types import promote
 
-__all__ = ["C", "ROW_BLOCK_ENTRIES", "ROW_BLOCK_ROWS", "row_blocks",
+__all__ = ["C", "PACKET", "ROW_BLOCK_ENTRIES", "ROW_BLOCK_ROWS", "row_blocks",
            "sell_spmv", "sell_spmv_plain", "csr_spmv", "csr_spmv_plain"]
 
 #: rows per slice: one warp
 C = 32
+
+#: consecutive slots of a row that a SELL lane loads at once (16 bytes of
+#: int32 columns); slice widths and offsets are multiples of it
+PACKET = 4
 
 #: a row block of the CSR kernel holds fewer entries than this (its
 #: shared-memory product buffer, ``kBlockEntries`` in csrc/spmv_sell.cu)
@@ -132,12 +138,12 @@ def sell_spmv_plain(n: int, slice_ptr: torch.Tensor, col: torch.Tensor,
     dt = promote(val.dtype, x.dtype)
     nslices = slice_ptr.shape[0] - 1
     slots = slice_ptr[1:] - slice_ptr[:-1]
-    # sorted row of every slot: slice * C + (slot offset in slice) % C
+    # sorted row of every slot: slice * C + the lane of its packet
     start = torch.repeat_interleave(slice_ptr[:-1], slots)
     sl = torch.repeat_interleave(torch.arange(nslices, device=x.device),
                                  slots)
     k = torch.arange(col.shape[0], device=x.device)
-    row = sl * C + (k - start) % C
+    row = sl * C + (k - start) // PACKET % C
     keep = col >= 0
     prod = torch.where(keep, val.to(dt) * x[col.clamp(min=0)].to(dt),
                        torch.zeros((), dtype=dt, device=x.device))
@@ -163,6 +169,9 @@ def sell_spmv(n: int, slice_ptr: torch.Tensor, col: torch.Tensor,
     if slice_ptr.shape[0] != -(-n // C) + 1:
         raise ValueError(f"SELL: {slice_ptr.shape[0] - 1} slices for {n} "
                          "rows")
+    if (col.data_ptr() | val.data_ptr()) % 16:
+        raise ValueError("SELL: col and val must be 16-byte aligned (the "
+                         "kernel loads packets of 4 slots)")
     y = torch.empty(n, dtype=x.dtype, device=x.device)
     if n == 0:
         return y

@@ -4,8 +4,10 @@ Port of ``vexcl_tpu/sparse/formats.py`` (vexcl/sparse/{csr,ell,matrix}.hpp,
 vexcl/spmat/hybrid_ell.inl, csr.inl).  The JAX package keeps ELL as
 row-major (n, width) planes for XLA's gather; here every ELL-family
 format is stored as SELL-32 slices for the SELL kernel of
-``cuda_sell.py``: slice s holds its 32 rows' (w_s, 32) column and value
-planes column-major from ``slice_ptr[s]``, padding slots carry column -1.
+``cuda_sell.py``: slice s holds its 32 rows' column and value planes
+from ``slice_ptr[s]`` as (w_s / 4, 32, 4) packets (packet k of lane l:
+slots 4k .. 4k + 3 of row l), w_s rounded up to a multiple of 4;
+padding slots carry column -1.
 
 * ``CSR``: ptr (int64), col (int32), val and the row-block plan of the
   CSR kernel (``blocks``, int32).  With ``rows`` it holds a subset of the
@@ -32,7 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .cuda_sell import C, csr_spmv, row_blocks, sell_spmv
+from .cuda_sell import C, PACKET, csr_spmv, row_blocks, sell_spmv
 
 __all__ = ["CSR", "ELL", "Hybrid", "SlicedEll", "from_csr_host",
            "choose_ell_width", "check_csr"]
@@ -149,9 +151,10 @@ class SlicedEll:
     """SELL-32 slices of an ELL-family format, plus an optional CSR tail
     that adds onto the slices' result.
 
-    ``slice_ptr`` (int64, nslices + 1) gives each slice's first slot;
-    ``perm`` (int32 or None) maps the kernel's row order to the natural
-    one.  Subclasses choose the stored lengths, the order and the width.
+    ``slice_ptr`` (int64, nslices + 1) gives each slice's first slot, a
+    multiple of ``PACKET``; ``perm`` (int32 or None) maps the kernel's
+    row order to the natural one.  Subclasses choose the stored lengths,
+    the order and the width.
     """
 
     def _pack(self, n: int, m: int, ptr: np.ndarray, col: np.ndarray,
@@ -160,7 +163,8 @@ class SlicedEll:
         """Store the first ``lens[i]`` entries of each row i in SELL-32
         slices (rows in kernel order ``order``, natural order if None;
         every slice ``width`` wide if given, else as wide as its longest
-        row) and the other entries in the CSR tail."""
+        row; widths rounded up to a multiple of ``PACKET``) and the other
+        entries in the CSR tail."""
         device = _device(device)
         self.n, self.m = int(n), int(m)
         self.nnz = int(ptr[-1])
@@ -171,6 +175,7 @@ class SlicedEll:
             w = kl.reshape(nslices, C).max(axis=1, initial=0)
         else:
             w = np.full(nslices, int(width), dtype=np.int64)
+        w = -(-w // PACKET) * PACKET
         slice_ptr = np.zeros(nslices + 1, dtype=np.int64)
         np.cumsum(w * C, out=slice_ptr[1:])
         nslots = int(slice_ptr[-1])
@@ -184,7 +189,9 @@ class SlicedEll:
             pos = np.empty(self.n, dtype=np.int64)
             pos[order] = np.arange(self.n)
             p = pos[row[keep]]
-        dst = slice_ptr[p // C] + j[keep] * C + p % C
+        j = j[keep]
+        dst = (slice_ptr[p // C] + j // PACKET * (PACKET * C)
+               + p % C * PACKET + j % PACKET)
         del p, j
         pcol = np.full(nslots, -1, dtype=np.int32)
         pcol[dst] = col[keep]
@@ -227,17 +234,20 @@ def _from_rowmajor(obj: SlicedEll, n: int, m: int, ell_col, ell_val,
     ell_col = np.asarray(ell_col).reshape(n, -1)
     ell_val = np.asarray(ell_val).reshape(n, -1)
     w = ell_col.shape[1]
+    w4 = -(-w // PACKET) * PACKET
     nslices = -(-n // C)
-    pc = np.full((nslices * C, w), -1, dtype=np.int32)
-    pc[:n] = ell_col
-    pv = np.zeros((nslices * C, w), dtype=ell_val.dtype)
-    pv[:n] = ell_val
+    pc = np.full((nslices * C, w4), -1, dtype=np.int32)
+    pc[:n, :w] = ell_col
+    pv = np.zeros((nslices * C, w4), dtype=ell_val.dtype)
+    pv[:n, :w] = ell_val
+
+    def packets(a):        # (row, slot) -> (slice, packet, lane, 4)
+        return a.reshape(nslices, C, w4 // PACKET, PACKET).transpose(
+            0, 2, 1, 3).ravel()
     obj.n, obj.m, obj.width = int(n), int(m), w
     obj.nnz = int(np.count_nonzero(ell_col >= 0)) + (tail.nnz if tail else 0)
-    obj._store(np.arange(nslices + 1, dtype=np.int64) * C * w,
-               pc.reshape(nslices, C, w).transpose(0, 2, 1).ravel(),
-               pv.reshape(nslices, C, w).transpose(0, 2, 1).ravel(),
-               None, tail, _device(device))
+    obj._store(np.arange(nslices + 1, dtype=np.int64) * C * w4,
+               packets(pc), packets(pv), None, tail, _device(device))
 
 
 class ELL(SlicedEll):

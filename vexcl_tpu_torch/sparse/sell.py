@@ -1,20 +1,24 @@
 """SELLR: the irregular-matrix format, as SELL-C-sigma with C = 32.
 
 Takes the role of ``vexcl_tpu/sparse/shuffle.py::SELLR`` (:921-1541),
-the default format for irregular matrices on an accelerator.  Its TPU
-design sorts rows by length into width classes (``_length_classes``
+the JAX package's default format for irregular matrices on an
+accelerator; the port's CUDA default is CSR, which is faster on the
+H100 (``spmat.py``), and SELLR is kept on request (``fmt="sellr"``).
+Its TPU design sorts rows by length into width classes (``_length_classes``
 :1624, ``_choose_classes`` :1659) and moves every entry through Benes
 shuffle routes, because a TPU has no fast gather.  The H100 has one, so
 the port keeps the sort and drops the routes:
 
 * rows are sorted by length, longest first, inside windows of ``SIGMA``
   consecutive rows (the sigma of SELL-C-sigma, the role of the width
-  classes); each slice of 32 sorted rows is as wide as its longest row;
+  classes); each slice of 32 sorted rows is as wide as its longest row,
+  rounded up to a multiple of 4 (the SELL kernel's 16-byte packets);
 * ``perm`` gives each sorted row its natural row, and the SELL kernel
   writes y there once: no y route, no atomics;
 * rows longer than ``LONG_ROW`` entries leave the slices for a CSR tail
-  that the CSR kernel adds onto y, as the JAX format spills to
-  its CSR tail (shuffle.py:1535-1536).
+  that the CSR kernel adds onto y, as the JAX format spills to its CSR
+  tail (shuffle.py:1535-1536): no slice is wider than that, so no warp
+  carries a row many times the mean.
 
 Not ported, because they exist only for the TPU's lack of a gather: the
 hot-column dense plane (:935-937) and the balanced source layout
@@ -42,7 +46,12 @@ SIGMA = 16384
 #: rows with more entries go to the CSR kernel, where a row block's
 #: threads share them (a row of over ``ROW_BLOCK_ENTRIES / 2`` entries
 #: takes a whole block) and one SELL thread would carry the row alone.
-LONG_ROW = 256
+#: On the bench matrix (mean 16) a spill at 64 sends 1.6% of the rows and
+#: 9% of the entries to the CSR kernel and leaves 0.8% padding; SELLR's
+#: product ran faster at 64 than at 128 or 256 on the H100, and 2-3%
+#: faster still at 32, where a third of the entries spill to the CSR
+#: kernel (``chip_smoke.py --spills 32 128 256``; PERF.md).
+LONG_ROW = 64
 
 
 def sigma_order(lens: np.ndarray) -> np.ndarray:

@@ -15,13 +15,16 @@ leaf, so ``x[:] = A * x`` reads the old x::
 
 Format policy (``spmat.py:141-201`` of the JAX package): ``fmt=None``
 tries DIA first; a matrix DIA does not fit gets ``default_format`` of the
-context's device type: ``"csr"`` on a CPU, ``"sellr"`` on CUDA.  An
-explicit ``fmt`` in ``FORMATS`` works on both.  Two parts of the JAX
-policy are TPU workarounds and are not ported: the f64 guard that sends
-f64 matrices to ``"hyb"`` (v5e has no f64), so f64 irregular matrices run
-the SELL kernel on the card; and the warning about the TPU's gather
-speed.  Vector-valued matrices (``val`` of shape (nnz, k)) need
-``multivector``, which is not ported yet, and raise.
+context's device type: ``"csr"`` on a CPU and on CUDA.  On the card the
+row-block CSR kernel beats the SELL kernel on the bench's irregular
+matrix in f32 and f64 (the timings in turns of ``chip_smoke.py``'s phase
+6; PERF.md), so the JAX package's accelerator default, SELL-R, is taken
+only on request (``fmt="sellr"``).  An explicit ``fmt`` in ``FORMATS``
+works on both.  Two parts of the JAX policy are TPU workarounds and are
+not ported: the f64 guard that sends f64 matrices to ``"hyb"`` (v5e has
+no f64); and the warning about the TPU's gather speed.  Vector-valued
+matrices (``val`` of shape (nnz, k)) need ``multivector``, which is not
+ported yet, and raise.
 """
 
 from __future__ import annotations
@@ -48,11 +51,10 @@ FORMATS = ("csr", "ell", "hyb", "sellr", "dia")
 
 def default_format(device_type: str) -> str:
     """Format of a matrix that DIA does not fit, on a device of this type
-    (sparse/matrix.hpp:28-150: CSR on CPUs, the fast format on GPUs)."""
-    if device_type == "cpu":
+    (sparse/matrix.hpp:28-150: CSR on CPUs, the fast format on GPUs; on
+    the H100 that is the row-block CSR kernel, see the module doc)."""
+    if device_type in ("cpu", "cuda"):
         return "csr"
-    if device_type == "cuda":
-        return "sellr"
     raise NotImplementedError(f"no sparse format for {device_type} devices")
 
 
