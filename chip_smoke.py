@@ -51,9 +51,11 @@ diagonally dominant, against the same BiCGStab in plain PyTorch f64 on
 the card.  Last, after every solver phase (so that no solver follows
 these timings' profiler session or cuSPARSE call), the device time per
 call by the profiler of the map-reduce, the compaction (one and two
-payloads, and ``x[flags]``) and the irregular SpMV's SELL, CSR and
+payloads, and ``x[flags]``), the irregular SpMV's SELL, CSR and
 cuSPARSE products (cuSPARSE on the SELL kernel's rows and on the whole
-matrix; f32 and f64), and the DIA row's library call,
+matrix; f32 and f64) and the scans (``scan`` and ``torch.cumsum`` in f32
+and f64, ``segscan``; each scan call checked to be one kernel), and the
+DIA row's library call,
 cuSPARSE's CSR product of the Poisson 256^3 matrix in f32 on phase 3's
 x.  Each phase's launch counters are set to 0 just before its API
 run and read just after.  Times come from CUDA events (kernels) or the host clock
@@ -66,14 +68,17 @@ SM clock; the SM's 4 schedulers x 32 thread instructions a clock are the
 ceiling of integer work, which the INT32 and FMA pipes share), counted
 from this run's inputs, and the time of one PyTorch call that
 computes the same function where there is one (``library_ms``; the port
-never calls it).  The map-reduce (``Sum(p*Ap)``, 256^3 f32), SELL, CSR
-and compaction rows time the kernel and its library call in turns
+never calls it).  The map-reduce (``Sum(p*Ap)``, 256^3 f32), SELL, CSR,
+compaction and scan rows time the kernel and its library call in turns
 (kernel, library, library, kernel, ...: TURNS timings of 100 launches
 each; the SELL row's library call is cuSPARSE on the rows SELLR keeps in
-its slices, the same work) and give medians with their ranges (``ms_range``,
-``library_ms_range``), the device time per call by the profiler
-(``device_us``) and the host's time per call on the host clock without a
-sync (``host_us``; ``library_host_us`` for ``torch.dot``).  The
+its slices, the same work; the scan's ``torch.cumsum``, in f32 and f64;
+the segmented scan, which no PyTorch call computes, goes in turns with
+the plain scan of the same values, ``scan_ms``) and give medians with
+their ranges (``ms_range``, ``library_ms_range``), the device time per
+call by the profiler (``device_us``) and the host's time per call on the
+host clock without a sync (``host_us``; ``library_host_us`` for
+``torch.dot``).  The
 compaction row times one payload, as ``x[flags]`` moves one; its
 ``two_payload_*`` keys give the two-payload call that reduce_by_key
 makes.
@@ -1134,7 +1139,9 @@ def main() -> int:
     def bits(t):
         return t.view({4: torch.int32, 8: torch.int64}[t.element_size()])
 
-    # inclusive_scan: 2^24 f32 (bench.py:474-503), a ragged tail, f64
+    # inclusive_scan: 2^24 f32 (bench.py:474-503), a ragged tail, f64;
+    # scan_calls keeps the timed kernel calls for the profiler at the end
+    scan_calls = {}
     for tag, n, dt in (("f32", N_VEC, torch.float32),
                        ("f32_tail", N_VEC + TAIL, torch.float32),
                        ("f64", N_VEC, torch.float64)):
@@ -1154,25 +1161,31 @@ def main() -> int:
         rec = {"max_abs_err": abs_err, "max_rel_err": rel,
                "launches": launches["scan"] + lin["scan"]}
         if tag != "f32_tail":
-            out = torch.empty_like(x.storage)
-            ms = cuda_ms(lambda: scan_apply(x.storage, "add", out=out),
-                         KERNEL_REPS)
+            # the kernel and torch.cumsum in turns, each into its own out;
+            # bound to these tensors: the profiler at the end calls them
+            # again
+            calls = {"scan": lambda v=x.storage, o=torch.empty_like(
+                         x.storage): scan_apply(v, "add", out=o),
+                     "library": lambda v=x.storage, o=torch.empty_like(
+                         x.storage): torch.cumsum(v, 0, out=o)}
+            turns = in_turns(calls)
+            scan_calls[f"scan_{tag}"] = calls["scan"]
+            scan_calls[f"cumsum_{tag}"] = calls["library"]
             plain_ms = cuda_ms(lambda: scan_plain(x.storage, "add"),
                                KERNEL_REPS)
-            lib_ms = cuda_ms(lambda: torch.cumsum(x.storage, 0),
-                             KERNEL_REPS)
             api_ms = cuda_ms(lambda: vex.inclusive_scan(x, y), KERNEL_REPS)
             inplace_ms = cuda_ms(lambda: vex.inclusive_scan(xi, xi),
                                  KERNEL_REPS)     # values run to inf: alike
-            rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       api_ms=api_ms, inplace_api_ms=inplace_ms,
-                       bound_ms=bound(tensor_bytes(x.storage, y.storage), n)[0])
+            row = kernel_row(abs_err, turns["scan"]["ms"], plain_ms,
+                             tensor_bytes(x.storage, y.storage), n,
+                             turns["library"]["ms"])
+            row.update(turns_row(turns, "scan", "library"),
+                       host_us=host_us(calls["scan"]))
+            rec.update(row, api_ms=api_ms, inplace_api_ms=inplace_ms)
             if tag == "f32":
                 rec.update(scan_Gelem_s=gelem(n, api_ms),
                            scan_inplace_Gelem_s=gelem(n, inplace_ms))
-                kernels["scan"] = kernel_row(
-                    abs_err, ms, plain_ms, tensor_bytes(x.storage, y.storage), n,
-                    lib_ms)
+                kernels["scan"] = row
         report(f"inclusive_scan_{tag}", rec)
         del x, y, xi, ref
     torch.cuda.empty_cache()
@@ -1234,8 +1247,15 @@ def main() -> int:
             _, rel_e = errors(ye.storage, ref_e)
             check(max(rel, rel_e) <= SCAN_TOL["f32"],
                   f"scan_by_key: rel err {rel}, {rel_e}")
-            ms = cuda_ms(lambda: segscan_apply(heads, x.storage, "add"),
-                         KERNEL_REPS)
+            # in turns with the plain scan of the same values, its yardstick
+            # (no PyTorch call computes a segmented scan)
+            calls = {"segscan": lambda h=heads, v=x.storage, o=torch.empty_like(
+                         x.storage): segscan_apply(h, v, "add", out=o),
+                     "scan": lambda v=x.storage, o=torch.empty_like(
+                         x.storage): scan_apply(v, "add", out=o)}
+            turns = in_turns(calls)
+            scan_calls["segscan"] = calls["segscan"]
+            ms = turns["segscan"]["ms"]
             plain_ms = cuda_ms(lambda: segscan_plain(heads, x.storage,
                                                      "add"), KERNEL_REPS)
             api_ms = cuda_ms(lambda: vex.inclusive_scan_by_key(keys, x, yi),
@@ -1243,6 +1263,11 @@ def main() -> int:
             kernels["segscan"] = kernel_row(
                 abs_err, ms, plain_ms, tensor_bytes(x.storage, heads, yi.storage),
                 N_VEC, None)
+            kernels["segscan"].update(
+                ms_range=turns["segscan"]["ms_range"],
+                scan_ms=turns["scan"]["ms"],
+                scan_ms_range=turns["scan"]["ms_range"],
+                host_us=host_us(calls["segscan"]))
             rec.update(max_abs_err=abs_err, max_rel_err=rel,
                        exclusive_max_rel_err=rel_e, ms=ms, plain_ms=plain_ms,
                        library_ms=None, api_ms=api_ms,
@@ -1751,10 +1776,21 @@ def main() -> int:
                            library_device_us=prof["cusparse_sell_part_f32"])
     kernels["csr"].update(device_us=prof["csr_spmv_f32"],
                           library_device_us=prof["cusparse_f32"])
+    # the scans: one kernel a call (cumsum is the library's own)
+    for name, fn in scan_calls.items():
+        per_kernel, _ = profile_call(fn, KERNEL_REPS)
+        prof[name] = sum(per_kernel.values())
+        if not name.startswith("cumsum"):
+            check(len(per_kernel) == 1
+                  and any("scan_kernel" in k_ for k_ in per_kernel),
+                  f"a {name} call is not one kernel: {per_kernel}")
+    kernels["scan"].update(device_us=prof["scan_f32"],
+                           library_device_us=prof["cumsum_f32"])
+    kernels["segscan"].update(device_us=prof["segscan"])
     check(all(v > 0 for v in prof.values()),
           f"the profiler saw no kernel of a call: {prof}")
     report("profile_device_us_per_call", prof)
-    del compact_calls, spmv_timed, tails, tails_b, incl
+    del compact_calls, spmv_timed, tails, tails_b, incl, scan_calls
     torch.cuda.empty_cache()
     ptr, col, val = poisson_7pt(POISSON_N, dtype=np.float32)
     lib_dia = torch.sparse_csr_tensor(

@@ -12,7 +12,8 @@ and 1e-10 for sums.  MIN, MAX, integer results and the DIA kernel on
 integer-valued data are exact.  Scans: f32 sums 1e-5 relative to the
 largest magnitude (another summation order), f64 1e-12, bf16 1e-2 (a sum
 carried in f32 in another order may round to a neighbouring bf16);
-MAX/MIN, integer scans and compaction bitwise.  Random numbers: Philox
+MAX/MIN, integer scans and compaction bitwise; a scan repeated on the same
+input (and alignment) bitwise.  Random numbers: Philox
 words, uniforms and the known answers bitwise; normals (libdevice
 log/cos/sqrt against PyTorch's) 8e-6 (f32), 4e-12 (f64) and 1e-2 (bf16,
 where a few-ulp f32 difference may round to the neighbouring bf16).  User
@@ -661,10 +662,30 @@ def test_ccsr_kernel_path_matches_plain(gpu, cache):
     _close(y.storage, ref, 2e-6)
 
 
-SCAN_N = (1, 31, 4097, (1 << 20) + 3)
+WINDOWS3 = "3 windows + 77"
+SCAN_N = (1, 31, 4097, (1 << 20) + 3, WINDOWS3)
 SCAN_TYPES = (torch.float32, torch.float64, torch.int32, torch.int64,
               torch.bfloat16)
 SCAN_TOL = {torch.float32: 1e-5, torch.float64: 1e-12, torch.bfloat16: 1e-2}
+
+
+def _scan_geometry(dt):
+    """(elements a tile of ``dt``, tiles a look-back window) of the scan
+    kernel."""
+    from vexcl_tpu_torch.ops.cuda_scan import _DTYPE_CODE, _lib
+
+    lib = _lib()
+    return lib.tiles[_DTYPE_CODE[dt]], lib.window
+
+
+def _scan_n(n, dt):
+    """A size of SCAN_N for ``dt``: WINDOWS3 crosses three look-back
+    windows of the kernel's own tile and window and ends in a ragged
+    tile."""
+    if n != WINDOWS3:
+        return n
+    tile, window = _scan_geometry(dt)
+    return 3 * window * tile + 77
 
 
 def _scan_data(n, dt, seed):
@@ -691,6 +712,7 @@ def _scan_close(k, p, mono):
 def test_scan_kernel_matches_plain(gpu, mono, dt, n):
     from vexcl_tpu_torch.ops.cuda_scan import scan_apply, scan_plain
 
+    n = _scan_n(n, dt)
     x = _scan_data(n, dt, n).to(gpu.device)
     before = scan_apply.launches
     k = scan_apply(x, mono)
@@ -713,6 +735,7 @@ def test_scan_kernel_matches_plain(gpu, mono, dt, n):
 def test_segscan_kernel_matches_plain(gpu, mono, dt, n):
     from vexcl_tpu_torch.ops.cuda_scan import segscan_apply, segscan_plain
 
+    n = _scan_n(n, dt)
     x = _scan_data(n, dt, n + 1).to(gpu.device)
     g = torch.Generator().manual_seed(n + 2)
     for p_head in (0.0, 0.01, 0.5, 1.0):
@@ -749,6 +772,194 @@ def test_scan_kernels_propagate_nan(gpu, mono, dt, n):
     heads[min(n - 1, n // 2 + 3)] = 1
     k = segscan_apply(heads, x, mono)
     _scan_close(k, segscan_plain(heads, x, mono), mono)
+
+
+@pytest.mark.parametrize("where", ["tile_starts", "tile_ends",
+                                   "window_starts"])
+@pytest.mark.parametrize("dt", SCAN_TYPES)
+@pytest.mark.parametrize("mono", ["add", "max", "min"])
+def test_segscan_heads_on_tile_and_window_edges(gpu, mono, dt, where):
+    """Heads at every tile start, every tile end and every window start of
+    the kernel, over three windows and a ragged tail: the (flag, value)
+    carry across tiles and windows, and the same bits twice."""
+    from vexcl_tpu_torch.ops.cuda_scan import segscan_apply, segscan_plain
+
+    tile, window = _scan_geometry(dt)
+    n = _scan_n(WINDOWS3, dt)
+    dev = gpu.device
+    x = _scan_data(n, dt, 7).to(dev)
+    pos = torch.arange(n, device=dev)
+    period = tile * window if where == "window_starts" else tile
+    heads = (pos % period == (period - 1 if where == "tile_ends" else 0))
+    heads = heads.to(torch.uint8)
+    k = segscan_apply(heads, x, mono)
+    _scan_close(k, segscan_plain(heads, x, mono), mono)
+    assert torch.equal(segscan_apply(heads, x, mono), k)
+
+
+@pytest.mark.parametrize("segmented", [False, True])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64,
+                                torch.bfloat16])
+@pytest.mark.parametrize("mono", ["max", "min"])
+def test_scan_nan_in_an_earlier_window(gpu, mono, dt, segmented):
+    """A NaN in the first window reaches every later window through the
+    window prefixes (segmented: up to the next head, in the third)."""
+    from vexcl_tpu_torch.ops.cuda_scan import (scan_apply, scan_plain,
+                                               segscan_apply, segscan_plain)
+
+    tile, window = _scan_geometry(dt)
+    n = _scan_n(WINDOWS3, dt)
+    dev = gpu.device
+    x = _scan_data(n, dt, 9).to(dev)
+    inan, stop = 5 * tile + 3, 2 * window * tile + 100
+    x[inan] = float("nan")
+    if segmented:
+        heads = torch.zeros(n, dtype=torch.uint8, device=dev)
+        heads[[0, stop]] = 1
+        k, p = segscan_apply(heads, x, mono), segscan_plain(heads, x, mono)
+    else:
+        stop = n
+        k, p = scan_apply(x, mono), scan_plain(x, mono)
+    assert torch.isnan(k[inan:stop]).all()
+    assert not torch.isnan(k[:inan]).any() and not torch.isnan(k[stop:]).any()
+    _scan_close(k, p, mono)
+
+
+@pytest.mark.parametrize("offsets", [(1, 0, 0), (0, 1, 0), (1, 1, 1),
+                                     (3, 5, 1), (0, 0, 1)])
+@pytest.mark.parametrize("dt", SCAN_TYPES)
+def test_scans_on_unaligned_views(gpu, dt, offsets):
+    """x[a:], heads[b:] and out[c:] at element offsets (a, b, c), none or
+    some 16-byte aligned, over three windows: the kernel reads and writes
+    the unaligned ends itself; in place on the view gives the same bits."""
+    from vexcl_tpu_torch.ops.cuda_scan import (scan_apply, scan_plain,
+                                               segscan_apply, segscan_plain)
+
+    xo, ho, oo = offsets
+    n = _scan_n(WINDOWS3, dt)
+    dev = gpu.device
+    g = torch.Generator(device=dev).manual_seed(12)
+    xbuf = _scan_data(n + xo, dt, 11).to(dev)
+    x = xbuf[xo:]
+    heads = (torch.rand(n + ho, generator=g, device=dev) < 0.01)
+    heads = heads.to(torch.uint8)[ho:]
+    out = torch.empty(n + oo, dtype=dt, device=dev)[oo:]
+    assert x.is_contiguous() and heads.is_contiguous() and out.is_contiguous()
+    for mono in ("add", "max", "min"):
+        for seg in (False, True):
+            if seg:
+                k = segscan_apply(heads, x, mono, out=out)
+                p = segscan_plain(heads, x, mono)
+            else:
+                k = scan_apply(x, mono, out=out)
+                p = scan_plain(x, mono)
+            assert k is out
+            _scan_close(k, p, mono)
+            ybuf = xbuf.clone()
+            y = ybuf[xo:]
+            if seg:
+                segscan_apply(heads, y, mono, out=y)
+            else:
+                scan_apply(y, mono, out=y)
+            assert torch.equal(y, k) and torch.equal(ybuf[:xo], xbuf[:xo])
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_scans_over_many_calls(gpu, dt):
+    """Fifty plain and fifty segmented float sums in a row over three
+    windows, each bitwise the first: every launch leaves the scratch reset,
+    and the window order does not depend on timing."""
+    from vexcl_tpu_torch.ops.cuda_scan import scan_apply, segscan_apply
+
+    n = _scan_n(WINDOWS3, dt)
+    dev = gpu.device
+    x = _scan_data(n, dt, 13).to(dev)
+    heads = (torch.arange(n, device=dev) % 5000 == 17).to(torch.uint8)
+    s0, g0 = scan_apply(x), segscan_apply(heads, x)
+    same = torch.ones((), dtype=torch.bool, device=dev)
+    for _ in range(50):
+        same &= torch.equal(scan_apply(x), s0)
+        same &= torch.equal(segscan_apply(heads, x), g0)
+    assert same.item()
+
+
+def test_scans_on_two_streams(gpu):
+    """Scans enqueued on two streams at once each get their own status
+    words and tickets: every result is right."""
+    from vexcl_tpu_torch.ops.cuda_scan import scan_apply, segscan_apply
+
+    dev = gpu.device
+    n = _scan_n(WINDOWS3, torch.float64)
+    xs = [_scan_data(n, torch.float64, s).to(dev) for s in (14, 15)]
+    heads = (torch.arange(n, device=dev) % 777 == 0).to(torch.uint8)
+    want = [(scan_apply(x), segscan_apply(heads, x)) for x in xs]
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    res = []
+    for _ in range(20):
+        for s, x, w in zip((s1, s2), xs, want):
+            with torch.cuda.stream(s):
+                res.append((w, scan_apply(x), segscan_apply(heads, x)))
+    torch.cuda.synchronize()
+    for (ws, wg), ks, kg in res:
+        assert torch.equal(ks, ws) and torch.equal(kg, wg)
+
+
+def test_scan_scratch_is_bounded(gpu, monkeypatch):
+    """More streams than the cache keeps, in turns: the oldest scratch is
+    freed, a stream that comes back gets a new one, and every result is
+    right."""
+    from vexcl_tpu_torch.ops import cuda_scan
+    from vexcl_tpu_torch.ops.cuda_scan import scan_apply, segscan_apply
+
+    monkeypatch.setattr(cuda_scan._scratch, "max_streams", 2)
+    dev = gpu.device
+    n = (1 << 22) + 9
+    x = _scan_data(n, torch.float32, 16).to(dev)
+    heads = (torch.arange(n, device=dev) % 300 == 0).to(torch.uint8)
+    want = (scan_apply(x), segscan_apply(heads, x))
+    streams = [torch.cuda.Stream() for _ in range(4)]
+    torch.cuda.synchronize()
+    res = []
+    for _ in range(3):
+        for s in streams:
+            with torch.cuda.stream(s):
+                res.append((scan_apply(x), segscan_apply(heads, x)))
+    torch.cuda.synchronize()
+    assert len(cuda_scan._scratch.entries) <= 2
+    for a, b in res:
+        assert torch.equal(a, want[0]) and torch.equal(b, want[1])
+
+
+@pytest.mark.parametrize("dt", SCAN_TYPES)
+def test_scans_are_one_kernel_launch(gpu, dt):
+    """A call is one kernel on the card, for every monoid: no fill, no
+    second pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vexcl_tpu_torch.ops.cuda_scan import scan_apply, segscan_apply
+
+    dev = gpu.device
+    n = 1 << 20
+    x = _scan_data(n, dt, 17).to(dev)
+    heads = (torch.arange(n, device=dev) % 64 == 0).to(torch.uint8)
+    calls = {"scan": lambda m: scan_apply(x, m),
+             "segscan": lambda m: segscan_apply(heads, x, m)}
+    for name, fn in calls.items():
+        for mono in ("add", "max", "min"):
+            fn(mono)                      # the scratch, at first use
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    fn(mono)
+                torch.cuda.synchronize()
+            kernels = [(e.key, e.count) for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.self_device_time_total > 0]
+            assert len(kernels) == 1 and "scan_kernel" in kernels[0][0], (
+                name, mono, kernels)
+            assert kernels[0][1] == 3
 
 
 @pytest.mark.parametrize("n", [1, 31, 4097, (1 << 20) + 3])
@@ -888,7 +1099,7 @@ def test_compact_scratch_is_bounded(gpu, monkeypatch):
     from vexcl_tpu_torch.ops import cuda_compact
     from vexcl_tpu_torch.ops.cuda_compact import compact_apply
 
-    monkeypatch.setattr(cuda_compact, "MAX_STREAMS", 2)
+    monkeypatch.setattr(cuda_compact._scratch, "max_streams", 2)
     dev = gpu.device
     n = (1 << 20) + 9
     g = torch.Generator(device=dev).manual_seed(23)
@@ -903,7 +1114,7 @@ def test_compact_scratch_is_bounded(gpu, monkeypatch):
             with torch.cuda.stream(s):
                 res.append(compact_apply(flags, a))
     torch.cuda.synchronize()
-    assert len(cuda_compact._scratch) <= 2
+    assert len(cuda_compact._scratch.entries) <= 2
     for c, o in res:
         assert int(c) == want.numel() and torch.equal(o[:want.numel()], want)
 

@@ -6,7 +6,11 @@ length that is no block multiple, ``pallas_cummax``/``pallas_cummin`` as
 tests/test_algorithms.py runs them) and against its XLA scan for the
 types those kernels do not take; ``inclusive_scan``/``exclusive_scan``
 against the JAX package's public API for each standard monoid, a custom
-operator, ``init``, in place and NaN.
+operator, ``init``, in place and NaN.  ``scan_tiled``, the CUDA kernel's
+tile and window decomposition at a small tile and window, is held against
+the plain scans and the JAX package's Pallas scans (f64: its XLA scan, as
+its Pallas kernels compute in f32) over three windows and a ragged tail,
+with heads on and off tile and window edges.
 
 Tolerances, relative to the largest magnitude of the result: f32 sums
 1e-5 (another summation order), f64 1e-12, bf16 1e-2 (the JAX package's
@@ -25,7 +29,9 @@ import vexcl_tpu as vex
 import vexcl_tpu_torch as vt
 from vexcl_tpu.ops.pallas_monoid_scan import pallas_cummax, pallas_cummin
 from vexcl_tpu.ops.pallas_scan import pallas_cumsum
-from vexcl_tpu_torch.ops.cuda_scan import associative_scan, scan_plain
+from vexcl_tpu.ops.pallas_segscan import pallas_segmented_cumsum_flags
+from vexcl_tpu_torch.ops.cuda_scan import (associative_scan, scan_plain,
+                                           scan_tiled, segscan_plain)
 from vexcl_tpu_torch.vector import host_tensor
 
 TOL = {"f32": 1e-5, "f64": 1e-12, "bf16": 1e-2}
@@ -230,3 +236,84 @@ def test_associative_scan_on_pairs_matches_jax():
                            (torch.from_numpy(f), torch.from_numpy(v)))
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     _check(got[1], want[1], "f64", exact=False)
+
+
+TILE, WINDOW = 8, 4                    # scan_tiled's decomposition, small
+N_TILED = 3 * WINDOW * TILE + 5        # three windows and a ragged tail
+_JNP_OPS = {"add": jnp.add, "max": jnp.maximum, "min": jnp.minimum}
+
+
+def _heads(kind, n, rng):
+    pos = np.arange(n)
+    return {"none": np.zeros(n, bool), "all": np.ones(n, bool),
+            "tile_starts": pos % TILE == 0,
+            "tile_ends": pos % TILE == TILE - 1,
+            "window_starts": pos % (TILE * WINDOW) == 0,
+            "one_in_window_1": pos == TILE * WINDOW + 13,
+            "random": rng.random(n) < 0.1}[kind].astype(np.int8)
+
+
+def _jax_scan(h, f, mono, dt, segmented):
+    """The JAX package's scan of h: its Pallas kernels (f32, i32), its XLA
+    scan of the (flag, value) pairs (f64)."""
+    if dt == "f64":
+        op = _JNP_OPS[mono]
+        return jax.lax.associative_scan(
+            lambda a, b: (a[0] | b[0], jnp.where(b[0], b[1], op(a[1], b[1]))),
+            (jnp.asarray(f != 0), jnp.asarray(h)))[1]
+    if segmented:
+        return pallas_segmented_cumsum_flags(jnp.asarray(f), jnp.asarray(h),
+                                             mono)
+    return {"add": pallas_cumsum, "max": pallas_cummax,
+            "min": pallas_cummin}[mono](jnp.asarray(h))
+
+
+@pytest.mark.parametrize("kind", ["none", "all", "tile_starts", "tile_ends",
+                                  "window_starts", "one_in_window_1",
+                                  "random"])
+@pytest.mark.parametrize("dt", ["f32", "i32", "f64"])
+@pytest.mark.parametrize("mono", ["add", "max", "min"])
+def test_scan_tiled_order_matches_plain_and_jax(mono, dt, kind):
+    """The kernel's combination order: tile aggregates, the fold of the
+    window's aggregates onto the inclusive prefix of the window before, a
+    head among them that makes that prefix irrelevant.  With no alignment
+    shift the heads sit on tile and window edges; a shift of 3 moves every
+    edge off them.  Tolerances as at the top; f64 1e-12."""
+    rng = np.random.default_rng(80)
+    h = _data(rng, N_TILED, dt)
+    f = _heads(kind, N_TILED, rng)
+    seg = kind != "none"
+    xt, ft = torch.from_numpy(h), torch.from_numpy(f)
+    plain = segscan_plain(ft, xt, mono) if seg else scan_plain(xt, mono)
+    want = _jax_scan(h, f, mono, dt, seg)
+    for shift in (0, 3):
+        got = scan_tiled(xt, mono, ft if seg else None, TILE, WINDOW, shift)
+        assert got.dtype == xt.dtype
+        _check(got, plain, dt, exact=mono != "add")
+        _check(got, want, dt, exact=mono != "add")
+
+
+@pytest.mark.parametrize("segmented", [False, True])
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+@pytest.mark.parametrize("mono", ["max", "min"])
+def test_scan_tiled_nan_in_an_earlier_window(mono, dt, segmented):
+    """A NaN in window 0 reaches every later window through the chain of
+    window prefixes (segmented: up to the next head, in window 2)."""
+    rng = np.random.default_rng(81)
+    h = _data(rng, N_TILED, dt)
+    h[10] = np.nan
+    f = np.zeros(N_TILED, np.int8)
+    stop = 2 * TILE * WINDOW + 5
+    if segmented:
+        f[[0, stop]] = 1
+    xt, ft = torch.from_numpy(h), torch.from_numpy(f)
+    plain = segscan_plain(ft, xt, mono) if segmented else scan_plain(xt, mono)
+    want = _jax_scan(h, f, mono, dt, segmented)
+    for shift in (0, 3):
+        got = scan_tiled(xt, mono, ft if segmented else None, TILE, WINDOW,
+                         shift).numpy()
+        end = stop if segmented else N_TILED
+        assert np.isnan(got[10:end]).all() and not np.isnan(got[:10]).any()
+        assert not np.isnan(got[end:]).any()
+        _check(got, plain, dt, exact=True)
+        _check(got, want, dt, exact=True)

@@ -46,7 +46,7 @@ LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "vexcl_dia": ("dia_spmv.cu",),
     "vexcl_sell": ("spmv_sell.cu",),
     "vexcl_stencil": ("stencil.cu",),
-    "vexcl_scan": ("scan.cu", "scan_common.cuh"),
+    "vexcl_scan": ("scan.cu",),
     "vexcl_compact": ("compact.cu",),
     "vexcl_philox": ("philox.cu",),
 }

@@ -19,19 +19,19 @@ elements in their original order, the rest is undefined.  On a CPU
 tensor the plain version runs; on a CUDA tensor the kernel launches.
 
 The kernel's scratch (a status word per tile and two counters, left
-zeroed by every launch) is allocated once per (device, stream), for at
-most ``MAX_STREAMS`` streams, and grows only when a call needs more
-tiles: keyed by stream, two compactions enqueued on two streams never
-share a ticket.  A call allocates its
-outputs and the 0-d count, nothing else, and launches once.
+zeroed by every launch) is kept per (device, stream) by
+``cuda_scratch.StreamScratch``.  A call allocates its outputs and the 0-d
+count, nothing else, and launches once.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
+
+from .cuda_scratch import StreamScratch
 
 __all__ = ["compact_apply", "compact_plain", "MAX_PAYLOADS"]
 
@@ -63,31 +63,8 @@ def _lib():
     return lib
 
 
-#: (device, raw stream) -> (status words int64, counters int32)
-_scratch: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
-
-#: streams whose scratch is kept; past it the oldest entry is freed, and
-#: its stream, if it comes back, gets a new one.  PyTorch hands out its
-#: streams from a pool of 32 per priority and device, so only external
-#: streams reach this.  Freeing is safe: the allocator gives the memory
-#: back only to later allocations on the same stream.
-MAX_STREAMS = 64
-
-
-def _scratch_for(device: torch.device, stream: int, tiles: int):
-    """The zeroed status words (at least ``tiles``) and counters of this
-    stream on ``device``; allocated at first use and when a call needs
-    more tiles than they hold."""
-    key = (device, stream)
-    s = _scratch.get(key)
-    if s is None or s[0].numel() < tiles:
-        cap = max(tiles, _MIN_TILES, 2 * s[0].numel() if s else 0)
-        s = (torch.zeros(cap, dtype=torch.int64, device=device),
-             torch.zeros(2, dtype=torch.int32, device=device))
-        _scratch[key] = s
-        while len(_scratch) > MAX_STREAMS:
-            del _scratch[next(iter(_scratch))]
-    return s
+#: the status words (one a tile) and counters of each (device, stream)
+_scratch = StreamScratch(1, _MIN_TILES)
 
 
 def compact_plain(flags: torch.Tensor,
@@ -140,7 +117,7 @@ def compact_apply(flags: torch.Tensor,
     lib = _lib()
     # the raw stream handle (~0.1 us; a Stream object costs ~3 us)
     stream = torch._C._cuda_getCurrentRawStream(device.index)
-    status, counters = _scratch_for(device, stream,
+    status, counters = _scratch.get(device, stream,
                                     max(1, -(-(n + 15) // lib.tile)))
     outs = [torch.empty_like(p) for p in payloads]
     count = torch.empty((), dtype=torch.int64, device=device)
