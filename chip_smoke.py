@@ -48,7 +48,23 @@ kernels (``y = 3*x``, a two-input axpy) and a user Triton kernel through
 card, a dlpack round trip, the profiler around the gbm run, and
 ``interop.bicgstab`` in f32 on the phase-6 matrix made non-symmetric and
 diagonally dominant, against the same BiCGStab in plain PyTorch f64 on
-the card.  Last, after every solver phase (so that no solver follows
+the card; (12) fused multi-assignment: ``LorenzEnsemble(2^22)`` as
+bench.py:721 builds it, in f32 and f64, 1 and then 99 steps (one launch
+of the k-output kernel a step, by the counter and the profiler) against
+the plain version of the same recorded tree and a hand-written CUDA RK4
+kernel launched through ``CustomKernel``, then the step and the raw
+kernel timed in turns (``lorenz_rk4_Gsteps_s``,
+``lorenz_overhead_vs_raw_cuda``: the median of the turns' ratios);
+``tie(x, y) = (x + y, x - y)`` and the swap at 2^24 f32, a 3-component
+multivector with ``+=`` and a builtin, ``make_temp`` over it, a
+``vex.function`` body, ``Reductor(MIN_MAX)`` (exact; with a NaN; timed
+in turns with ``torch.aminmax``), ``SUM_Kahan`` of 1.0 followed by 2^24
+values of 1e-8 (within 2 f32 ulp of the f64 sum, and closer than
+``torch.sum``), ``Reductor(SUM)`` over the multivector,
+``CombineReductors(SUM, MIN, MAX)``, the phase-6 matrix times a
+3-component multivector and its values as an (nnz, 2) vector-valued
+matrix, and ``enqueue`` onto a ``tie`` of CPU vectors.  Last, after
+every solver phase (so that no solver follows
 these timings' profiler session or cuSPARSE call), the device time per
 call by the profiler of the map-reduce, the compaction (one and two
 payloads, and ``x[flags]``), the irregular SpMV's SELL, CSR and
@@ -102,6 +118,12 @@ count in f32 (FMA contraction of x*x + y*y moves points that lie on the
 circle); the gbm mean within 1e-4 of the plain f64 recursion and 0.11 (5
 sigma) of 100 e^0.05.  User kernels within 1e-6 of the tensor result.
 BiCGStab: x within 1e-4 of the f64 solve, true residual below 1e-5 |b|.
+The Lorenz ensemble against its plain version and the raw CUDA kernel:
+f32 1e-5 after one step and 1e-4 after 100 (FMA contraction differs; the
+system is chaotic), f64 1e-12 and 1e-10; moves, swaps, ``x + y`` and
+MIN/MAX exact; multivector arithmetic 1e-5 (f32).  The k-output
+kernel's row gives its device time by the profiler (``ms``; the events
+of back-to-back calls read the host's launch, ``events_ms``).
 
 Any failed check raises, and the script exits non-zero without the
 result line; it also fails when no CUDA device is visible and when the
@@ -164,6 +186,11 @@ RUNTIME_N = 1 << 24
 BICGSTAB_TOL = 1e-6           # stop at |r| <= 1e-6 |b| ...
 BICGSTAB_X_TOL = 1e-4         # ... and hold x within 1e-4 of the f64 solve
 BICGSTAB_MAXITER = 300        # ~75 iterations suffice at 2^16 rows
+LORENZ_N = 1 << 22            # the bench's ensemble (bench.py:721)
+LORENZ_STEPS = 100
+LORENZ_TOL = {"f32": (1e-5, 1e-4), "f64": (1e-12, 1e-10)}  # 1, 100 steps
+MULTI_N = 1 << 24
+MV_TOL = {"f32": 1e-5, "f64": 1e-12}
 PHILOX_KATS = [
     ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
     ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
@@ -185,6 +212,40 @@ extern "C" __global__ void axpy(const float* x, const float* y, float* out,
                                 long long n) {
     long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
     if (i < n) out[i] = 2.0f * x[i] + y[i];
+}
+"""
+# the "raw" comparator of the reference's published claim: one RK4 step
+# of the Lorenz system written by hand, the operations in the order of
+# LorenzEnsemble's recorded tree; x is read and the new x written to the
+# output (CustomKernel's), y and z updated in place
+RAW_LORENZ = r"""
+template <typename T>
+__device__ void rk4(const T* x, T* y, T* z, const T* R, T* xo, long long n) {
+    long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const T s = T(10.0), b = T(8.0 / 3.0), h = T(0.01), h2 = T(0.5 * 0.01),
+            h6 = T(0.01 / 6.0);
+    T X = x[i], Y = y[i], Z = z[i], r = R[i];
+    T ax = s * (Y - X), ay = r * X - Y - X * Z, az = X * Y - b * Z;
+    T x2 = X + h2 * ax, y2 = Y + h2 * ay, z2 = Z + h2 * az;
+    T bx = s * (y2 - x2), by = r * x2 - y2 - x2 * z2, bz = x2 * y2 - b * z2;
+    T x3 = X + h2 * bx, y3 = Y + h2 * by, z3 = Z + h2 * bz;
+    T cx = s * (y3 - x3), cy = r * x3 - y3 - x3 * z3, cz = x3 * y3 - b * z3;
+    T x4 = X + h * cx, y4 = Y + h * cy, z4 = Z + h * cz;
+    T dx = s * (y4 - x4), dy = r * x4 - y4 - x4 * z4, dz = x4 * y4 - b * z4;
+    xo[i] = X + h6 * (ax + T(2) * bx + T(2) * cx + dx);
+    y[i] = Y + h6 * (ay + T(2) * by + T(2) * cy + dy);
+    z[i] = Z + h6 * (az + T(2) * bz + T(2) * cz + dz);
+}
+extern "C" __global__ void lorenz_f32(const float* x, float* y, float* z,
+                                      const float* R, float* xo,
+                                      long long n) {
+    rk4(x, y, z, R, xo, n);
+}
+extern "C" __global__ void lorenz_f64(const double* x, double* y, double* z,
+                                      const double* R, double* xo,
+                                      long long n) {
+    rk4(x, y, z, R, xo, n);
 }
 """
 USER_TRITON = """import triton
@@ -237,13 +298,14 @@ def cuda_ms(fn, reps: int = 10) -> float:
 def in_turns(fns):
     """Functions timed in turns (in the given order, then reversed, ...),
     TURNS timings of KERNEL_REPS launches each: name -> {"ms": median,
-    "ms_range": [min, max]}."""
+    "ms_range": [min, max], "times": [each timing, in turn order]}."""
     got = {name: [] for name in fns}
     order = list(fns)
     for r in range(TURNS):
         for name in (order if r % 2 == 0 else order[::-1]):
             got[name].append(cuda_ms(fns[name], KERNEL_REPS))
-    return {name: {"ms": statistics.median(v), "ms_range": [min(v), max(v)]}
+    return {name: {"ms": statistics.median(v), "ms_range": [min(v), max(v)],
+                   "times": v}
             for name, v in got.items()}
 
 
@@ -347,6 +409,18 @@ def plain_bicgstab(mv, b, tol, maxiter):
         rr = torch.dot(r, r).item()
         it += 1
     return x, it
+
+
+def dag_ops(exprs):
+    """Operations an element of a fused assignment does: the nodes of
+    its expressions' DAG that are not leaves, each counted once."""
+    seen, stack = set(), list(exprs)
+    while stack:
+        e = stack.pop()
+        if id(e) not in seen and e.children:
+            seen.add(id(e))
+            stack.extend(e.children)
+    return len(seen)
 
 
 def tensor_bytes(*ts):
@@ -469,14 +543,20 @@ def main() -> int:
     check("jax" not in sys.modules and "vexcl_tpu" not in sys.modules,
           "the port imported jax or vexcl_tpu")
     from vexcl_tpu_torch._build import build_cuda_libraries
-    from vexcl_tpu_torch.expr.compile import prepare
-    from vexcl_tpu_torch.expr.triton_emit import assign, assign_plain
-    from vexcl_tpu_torch.models import PoissonSolver
+    from vexcl_tpu_torch.expr.compile import prepare, prepare_multi
+    from vexcl_tpu_torch.expr.triton_emit import (assign, assign_multi,
+                                                  assign_multi_plain,
+                                                  assign_plain)
+    from vexcl_tpu_torch.models import LorenzEnsemble, PoissonSolver
     from vexcl_tpu_torch.ops.cuda_compact import compact_apply, compact_plain
     from vexcl_tpu_torch.ops.cuda_scan import (scan_apply, scan_plain,
                                                segscan_apply, segscan_plain)
     from vexcl_tpu_torch.ops.cuda_stencil import stencil_apply, stencil_plain
-    from vexcl_tpu_torch.ops.triton_reduce import map_reduce, map_reduce_plain
+    from vexcl_tpu_torch.ops.triton_reduce import (kahan_sum_plain,
+                                                   map_reduce,
+                                                   map_reduce_multi,
+                                                   map_reduce_multi_plain,
+                                                   map_reduce_plain)
     from vexcl_tpu_torch.sparse.cuda_dia import dia_matvec, dia_matvec_plain
     from vexcl_tpu_torch.sparse import SELLR, default_format, sell
     from vexcl_tpu_torch.sparse.cuda_sell import (csr_spmv, csr_spmv_plain,
@@ -494,7 +574,8 @@ def main() -> int:
                 "stencil": stencil_apply, "sell": sell_spmv,
                 "csr": csr_spmv, "scan": scan_apply,
                 "segscan": segscan_apply, "compact": compact_apply,
-                "philox": philox_bits, "custom": vex.CustomKernel}
+                "philox": philox_bits, "custom": vex.CustomKernel,
+                "multi": assign_multi, "reduce_multi": map_reduce_multi}
     main_launches = {}
 
     def counted(keys, fn):
@@ -1738,6 +1819,271 @@ def main() -> int:
     del ptr, col, val
     torch.cuda.empty_cache()
 
+    # -- phase 12: fused multi-assignment, the generator, the kinds ---------
+    # LorenzEnsemble(2^22) as bench.py:721 builds it (r in [0.1, 50],
+    # sigma 10, b 8/3, dt 0.01, seed 0: the constructor's defaults), in
+    # f32 and f64: one launch a step, against the plain version of the
+    # same recorded tree and a hand-written CUDA RK4 kernel
+    lorenz = {}
+    for dname, npdt in (("f32", np.float32), ("f64", np.float64)):
+        t = time.perf_counter()
+        ens = LorenzEnsemble(LORENZ_N, dtype=npdt, context=ctx,
+                             seed=args.seed)
+        ref = LorenzEnsemble.from_arrays(*(v.storage.clone() for v in (
+            ens.x, ens.y, ens.z, ens.R)), context=ctx)
+        host_build_s = time.perf_counter() - t
+        raw = vex.CustomKernel(RAW_LORENZ, name=f"lorenz_{dname}")
+        rx, ry, rz, rR = (vex.vector(data=v.storage, context=ctx)
+                          for v in (ens.x, ens.y, ens.z, ens.R))
+        plain = ref._step.prepare(ref.x, ref.y, ref.z, ref.R)
+        rec, done = {"host_build_s": host_build_s}, 0
+        for steps, tol in zip((1, LORENZ_STEPS - 1), LORENZ_TOL[dname]):
+            t = time.perf_counter()
+            _, launches = counted(("multi",), lambda: ens.step(steps))
+            rec.setdefault("first_step_s", time.perf_counter() - t)
+            add_launches(launches)
+            check(launches["multi"] == steps,
+                  f"Lorenz {dname}: {launches} launches for {steps} steps")
+            for _ in range(steps):
+                assign_multi_plain(*plain)
+                rx = raw(rx, ry, rz, rR)
+            done += steps
+            for name, a, p_, r in zip("xyz", (ens.x, ens.y, ens.z),
+                                      (ref.x, ref.y, ref.z), (rx, ry, rz)):
+                _, rel_p = errors(a.storage, p_.storage)
+                _, rel_r = errors(a.storage, r.storage)
+                check(a.dtype == p_.dtype and rel_p <= tol and rel_r <= tol,
+                      f"Lorenz {dname} {name} after {done} steps: rel err "
+                      f"{rel_p} (plain), {rel_r} (raw CUDA)")
+                rec[f"{name}_rel_err_plain_{done}"] = rel_p
+                rec[f"{name}_rel_err_raw_{done}"] = rel_r
+        turns = in_turns({"step": ens.step,
+                          "raw": lambda: raw(rx, ry, rz, rR)})
+        ratios = [a / b for a, b in zip(turns["step"]["times"],
+                                        turns["raw"]["times"])]
+        per_kernel, _ = profile_call(ens.step, KERNEL_REPS)
+        check(len(per_kernel) == 1
+              and "assign_kernel" in next(iter(per_kernel)),
+              f"a Lorenz step is not one kernel: {per_kernel}")
+        nbytes = 7 * LORENZ_N * np.dtype(npdt).itemsize
+        rec.update(
+            step_ms=turns["step"]["ms"], step_ms_range=turns["step"]["ms_range"],
+            raw_cuda_ms=turns["raw"]["ms"],
+            raw_cuda_ms_range=turns["raw"]["ms_range"],
+            lorenz_rk4_Gsteps_s=LORENZ_N / (turns["step"]["ms"] * 1e-3) / 1e9,
+            lorenz_overhead_vs_raw_cuda=statistics.median(ratios),
+            overhead_range=[min(ratios), max(ratios)],
+            device_us=next(iter(per_kernel.values())),
+            host_us=host_us(ens.step),
+            bound_ms=bound(nbytes)[0])
+        # the kernel alone, into new outputs: its row of the kernels line
+        e, an, ty, lv, outs = ens._step.prepare(ens.x, ens.y, ens.z, ens.R)
+        rec["dag_ops"] = dag_ops(e)
+        ko = [torch.empty_like(o) for o in outs]
+        po = [torch.empty_like(o) for o in outs]
+        assign_multi(e, an, ty, lv, ko)
+        assign_multi_plain(e, an, ty, lv, po)
+        rec["kernel_max_abs_err"] = max(errors(k_, p_)[0]
+                                        for k_, p_ in zip(ko, po))
+        rec["kernel_ms"] = cuda_ms(lambda: assign_multi(e, an, ty, lv, ko),
+                                   KERNEL_REPS)
+        rec["plain_ms"] = cuda_ms(lambda: assign_multi_plain(e, an, ty, lv,
+                                                             po))
+        report(f"lorenz_rk4_{dname}", rec)
+        lorenz[dname] = rec
+        del ens, ref, raw, rx, ry, rz, rR, plain, e, lv, outs, ko, po
+        torch.cuda.empty_cache()
+    f32 = lorenz["f32"]
+    # the row's time is the profiler's: back to back, the events read the
+    # host's ~0.1 ms of launching a 30-argument kernel (events_ms)
+    kernels["multi"] = kernel_row(
+        f32["kernel_max_abs_err"], f32["device_us"] * 1e-3, f32["plain_ms"],
+        7 * LORENZ_N * 4, f32["dag_ops"] * LORENZ_N, None)
+    kernels["multi"].update(device_us=f32["device_us"],
+                            events_ms=f32["kernel_ms"],
+                            host_us=f32["host_us"])
+
+    # the rest of the new path at 2^24 f32, each against its plain version
+    x, y = rand(MULTI_N, torch.float32), rand(MULTI_N, torch.float32)
+    xs, ys = x.storage.clone(), y.storage.clone()
+    rec = {}
+    _, launches = counted(("multi",), lambda: vex.tie(x, y).assign(
+        (x + y, x - y)))
+    add_launches(launches)
+    check(launches["multi"] == 1 and torch.equal(x.storage, xs + ys)
+          and torch.equal(y.storage, xs - ys), "tie(x, y) = (x+y, x-y)")
+    xs, ys = x.storage.clone(), y.storage.clone()
+    _, launches = counted(("multi",), lambda: vex.tie(x, y).assign((y, x)))
+    add_launches(launches)
+    check(launches["multi"] == 1 and torch.equal(x.storage, ys)
+          and torch.equal(y.storage, xs), "the swap tie(x, y) = (y, x)")
+    e, an, ty, lv = prepare_multi([x + y, x - y], MULTI_N, dev)
+    ko = [torch.empty_like(xs) for _ in range(2)]
+    po = [torch.empty_like(xs) for _ in range(2)]
+    rec["tie_ms"] = cuda_ms(lambda: assign_multi(e, an, ty, lv, ko),
+                            KERNEL_REPS)
+    assign_multi_plain(e, an, ty, lv, po)
+    check(all(torch.equal(k_, p_) for k_, p_ in zip(ko, po)),
+          "tie kernel differs from its plain version")
+    rec["tie_plain_ms"] = cuda_ms(lambda: assign_multi_plain(e, an, ty, lv,
+                                                             po))
+    rec["tie_bound_ms"] = bound(4 * 4 * MULTI_N)[0]
+    del e, lv, ko, po
+    # a 3-component multivector: += with a builtin, make_temp, a function
+    m = vex.multivector(components=[x, y, rand(MULTI_N, torch.float32)],
+                        context=ctx)
+    m2 = vex.multivector(components=[rand(MULTI_N, torch.float32)
+                                     for _ in range(3)], context=ctx)
+    old = [c.storage.clone() for c in m.components]
+    o2 = [c.storage for c in m2.components]
+
+    @vex.function
+    def squared_radius(a, b):
+        return a * a + b * b
+
+    def multivector_path():
+        m.assign(vex.sin(m2) * 0.5, "+=")
+        tmp = vex.make_temp(1, m2 * 2)
+        m3[:] = tmp * tmp + tmp
+        z[:] = squared_radius(x, y)
+    m3 = vex.multivector(MULTI_N, 3, context=ctx)
+    z = vex.vector(MULTI_N, context=ctx)
+    _, launches = counted(("multi", "expr"), multivector_path)
+    add_launches(launches)
+    check(launches["multi"] == 2, f"multivector path: {launches}")
+    for c, h, h2 in zip(m.components, old, o2):
+        _, rel = errors(c.storage, h + torch.sin(h2) * 0.5)
+        check(rel <= MV_TOL["f32"], f"m += sin(m2) * 0.5: rel err {rel}")
+    for c, h2 in zip(m3.components, o2):
+        _, rel = errors(c.storage, (h2 * 2) * (h2 * 2) + h2 * 2)
+        check(rel <= MV_TOL["f32"], f"make_temp over m2: rel err {rel}")
+    xs, ys = x.storage, y.storage
+    _, rel = errors(z.storage, xs * xs + ys * ys)
+    check(rel <= MV_TOL["f32"], f"a vex.function body: rel err {rel}")
+    rec["multivector_ops"] = "ok"
+    # the Reductor's kinds: MIN_MAX (exact; NaN), Kahan, a multivector
+    u = rand(MULTI_N, torch.float32)
+    u[:] = u - 0.5
+    uh = u.storage
+    mm = vex.Reductor(vex.MIN_MAX)
+    (mn, mx), launches = counted(("reduce_multi",), lambda: mm(u))
+    add_launches(launches)
+    check((mn, mx) == (uh.min().item(), uh.max().item()),
+          f"MIN_MAX: {(mn, mx)}")
+    e, an, ty, lv = prepare_multi([u], MULTI_N, dev)
+    pairs = [(e[0], "MIN"), (e[0], "MAX")]
+    err = max(abs(k_.item() - p_.item()) for k_, p_ in zip(
+        map_reduce_multi(pairs, an, ty, lv, MULTI_N, dev),
+        map_reduce_multi_plain(pairs, an, ty, lv, MULTI_N, dev)))
+    check(err == 0, f"MIN_MAX kernel differs from its plain version: {err}")
+    turns = in_turns({
+        "kernel": lambda: map_reduce_multi(pairs, an, ty, lv, MULTI_N, dev),
+        "library": lambda: torch.aminmax(uh)})
+    kernels["reduce_multi"] = kernel_row(
+        err, turns["kernel"]["ms"],
+        cuda_ms(lambda: map_reduce_multi_plain(pairs, an, ty, lv, MULTI_N,
+                                               dev)),
+        tensor_bytes(uh), 2 * MULTI_N, turns["library"]["ms"])
+    kernels["reduce_multi"].update(
+        ms_range=turns["kernel"]["ms_range"],
+        library_ms_range=turns["library"]["ms_range"],
+        host_us=host_us(lambda: map_reduce_multi(pairs, an, ty, lv, MULTI_N,
+                                                 dev)))
+    per_kernel, _ = profile_call(
+        lambda: map_reduce_multi(pairs, an, ty, lv, MULTI_N, dev),
+        KERNEL_REPS)
+    kernels["reduce_multi"]["device_us"] = sum(
+        v for name, v in per_kernel.items() if "reduce_kernel" in name)
+    check(kernels["reduce_multi"]["device_us"] > 0,
+          "the profiler saw no map-reduce kernel")
+    per_kernel, _ = profile_call(lambda: torch.aminmax(uh), KERNEL_REPS)
+    kernels["reduce_multi"]["library_device_us"] = sum(per_kernel.values())
+    uh[MULTI_N - 3] = float("nan")
+    mn, mx = mm(u)
+    check(mn != mn and mx != mx, f"MIN_MAX with a NaN: {(mn, mx)}")
+    # Kahan: 1.0 followed by 2^24 values of 1e-8
+    kh = torch.full((MULTI_N + 1,), 1e-8, device=dev)
+    kh[0] = 1.0
+    kv = vex.vector(data=kh, context=ctx)
+    kahan, launches = counted(("reduce_multi",),
+                              lambda: vex.Reductor(vex.SUM_Kahan)(kv))
+    add_launches(launches)
+    exact = kh.double().sum().item()
+    ulp = float(np.spacing(np.float32(exact)))
+    plain_k = kahan_sum_plain(kh).item()
+    torch_sum = kh.sum().item()
+    check(abs(kahan - exact) <= 2 * ulp and abs(kahan - exact)
+          < abs(torch_sum - exact),
+          f"SUM_Kahan {kahan}, f64 {exact}, torch.sum {torch_sum}")
+    rec.update(kahan=kahan, kahan_plain=plain_k, f64_sum=exact,
+               torch_sum_f32=torch_sum, kahan_err_ulp=(kahan - exact) / ulp,
+               plain_err_ulp=(plain_k - exact) / ulp,
+               torch_sum_err_ulp=(torch_sum - exact) / ulp)
+    del kh, kv
+    # a Reductor over the 3-component multivector, and combined kinds
+    sums, launches = counted(("reduce_multi",),
+                             lambda: vex.Reductor(vex.SUM)(m2))
+    add_launches(launches)
+    for got, h2 in zip(sums, o2):
+        p_ = h2.double().sum().item()
+        check(abs(got - p_) <= SUM_TOL["f32"] * max(1.0, abs(p_)),
+              f"Reductor(SUM) over a multivector: {got} vs {p_}")
+    comb = vex.Reductor(vex.CombineReductors(vex.SUM, vex.MIN, vex.MAX))
+    got, launches = counted(("reduce_multi",), lambda: comb(x * 2))
+    add_launches(launches)
+    (b,), an, ty, lv = prepare_multi([x * 2], MULTI_N, dev)
+    want = map_reduce_multi_plain([(b, k_) for k_ in ("SUM", "MIN", "MAX")],
+                                  an, ty, lv, MULTI_N, dev)
+    check(abs(got[0] - want[0].item()) <= SUM_TOL["f32"] * abs(got[0])
+          and got[1:] == (want[1].item(), want[2].item()),
+          f"CombineReductors(SUM, MIN, MAX): {got}")
+    del m, m2, m3, z, u, uh, old, o2, e, lv, pairs
+    torch.cuda.empty_cache()
+    # the phase-6 matrix on a 3-component multivector, and its values as a
+    # vector-valued (nnz, 2) matrix on a 2-component one
+    ptr, col, val, nnz = random_lognormal_csr(RANDOM_N, seed=args.seed)
+    A = vex.SpMat(RANDOM_N, RANDOM_N, ptr, col, val, context=ctx)
+    A2 = vex.SpMat(RANDOM_N, RANDOM_N, ptr, col,
+                   np.stack([val, 2 * val], axis=1), context=ctx)
+    xm = vex.multivector(components=[rand(RANDOM_N, torch.float32)
+                                     for _ in range(3)], context=ctx)
+    ym = vex.multivector(RANDOM_N, 3, context=ctx)
+    y2 = vex.multivector(RANDOM_N, 2, context=ctx)
+    csr = {k_: torch.from_numpy(a).to(dev) for k_, a in (
+        ("ptr", ptr), ("col", col.astype(np.int32)), ("val", val))}
+
+    def products():
+        ym[:] = A * xm
+        x2 = vex.multivector(components=xm.components[:2], context=ctx)
+        y2[:] = A2 * x2 + x2
+    _, launches = counted(("csr", "multi"), products)
+    add_launches(launches)
+    check(launches == {"csr": 5, "multi": 2},
+          f"SpMat x multivector: {launches}")
+    for j in range(3):
+        want_ = csr_spmv_plain(RANDOM_N, csr["ptr"], csr["col"], csr["val"],
+                               xm(j).storage)
+        _, rel = errors(ym(j).storage, want_)
+        check(rel <= SPMV_TOL["f32"], f"A * multivector: rel err {rel}")
+        if j < 2:
+            _, rel = errors(y2(j).storage,
+                            (j + 1) * want_ + xm(j).storage)
+            check(rel <= SPMV_TOL["f32"], f"vector-valued A: rel err {rel}")
+    del A, A2, xm, ym, y2, csr, ptr, col, val
+    # enqueue onto tie(x, y): CPU targets migrate to the card
+    cpu = vex.Context(vex.Filter.CPU, set_current=False)
+    xc, yc = (vex.vector(MULTI_N, context=cpu) for _ in range(2))
+    _, launches = counted(("multi",), lambda: vex.enqueue(ctx)(
+        vex.tie(xc, yc)).assign((x * 2, x + y)))
+    add_launches(launches)
+    check(launches["multi"] == 1 and xc.context is ctx
+          and torch.equal(xc.storage, x.storage * 2)
+          and torch.equal(yc.storage, x.storage + y.storage),
+          "enqueue(ctx)(tie(x, y))[:] = (2x, x+y)")
+    report("multi_assign_and_kinds", rec)
+    del x, y, xs, ys, xc, yc
+    torch.cuda.empty_cache()
+
     # last, after every solver phase, so that no solver's ms per iteration
     # (compared between versions of this script) follows these timings'
     # profiler session or cuSPARSE call: the
@@ -1834,6 +2180,10 @@ def main() -> int:
          "vexcl_tpu/ops/random.py:141", "philox"),
         ("custom_kernel", "cuda", "vexcl_tpu_torch/backend.py",
          "vexcl_tpu/backend.py:34", "custom"),
+        ("assign_multi", "triton", "vexcl_tpu_torch/expr/triton_emit.py",
+         "vexcl_tpu/expr/compile.py:519", "multi"),
+        ("map_reduce_multi", "triton", "vexcl_tpu_torch/ops/triton_reduce.py",
+         "vexcl_tpu/ops/reductor.py:69", "reduce_multi"),
     ]
     check("jax" not in sys.modules and "vexcl_tpu" not in sys.modules,
           "the port imported jax or vexcl_tpu")

@@ -212,11 +212,13 @@ def test_map_reduce_on_two_streams(gpu):
 
 
 def test_reductor_raises_on_uncovered_kinds(gpu):
+    """What the map-reduce kernels do not cover raises on the card: MIN or
+    MAX of booleans, complex values, a builtin without a kernel form."""
     x = _vec(gpu, np.ones(100, np.float32))
     with pytest.raises(NotImplementedError):
-        vex.Reductor(vex.MIN_MAX)(x)
+        vex.Reductor(vex.MIN_MAX)(x > 0)
     with pytest.raises(NotImplementedError):
-        vex.Reductor(vex.SUM_Kahan)(x)
+        vex.Reductor(vex.SUM_Kahan)(_vec(gpu, np.ones(100, np.complex64)))
     with pytest.raises(NotImplementedError, match="sinpi"):
         y = vex.vector(100, context=gpu)
         y[:] = vex.sinpi(x)
@@ -1398,3 +1400,289 @@ def test_events_enqueue_and_dlpack_on_the_card(gpu):
     y = vex.interop.from_dlpack(vex.interop.to_dlpack(a))
     assert y.storage.data_ptr() == a.storage.data_ptr()
     assert y.context.device == gpu.device
+
+
+# -- the k-output assignment kernel: tie, multivector, the generator -----
+
+def _both_multi(exprs, n, dtypes, device):
+    """(kernel results, plain results) of one fused assignment into new
+    targets, checked to be one launch."""
+    from vexcl_tpu_torch.expr.compile import prepare_multi
+    from vexcl_tpu_torch.expr.triton_emit import (assign_multi,
+                                                  assign_multi_plain)
+
+    exprs, analysis, types, leaves = prepare_multi(exprs, n, device)
+    ks = [torch.empty(n, dtype=d, device=device) for d in dtypes]
+    ps = [torch.empty_like(k) for k in ks]
+    before = assign_multi.launches
+    assign_multi(exprs, analysis, types, leaves, ks)
+    assert assign_multi.launches == before + 1
+    assign_multi_plain(exprs, analysis, types, leaves, ps)
+    torch.cuda.synchronize()
+    return ks, ps
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("n", [1, 1024, 1025, (1 << 24) + 3])
+def test_assign_multi_matches_plain(gpu, k, n):
+    """k outputs sharing a subexpression; one element, one block, a block
+    and one, and a ragged 2^24 + 3."""
+    rng = np.random.default_rng(31)
+    x, y = (_vec(gpu, rng.standard_normal(n).astype(np.float32))
+            for _ in range(2))
+    s = x * y
+    exprs = [s * (i + 1) + vex.sin(y) * i - i for i in range(k)]
+    ks, ps = _both_multi(exprs, n, [torch.float32] * k, gpu.device)
+    for a, b in zip(ks, ps):
+        _close(a, b, 4 * RTOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtypes", [
+    (torch.float32,), (torch.float64,), (torch.int32,),
+    (torch.float32, torch.float64, torch.int32),
+    (torch.int32, torch.float32, torch.float64, torch.float32)])
+def test_assign_multi_output_types(gpu, dtypes):
+    """Each output cast to its target's type: f32, f64 and i32, mixed."""
+    rng = np.random.default_rng(32)
+    x = _vec(gpu, rng.standard_normal(N) * 100)
+    i = _vec(gpu, rng.integers(-1000, 1000, N).astype(np.int32))
+    exprs = [x * (j + 1) + i * j for j in range(len(dtypes))]
+    ks, ps = _both_multi(exprs, N, list(dtypes), gpu.device)
+    for a, b, d in zip(ks, ps, dtypes):
+        assert a.dtype == d
+        if d.is_floating_point:
+            _close(a, b, RTOL[d])
+        else:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_assign_multi_compound_swap_and_targets_that_are_leaves(gpu, dt):
+    """``=`` and ``+=`` in one kernel, the swap, and targets read as
+    leaves: every load before the first store, one launch a call."""
+    from vexcl_tpu_torch.expr.compile import evaluate_multi
+    from vexcl_tpu_torch.expr.triton_emit import assign_multi
+
+    rng = np.random.default_rng(33)
+    npdt = np.float64 if dt == torch.float64 else np.float32
+    n = (1 << 24) + 3
+    x, y, z = (_vec(gpu, rng.standard_normal(n).astype(npdt))
+               for _ in range(3))
+    hx, hy, hz = (v.storage.clone() for v in (x, y, z))
+    before = assign_multi.launches
+    evaluate_multi([y * 2, x + z, z * z], [x.storage, y.storage, z.storage],
+                   ["+=", "=", "-="])
+    assert torch.equal(x.storage, hx + hy * 2)    # y * 2 is exact
+    assert torch.equal(y.storage, hx + hz)
+    _close(z.storage, hz - hz * hz, RTOL[dt])      # may contract to an FMA
+    hx, hy = x.storage.clone(), y.storage.clone()
+    vex.tie(x, y)[:] = (y, x)
+    assert torch.equal(x.storage, hy) and torch.equal(y.storage, hx)
+    vex.tie(x, y)[:] = (x + y, x - y)
+    assert torch.equal(x.storage, hy + hx) and torch.equal(y.storage,
+                                                           hy - hx)
+    m = vex.multivector(components=[x, y, z], context=gpu)
+    hm = [v.storage.clone() for v in (x, y, z)]
+    m += vex.fabs(m) * 0.5
+    for v, h in zip((x, y, z), hm):
+        _close(v.storage, h + h.abs() * 0.5, RTOL[dt])
+    torch.cuda.synchronize()
+    assert assign_multi.launches == before + 4
+
+
+def _reduce_pairs(bodies, kinds, n, device):
+    from vexcl_tpu_torch.expr.compile import prepare_multi
+
+    bodies, analysis, types, leaves = prepare_multi(bodies, n, device)
+    return [(b, k) for b in bodies for k in kinds], analysis, types, leaves
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64, torch.int32])
+@pytest.mark.parametrize("k,kinds", [
+    (1, ("MIN", "MAX")), (1, ("SUM", "MIN", "MAX")), (3, ("SUM",)),
+    (3, ("MIN", "MAX")), (2, ("SUM_Kahan", "MAX"))])
+@pytest.mark.parametrize("n", [1, 4095, (5 << 20) + 777])
+def test_map_reduce_multi_matches_plain(gpu, k, kinds, dt, n):
+    """One launch for every (body, kind) of k bodies, the same bits from
+    three calls, MIN and MAX exact, sums within tolerance of the plain
+    version."""
+    from vexcl_tpu_torch.ops.triton_reduce import (map_reduce_multi,
+                                                   map_reduce_multi_plain)
+
+    rng = np.random.default_rng(34)
+    npdt = {torch.float32: np.float32, torch.float64: np.float64,
+            torch.int32: np.int32}[dt]
+    xs = [_vec(gpu, (rng.random(n) * 200 - 100).astype(npdt))
+          for _ in range(k)]
+    pairs, analysis, types, leaves = _reduce_pairs(
+        [x * 2 + j for j, x in enumerate(xs)], kinds, n, gpu.device)
+    before = map_reduce_multi.launches
+    runs = [map_reduce_multi(pairs, analysis, types, leaves, n, gpu.device)
+            for _ in range(3)]
+    assert map_reduce_multi.launches == before + 3
+    plain = map_reduce_multi_plain(pairs, analysis, types, leaves, n,
+                                   gpu.device)
+    tol = {torch.float32: 1e-5, torch.float64: 1e-10, torch.int32: 0}[dt]
+    for j, ((_, kind), p) in enumerate(zip(pairs, plain)):
+        got = [r[j] for r in runs]
+        assert all(torch.equal(g, got[0]) for g in got[1:])
+        g, p = got[0].item(), p.item()
+        if kind.startswith("SUM"):
+            assert abs(g - p) <= tol * max(1.0, abs(p)), (kind, g, p)
+        else:
+            assert g == p, (kind, g, p)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("where", [0, 4096 * 3 + 5, (1 << 20) + 2])
+def test_min_max_with_nan_and_integers(gpu, dt, where):
+    rng = np.random.default_rng(35)
+    n = (1 << 20) + 3
+    npdt = np.float64 if dt == torch.float64 else np.float32
+    h = (rng.random(n) - 0.5).astype(npdt)
+    h[where] = np.nan
+    mn, mx = vex.Reductor(vex.MIN_MAX)(_vec(gpu, h) * 3)
+    assert mn != mn and mx != mx
+    i = rng.integers(-2 ** 31, 2 ** 31 - 1, n).astype(np.int32)
+    assert vex.Reductor(vex.MIN_MAX)(_vec(gpu, i)) == (int(i.min()),
+                                                       int(i.max()))
+    assert vex.Reductor(vex.CombineReductors(vex.SUM, vex.MIN, vex.MAX))(
+        _vec(gpu, i)) == (int(i.astype(np.int64).sum()), int(i.min()),
+                          int(i.max()))
+
+
+def test_kahan_sum_on_the_card(gpu):
+    """1.0 followed by 2^24 values of 1e-8: the kernel's compensated sum
+    is within 2 f32 ulp of the f64 sum and no farther off than its plain
+    version (compensated over chunks of 4096 only); on random values it
+    agrees with the plain version within 1e-6; the same bits each call."""
+    from vexcl_tpu_torch.ops.triton_reduce import kahan_sum_plain
+
+    n = (1 << 24) + 1
+    h = np.full(n, 1e-8, np.float32)
+    h[0] = 1.0
+    x = _vec(gpu, h)
+    exact = float(h.astype(np.float64).sum())
+    ulp = float(np.spacing(np.float32(exact)))
+    got = [vex.Reductor(vex.SUM_Kahan)(x) for _ in range(3)]
+    assert got[0] == got[1] == got[2]
+    plain = kahan_sum_plain(x.storage).item()
+    assert abs(got[0] - exact) <= 2 * ulp, (got[0], exact)
+    assert abs(got[0] - exact) <= abs(plain - exact)
+    r = _vec(gpu, np.random.default_rng(36).random(n).astype(np.float32))
+    k = vex.Reductor(vex.SUM_Kahan)(r * 2)
+    p = kahan_sum_plain(r.storage * 2).item()
+    assert abs(k - p) <= 1e-6 * abs(p)
+
+
+def test_reductor_kinds_are_one_launch_without_a_plain_path(gpu,
+                                                            monkeypatch):
+    from vexcl_tpu_torch.ops import triton_reduce
+    from vexcl_tpu_torch.ops.triton_reduce import map_reduce_multi
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("a plain reduction ran on the card")
+    monkeypatch.setattr(triton_reduce, "map_reduce_multi_plain", no_plain)
+    monkeypatch.setattr(triton_reduce, "plain_values", no_plain)
+    rng = np.random.default_rng(37)
+    h = rng.random((3, N)).astype(np.float32)
+    x = _vec(gpu, h[0])
+    m = vex.multivector(data=h, context=gpu)
+    calls = [lambda: vex.Reductor(vex.MIN_MAX)(x),
+             lambda: vex.Reductor(vex.CombineReductors(vex.SUM, vex.MAX))(x),
+             lambda: vex.Reductor(vex.SUM_Kahan)(x),
+             lambda: vex.Reductor(vex.SUM)(m),
+             lambda: vex.Reductor(vex.MIN_MAX)(m * 2)]
+    for call in calls:
+        before = map_reduce_multi.launches
+        call()
+        assert map_reduce_multi.launches == before + 1
+    assert vex.Reductor(vex.MAX)(m) == tuple(float(r.max()) for r in h)
+
+
+def test_map_reduce_multi_on_two_streams(gpu):
+    """Several-word reductions enqueued on two streams at once each get
+    their own partials and ticket: every result is right."""
+    from vexcl_tpu_torch.ops.triton_reduce import map_reduce_multi
+
+    n = 1 << 22
+    a = _vec(gpu, np.ones(n, np.float32))
+    b = _vec(gpu, np.full(n, 2, np.float32))
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    kinds = ("SUM_Kahan", "MIN", "MAX")
+    torch.cuda.synchronize()
+    res = []
+    for _ in range(20):
+        for s, v, c in ((s1, a, 1.0), (s2, b, 2.0)):
+            with torch.cuda.stream(s):
+                args = _reduce_pairs([v * 1.0], kinds, n, gpu.device)
+                res.append((map_reduce_multi(*args, n, gpu.device),
+                            (c * n, c, c)))
+    torch.cuda.synchronize()
+    assert all(tuple(r.item() for r in got) == want for got, want in res)
+
+
+RAW_LORENZ = r'''
+template <typename T>
+__device__ void rk4(const T* x, T* y, T* z, const T* R, T* xo, long long n) {
+    long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const T s = T(10.0), b = T(8.0 / 3.0), h = T(0.01), h2 = T(0.5 * 0.01),
+            h6 = T(0.01 / 6.0);
+    T X = x[i], Y = y[i], Z = z[i], r = R[i];
+    T ax = s * (Y - X), ay = r * X - Y - X * Z, az = X * Y - b * Z;
+    T x2 = X + h2 * ax, y2 = Y + h2 * ay, z2 = Z + h2 * az;
+    T bx = s * (y2 - x2), by = r * x2 - y2 - x2 * z2, bz = x2 * y2 - b * z2;
+    T x3 = X + h2 * bx, y3 = Y + h2 * by, z3 = Z + h2 * bz;
+    T cx = s * (y3 - x3), cy = r * x3 - y3 - x3 * z3, cz = x3 * y3 - b * z3;
+    T x4 = X + h * cx, y4 = Y + h * cy, z4 = Z + h * cz;
+    T dx = s * (y4 - x4), dy = r * x4 - y4 - x4 * z4, dz = x4 * y4 - b * z4;
+    xo[i] = X + h6 * (ax + T(2) * bx + T(2) * cx + dx);
+    y[i] = Y + h6 * (ay + T(2) * by + T(2) * cy + dy);
+    z[i] = Z + h6 * (az + T(2) * bz + T(2) * cz + dz);
+}
+extern "C" __global__ void lorenz_f32(const float* x, float* y, float* z,
+                                      const float* R, float* xo,
+                                      long long n) {
+    rk4(x, y, z, R, xo, n);
+}
+extern "C" __global__ void lorenz_f64(const double* x, double* y, double* z,
+                                      const double* R, double* xo,
+                                      long long n) {
+    rk4(x, y, z, R, xo, n);
+}
+'''
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_lorenz_step_against_plain_and_raw_cuda(gpu, dt):
+    """One launch a step; the state after 1 and 10 steps against the plain
+    version of the same recorded tree and a hand-written CUDA RK4 kernel:
+    f32 1e-5 after one step and 1e-4 after ten (FMA contraction differs;
+    the system is chaotic), f64 1e-12 and 1e-10."""
+    from vexcl_tpu_torch.expr.triton_emit import (assign_multi,
+                                                  assign_multi_plain)
+    from vexcl_tpu_torch.models import LorenzEnsemble
+
+    npdt = np.float64 if dt == torch.float64 else np.float32
+    tol = {torch.float32: (1e-5, 1e-4), torch.float64: (1e-12, 1e-10)}[dt]
+    m = LorenzEnsemble((1 << 16) + 5, dtype=npdt, context=gpu)
+    ref = LorenzEnsemble.from_arrays(*(v.storage.clone() for v in
+                                       (m.x, m.y, m.z, m.R)), context=gpu)
+    raw = vex.CustomKernel(RAW_LORENZ, name=f"lorenz_f{str(dt)[-2:]}")
+    rx, ry, rz, rR = (vex.vector(data=v.storage, context=gpu)
+                      for v in (m.x, m.y, m.z, m.R))
+    plain = ref._step.prepare(ref.x, ref.y, ref.z, ref.R)
+    for steps, t in zip((1, 9), tol):
+        before = assign_multi.launches
+        m.step(steps)
+        torch.cuda.synchronize()
+        assert assign_multi.launches == before + steps
+        for _ in range(steps):
+            assign_multi_plain(*plain)
+            rx = raw(rx, ry, rz, rR)
+        for a, p, r in zip((m.x, m.y, m.z), (ref.x, ref.y, ref.z),
+                           (rx, ry, rz)):
+            assert a.dtype == dt
+            _close(a.storage, p.storage, t)
+            _close(a.storage, r.storage, t)

@@ -4,10 +4,15 @@ The port's plain map-reduce (the CPU form of ops/triton_reduce.py) is
 held against ``vexcl_tpu.ops.pallas_reduce.pallas_map_reduce`` run in
 interpret mode, as the JAX package's own tests run it on CPU, at a
 ragged size so the tail mask matters.  The Reductor is compared through
-both public APIs.
+both public APIs, with one kind and with several (``MIN_MAX``,
+``CombineReductors``), ``SUM_Kahan`` and over a multivector.
 
 Tolerances: f32 sums 1e-5 relative (the two kernels add in another
-order), f64 sums 1e-12, MIN and MAX and integer sums exact.
+order), f64 sums 1e-12, MIN and MAX and integer sums exact.  Kahan: both
+packages take chunk sums of 4096 values and a compensated sum of the
+chunks; the chunk sums may round differently (another summation order
+in a chunk), so the test takes chunks that sum exactly, and then the
+f32 results agree within 1 ulp of each other and of the exact sum.
 """
 
 import jax.numpy as jnp
@@ -120,3 +125,66 @@ def test_min_max_propagate_nan(ctx1, tctx, kind, dt, pos):
     want = vex.Reductor(getattr(vex, kind))(jx * 2)
     got = vt.Reductor(getattr(vt, kind))(tx * 2)
     assert np.isnan(want) and np.isnan(got)
+
+
+@pytest.mark.parametrize("dt", [np.float32, np.float64, np.int32])
+@pytest.mark.parametrize("kinds", ["MIN_MAX", "SUM_MIN_MAX", "MAX_SUM_SUM"])
+def test_combined_kinds(ctx1, tctx, kinds, dt):
+    rng = np.random.default_rng(25)
+    x = (rng.random(N) * 100 - 30).astype(dt)
+    jx = vex.vector(data=x, context=ctx1)
+    tx = vt.vector(data=x, context=tctx)
+
+    def combined(m):
+        if kinds == "MIN_MAX":
+            return m.MIN_MAX
+        return m.CombineReductors(*[getattr(m, k) for k in kinds.split("_")])
+
+    want = vex.Reductor(combined(vex))(jx * 2 - 1)
+    got = vt.Reductor(combined(vt))(tx * 2 - 1)
+    assert isinstance(got, tuple) and len(got) == len(want)
+    for g, w, k in zip(got, want, kinds.split("_")):
+        if k == "SUM" and dt != np.int32:
+            _sum_close(g, w, 1e-12 if dt == np.float64 else 1e-5)
+        else:
+            assert g == w
+
+
+def test_kahan_sum_against_jax(ctx1, tctx):
+    """1.0 followed by 2^20 - 1 values of 2^-40: every chunk of 4096
+    values sums exactly in any order (2^-28 apart from the first), and
+    each chunk sum is below half an ulp of 1.0, so only the compensated
+    sum of the chunks keeps them."""
+    x = np.full(1 << 20, 2.0 ** -40, np.float32)
+    x[0] = 1.0
+    jx = vex.vector(data=x, context=ctx1)
+    tx = vt.vector(data=x, context=tctx)
+    want = vex.Reductor(vex.SUM_Kahan)(jx)
+    got = vt.Reductor(vt.SUM_Kahan)(tx)
+    exact = float(x.astype(np.float64).sum())
+    ulp = float(np.spacing(np.float32(exact)))
+    assert abs(got - want) <= ulp and abs(got - exact) <= ulp
+    assert got != 1.0
+    i = np.arange(1000, dtype=np.int32)    # Kahan of integers: their sum
+    assert vt.Reductor(vt.SUM_Kahan)(vt.vector(data=i, context=tctx)) == \
+        int(i.sum())
+
+
+@pytest.mark.parametrize("kind", ["SUM", "MAX", "MIN_MAX"])
+def test_reductor_over_multivector(ctx1, tctx, kind):
+    """One result per component (one launch of the kernel on the card)."""
+    rng = np.random.default_rng(26)
+    h = rng.random((3, N))
+    jm = vex.multivector(data=h, context=ctx1)
+    tm = vt.multivector(data=h, context=tctx)
+    want = vex.Reductor(getattr(vex, kind))(jm * 2)
+    got = vt.Reductor(getattr(vt, kind))(tm * 2)
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        if kind == "SUM":
+            _sum_close(g, w, 1e-12)
+        else:
+            assert g == w
+    if kind != "SUM":           # the multivector itself
+        assert vt.Reductor(getattr(vt, kind))(tm) == vex.Reductor(
+            getattr(vex, kind))(jm)

@@ -144,12 +144,19 @@ def test_rectangular_and_empty_dia(ctx1, tctx):
 
 
 def test_vector_valued_matrices_raise(tctx):
-    """val of shape (nnz, k) needs multivector, not ported yet."""
+    """val of shape (nnz, k) acts on a k-component multivector only
+    (tests/test_torch_multivector.py holds its products)."""
     ptr, col, val = poisson_7pt(4)
     vals = np.stack([val, 2 * val], axis=1)
+    x = vt.vector(data=np.ones(64), context=tctx)
+    x3 = vt.multivector(data=np.ones((3, 64)), context=tctx)
     for fmt in (None, "csr", "ell", "hyb", "sellr", "dia"):
-        with pytest.raises(NotImplementedError, match="multivector"):
-            vt.SpMat(64, 64, ptr, col, vals, fmt=fmt, context=tctx)
-    with pytest.raises(NotImplementedError, match="multivector"):
-        vt.SpMatCCSR(64, 64, np.zeros(64, np.int32), [0, 1], [0],
+        A = vt.SpMat(64, 64, ptr, col, vals, fmt=fmt, context=tctx)
+        with pytest.raises(TypeError, match="multivector"):
+            A * x
+        with pytest.raises(ValueError, match="multivector"):
+            A * x3
+    C = vt.SpMatCCSR(64, 64, np.zeros(64, np.int32), [0, 1], [0],
                      np.ones((1, 2)), context=tctx)
+    with pytest.raises(TypeError, match="multivector"):
+        C * x

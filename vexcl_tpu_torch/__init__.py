@@ -2,7 +2,11 @@
 
 The same API as ``vexcl_tpu`` for the slice ported so far: lazy vector
 expressions, each assignment one generated Triton kernel; the Reductor
-(SUM/MIN/MAX) on a Triton map-reduce kernel; ``SpMat`` in every format
+(SUM/MIN/MAX, ``SUM_Kahan``, ``CombineReductors``, per component of a
+multivector) on a Triton map-reduce kernel; ``multivector`` and ``tie``,
+each fused assignment one generated Triton kernel writing k outputs, and
+on it user ``function``s, the symbolic ``generator`` and the Lorenz RK4
+ensemble; ``SpMat`` in every format
 (DIA, CSR, ELL, hybrid, SELL-R) and ``SpMatCCSR`` on hand-written CUDA
 kernels (DIA, SELL-C-sigma, row-block CSR); ``stencil`` on a CUDA stencil
 kernel and ``StencilOperator`` on the expression kernel; the scan family
@@ -39,6 +43,8 @@ from .expr import (BUILTINS, Expr, as_expr, builtin, cast, constant,
                    element_index, eval_expr as eval, if_else, make_temp, tag)
 from .expr import mathconst as constants
 from .expr.builtins import *  # noqa: F401,F403 - sin, cos, exp, ...
+from .expr.function import Function, device_function, function
+from .multivector import MultiExpr, multivector, tie
 from .ops.reductor import (MAX, MIN, MIN_MAX, SUM, SUM_Kahan,
                            CombineReductors, Reductor)
 from .sparse import SpMat, SpMatCCSR, make_inline, matrix
@@ -49,7 +55,7 @@ from .ops.reduce_by_key import reduce_by_key
 from .ops.sort import sort, sort_by_key
 from .ops.random import Random, RandomNormal
 from .profiler import profiler, stopwatch
-from . import backend, events, interop
+from . import backend, events, generator, interop
 from .backend import CustomKernel
 from .events import enqueue, enqueue_barrier, enqueue_marker
 from .utils.util import ExpressionError, alignup, nextpow2, precondition

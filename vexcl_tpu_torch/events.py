@@ -9,13 +9,14 @@ vexcl/enqueue.hpp:38-136).  On a card a queue is a CUDA stream:
   (``Context.finish``);
 * ``enqueue(context)(x)[:] = expr`` runs the assignment on the target
   context's device: its leaves move there, and where the devices differ
-  the vector migrates to the target, as in the JAX package.
+  the vector migrates to the target, as in the JAX package;
+  ``enqueue(context)(tie(x, y))`` and ``enqueue(context)(mv)`` do the
+  same for a fused multi-assignment (one kernel for all components).
 
 On the CPU every operation has completed when it returns: a marker is
-complete at once.  Not ported: ``tie``/multivector targets (they raise
-until the multivector is ported, ROADMAP queue item 7), the complex
-host-transfer shims of the TPU platform, and the distributed-SpMV check
-(no distributed matrices yet).
+complete at once.  Not ported: the complex host-transfer shims of the
+TPU platform, and the distributed-SpMV check (no distributed matrices
+yet).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from .context import Context, current_context
-from .expr.compile import ASSIGN_OPS, evaluate
+from .expr.compile import ASSIGN_OPS, evaluate_multi
 from .expr.node import ArrayTerminal, BinOp, Expr, VectorTerminal, as_expr
 
 __all__ = ["Event", "enqueue_marker", "enqueue_barrier", "enqueue"]
@@ -88,25 +89,34 @@ def _moved(expr: Expr, device: torch.device,
 
 
 class _Redirected:
-    """Assignment proxy that runs the kernel on the target context."""
+    """Assignment proxy that runs the kernel on the target context, for
+    one vector or (``_RedirectedMulti``) several in one fused kernel."""
 
-    def __init__(self, context: Context, vec):
+    def __init__(self, context: Context, vecs):
         self._context = context
-        self._vec = vec
+        self._vecs = vecs
+
+    def _exprs(self, value: Any):
+        return [as_expr(value)]
 
     def assign(self, value: Any, op: str = "=") -> None:
-        vec, tgt = self._vec, self._context
-        value = as_expr(value)
+        vecs, tgt = self._vecs, self._context
+        exprs = self._exprs(value)
         if ASSIGN_OPS[op] is not None:
-            value = BinOp(ASSIGN_OPS[op], VectorTerminal(vec), value)
-        if tgt.device == vec.context.device:
-            evaluate(value, n=vec.size, out=vec.storage)
+            exprs = [BinOp(ASSIGN_OPS[op], VectorTerminal(v), e)
+                     for v, e in zip(vecs, exprs)]
+        if all(tgt.device == v.context.device for v in vecs):
+            evaluate_multi(exprs, [v.storage for v in vecs])
             return
-        out = evaluate(_moved(value, tgt.device, {}), n=vec.size,
-                       out_dtype=vec.dtype, device=tgt.device)
-        # the vector migrates to the context that computed it
-        vec.context = tgt
-        vec._t = out
+        memo: Dict[Any, Expr] = {}
+        outs = evaluate_multi([_moved(e, tgt.device, memo) for e in exprs],
+                              n=vecs[0].size,
+                              out_dtypes=[v.dtype for v in vecs],
+                              device=tgt.device)
+        # the vectors migrate to the context that computed them
+        for v, out in zip(vecs, outs):
+            v.context = tgt
+            v._t = out
 
     def __setitem__(self, key, value) -> None:
         if not (isinstance(key, slice) and key == slice(None)):
@@ -130,18 +140,31 @@ class _Redirected:
         return self
 
 
+class _RedirectedMulti(_Redirected):
+    """enqueue()(tie(x, y)) / enqueue()(mv): a fused multi-assignment on
+    the target context (enqueue.hpp:38-136 + assign_multiexpression)."""
+
+    def _exprs(self, value: Any):
+        from .multivector import _exprs_of
+
+        return _exprs_of(value, len(self._vecs))
+
+
 class _EnqueueTarget:
     def __init__(self, context: Context):
         self.context = context
 
-    def __call__(self, vec) -> _Redirected:
+    def __call__(self, target) -> _Redirected:
+        from .multivector import _Tied, multivector
         from .vector import vector
 
-        if not isinstance(vec, vector):
-            raise NotImplementedError(
-                "enqueue() takes one vector: tie() and multivector targets "
-                "wait for the multivector (ROADMAP queue item 7)")
-        return _Redirected(self.context, vec)
+        if isinstance(target, vector):
+            return _Redirected(self.context, [target])
+        if isinstance(target, _Tied):
+            return _RedirectedMulti(self.context, target.vectors)
+        if isinstance(target, multivector):
+            return _RedirectedMulti(self.context, target.components)
+        raise TypeError("enqueue() takes a vector, a tie() or a multivector")
 
 
 def enqueue(context: Context) -> _EnqueueTarget:

@@ -21,7 +21,8 @@ A builtin whose kernel form is ``None`` computes on CPU tensors and raises
 ``NotImplementedError`` (with its name) on CUDA tensors.  Entries of the
 JAX catalog that are not in this table are listed in ROADMAP.md.
 Applied to plain numbers or tensors a builtin computes eagerly (the
-VEX_DUAL_FUNCTOR behaviour, function.hpp:243).
+VEX_DUAL_FUNCTOR behaviour, function.hpp:243); applied to a multivector
+or a multivector expression, it applies componentwise.
 """
 
 from __future__ import annotations
@@ -49,6 +50,10 @@ class builtin:
         return self.entry[2]
 
     def __call__(self, *args):
+        if any(getattr(a, "_multi", False) for a in args):
+            from ..multivector import lift
+
+            return lift(self, args)
         if any(isinstance(a, Expr) or hasattr(a, "_as_terminal")
                for a in args):
             return FuncCall(self.name, self.entry, [as_expr(a) for a in args])

@@ -1,7 +1,8 @@
-"""Expression evaluation: assignment into a tensor through one kernel.
+"""Expression evaluation: assignment into tensors through one kernel.
 
 Port of ``vexcl_tpu/expr/compile.py`` (vexcl/operations.hpp
-``assign_expression`` :1818-1909).  One evaluation:
+``assign_expression`` :1818-1909, ``assign_multiexpression``
+:2081-2185).  One evaluation:
 
 1. ``hoist``: nodes that read other indices than their own (the SpMV,
    the stencils) run first, each into a temporary, and become array
@@ -13,6 +14,11 @@ Port of ``vexcl_tpu/expr/compile.py`` (vexcl/operations.hpp
 3. ``triton_emit.assign`` launches the generated kernel (CUDA) or the
    plain PyTorch form (CPU), writing the destination in place.
 
+``evaluate_multi`` does the same for k expressions written to k targets
+(``tie``, ``multivector``, the symbolic generator's kernels): one hoist
+over all of them, one analysis of their union (a node they share is one
+node of the kernel) and one launch of ``triton_emit.assign_multi``.
+
 A compound assignment ``x += e`` is the plain assignment of
 ``BinOp("add", x, e)``: the old value is the destination's own leaf, as
 the JAX package's ``old + new`` with ``old`` strongly typed.
@@ -20,12 +26,14 @@ the JAX package's ``old + new`` with ``old`` strongly typed.
 Dropped from the JAX package: jit and its evaluator cache (the kernel
 cache is in ``triton_emit``), sharding and placement signatures
 (compile.py:289-312), scalar and table commits to device sets, and buffer
-donation (compile.py:360-383), which becomes the plain in-place write.
+donation (compile.py:360-383), which becomes the plain in-place write;
+``evaluate_multi``'s ``leaf_transform`` is ``events._moved``, applied by
+``enqueue`` before the call.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,10 +41,10 @@ from ..config import config
 from ..types import dtype_of, dtype_of_code
 from .node import (Analysis, ArrayTerminal, BinOp, Expr, VectorTerminal,
                    analyze, as_expr, expression_properties, infer_types)
-from .triton_emit import assign
+from .triton_emit import assign, assign_multi
 
-__all__ = ["ASSIGN_OPS", "evaluate", "assign_value", "eval_expr", "hoist",
-           "prepare"]
+__all__ = ["ASSIGN_OPS", "evaluate", "evaluate_multi", "assign_value",
+           "eval_expr", "hoist", "prepare", "prepare_multi"]
 
 # Assignment operator table (vexcl/operations.hpp:63-96): op -> the
 # operator combining the old value with the new one.
@@ -106,13 +114,23 @@ def _check_leaves(analysis: Analysis, n: Optional[int],
     return leaves
 
 
+def prepare_multi(exprs: Sequence[Any], n: Optional[int],
+                  device: torch.device):
+    """Hoist, analyse and type several expressions together: (exprs,
+    analysis, types, leaves on ``device``); a node they share is hoisted
+    and analysed once."""
+    memo: Dict[int, Expr] = {}
+    exprs = [hoist(as_expr(e), device, n, memo) for e in exprs]
+    analysis = analyze(*exprs)
+    types = infer_types(*exprs)
+    return exprs, analysis, types, _check_leaves(analysis, n, device)
+
+
 def prepare(expr: Any, n: Optional[int], device: torch.device):
     """Hoist, analyse and type an expression: (expr, analysis, types,
     leaves on ``device``)."""
-    expr = hoist(as_expr(expr), device, n)
-    analysis = analyze(expr)
-    types = infer_types(expr)
-    return expr, analysis, types, _check_leaves(analysis, n, device)
+    (expr,), analysis, types, leaves = prepare_multi([expr], n, device)
+    return expr, analysis, types, leaves
 
 
 def _device_of(expr: Expr) -> torch.device:
@@ -160,6 +178,54 @@ def assign_value(vec, value, op: str = "=") -> None:
     if ASSIGN_OPS[op] is not None:
         value = BinOp(ASSIGN_OPS[op], VectorTerminal(vec), as_expr(value))
     evaluate(value, n=vec.size, out=vec.storage)
+
+
+def evaluate_multi(exprs: Sequence[Any],
+                   outs: Optional[Sequence[torch.Tensor]] = None,
+                   ops: Optional[Sequence[str]] = None, *,
+                   n: Optional[int] = None,
+                   out_dtypes: Optional[Sequence[Any]] = None,
+                   device: Optional[torch.device] = None
+                   ) -> Tuple[torch.Tensor, ...]:
+    """Fused evaluation of k expressions in ONE kernel
+    (``vexcl_tpu/expr/compile.py::evaluate_multi``): into ``outs`` in
+    place (one length, one device), each combined with its old value by
+    its op of ``ops`` (default ``=``); or, without ``outs``, into k new
+    tensors of ``n`` elements on ``device`` (default: the first
+    expression's context's), typed ``out_dtypes`` or by inference."""
+    exprs: List[Expr] = [as_expr(e) for e in exprs]
+    ops = list(ops) if ops is not None else ["="] * len(exprs)
+    if len(ops) != len(exprs) or (outs is not None
+                                  and len(outs) != len(exprs)):
+        raise ValueError("evaluate_multi: one op and one target per "
+                         "expression")
+    if outs is not None:
+        n, device = outs[0].shape[0], outs[0].device
+        if any(o.shape[0] != n or o.device != device for o in outs):
+            raise ValueError("the targets of one fused assignment have one "
+                             "length and one device")
+        exprs = [e if ASSIGN_OPS[op] is None else
+                 BinOp(ASSIGN_OPS[op], ArrayTerminal(o), e)
+                 for e, o, op in zip(exprs, outs, ops)]
+    else:
+        if any(ASSIGN_OPS[op] is not None for op in ops):
+            raise ValueError("compound ops need destination tensors")
+        if n is None:
+            n = next((e.size_hint() for e in exprs
+                      if e.size_hint() is not None), None)
+        if n is None:
+            raise ValueError("expressions have no size: include a vector or "
+                             "give n")
+        device = device or _device_of(exprs[0])
+    exprs, analysis, types, leaves = prepare_multi(exprs, n, device)
+    if outs is None:
+        dts = out_dtypes or [None] * len(exprs)
+        outs = [torch.empty(n, device=device, dtype=dtype_of(dt)
+                            if dt is not None
+                            else dtype_of_code(types[id(e)]))
+                for e, dt in zip(exprs, dts)]
+    assign_multi(exprs, analysis, types, leaves, outs)
+    return tuple(outs)
 
 
 def eval_expr(expr: Any) -> torch.Tensor:

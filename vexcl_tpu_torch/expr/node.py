@@ -824,8 +824,16 @@ def tag(tag_id: Any, x: Any = None):
     return TaggedTerminal(tag_id, as_expr(x))
 
 
-def make_temp(tag_id: Any, expr: Any) -> Temporary:
-    """vex::make_temp<Tag>(expr) (temporary.hpp:49-108)."""
+def make_temp(tag_id: Any, expr: Any):
+    """vex::make_temp<Tag>(expr) (temporary.hpp:49-108).  Over a
+    multivector expression it lifts componentwise (temporary.cpp
+    multivector_temporary): component i gets the tag (tag_id, i), so the
+    components of one fused kernel never share a value."""
+    if getattr(expr, "_multi", False):
+        from ..multivector import MultiExpr, parts
+
+        return MultiExpr([Temporary((tag_id, i), c)
+                          for i, c in enumerate(parts(expr))])
     return Temporary(tag_id, as_expr(expr))
 
 

@@ -1,30 +1,30 @@
-"""Expression-fused reductions: SUM / MIN / MAX (+ Kahan, combined).
+"""Expression-fused reductions: SUM / MIN / MAX / Kahan / combined.
 
 Port of ``vexcl_tpu/ops/reductor.py`` (vexcl/reductor.hpp: reduction ops
-:47-128, CombineReductors :133-280, Reductor::operator() :302-439).
-``Sum(x * y)`` evaluates the expression and reduces it in one pass of the
-map-reduce kernel (``triton_reduce.py``); an SpMV inside the expression
-is computed first into a temporary, as for an assignment.
+:47-128, CombineReductors :133-280, Reductor::operator() :302-439,
+Kahan codegen :537-564).  ``Sum(x * y)`` evaluates the expression and
+reduces it in one pass of the map-reduce kernel (``triton_reduce.py``);
+an SpMV inside the expression is computed first into a temporary, as
+for an assignment.
 
-On CUDA tensors the kernel serves SUM, MIN and MAX.  ``SUM_Kahan`` and
-combined kinds such as ``MIN_MAX`` run their plain PyTorch form on CPU
-tensors and raise ``NotImplementedError`` on CUDA (ROADMAP.md).  The
-shard_map local phase and the psum/pmin/pmax combine of the JAX package
-are gone with the mesh.
+One kind over one expression is one launch of ``map_reduce``; several
+kinds (``MIN_MAX``, ``CombineReductors``), ``SUM_Kahan`` and the
+components of a multivector (a tuple, one result per component, as the
+reference's ``std::array``) are one launch of ``map_reduce_multi``,
+every (component, kind) an accumulator of it.  On CPU tensors the plain
+PyTorch reductions run instead.  The shard_map local phase and the
+psum/pmin/pmax combine of the JAX package are gone with the mesh.
 """
 
 from __future__ import annotations
 
 from typing import Any, Tuple, Union
 
-import torch
-
-from ..expr.compile import prepare
+from ..expr.compile import prepare_multi
 from ..expr.node import CastExpr, analyze, as_expr, expression_properties
-from ..expr.triton_emit import plain_value
 from ..types import dtype_of
 from ..utils.util import ExpressionError
-from .triton_reduce import map_reduce
+from .triton_reduce import map_reduce, map_reduce_multi
 
 __all__ = ["SUM", "MIN", "MAX", "SUM_Kahan", "MIN_MAX", "CombineReductors",
            "Reductor"]
@@ -54,24 +54,6 @@ def CombineReductors(*kinds: ReductionKind) -> Tuple[ReductionKind, ...]:
 MIN_MAX = CombineReductors(MIN, MAX)
 
 
-def _kahan_sum(x: torch.Tensor, chunk: int = 4096) -> torch.Tensor:
-    """Compensated summation: chunk partials + Kahan over the partials
-    (the JAX package's ``_kahan_sum``)."""
-    n = x.shape[0]
-    pad = (-n) % chunk
-    if pad:
-        x = torch.cat([x, torch.zeros(pad, dtype=x.dtype, device=x.device)])
-    partials = x.reshape(-1, chunk).sum(dim=1)
-    s = torch.zeros((), dtype=x.dtype, device=x.device)
-    c = torch.zeros((), dtype=x.dtype, device=x.device)
-    for p in partials:
-        y = p - c
-        t = s + y
-        c = (t - s) - y
-        s = t
-    return s
-
-
 class Reductor:
     """``Reductor(SUM)`` / ``Reductor(torch.float64, SUM)``; call it on
     any expression::
@@ -91,16 +73,22 @@ class Reductor:
         self._combined = isinstance(self.kinds, tuple)
 
     def __call__(self, expr: Any) -> Union[float, int, Tuple]:
-        expr = as_expr(expr)
-        n, ctx = expression_properties(expr)
+        multi = getattr(expr, "_multi", False)
+        if multi:
+            from ..multivector import parts
+
+            bodies = parts(expr)
+        else:
+            bodies = [as_expr(expr)]
+        n, ctx = expression_properties(bodies[0])
         if n is None:
             raise ExpressionError(
-                analyze(expr).sig,
+                analyze(bodies[0]).sig,
                 ValueError("Reductor: expression has no sized terminal — "
                            "include a vector or give element_index an "
                            "explicit length"))
         if self.dtype is not None:
-            expr = CastExpr(self.dtype, expr)
+            bodies = [CastExpr(self.dtype, b) for b in bodies]
         ctx = self.context or ctx
         if ctx is None:
             from ..context import current_context
@@ -108,17 +96,15 @@ class Reductor:
             ctx = current_context()
         device = ctx.device
         kinds = self.kinds if self._combined else (self.kinds,)
-        if device.type == "cuda" and (self._combined or self.kinds is SUM_Kahan):
-            raise NotImplementedError(
-                f"Reductor({', '.join(k.name for k in kinds)}) is not "
-                "covered by the CUDA map-reduce kernel")
-        expr, analysis, types, leaves = prepare(expr, n, device)
-        res = []
-        for k in kinds:
-            if k is SUM_Kahan:
-                res.append(_kahan_sum(plain_value(expr, analysis, types,
-                                                  leaves, n, device)).item())
-            else:
-                res.append(map_reduce(expr, analysis, types, leaves, n,
-                                      k.name, device).item())
-        return tuple(res) if self._combined else res[0]
+        bodies, analysis, types, leaves = prepare_multi(bodies, n, device)
+        pairs = [(b, k.name) for b in bodies for k in kinds]
+        if len(pairs) == 1 and kinds[0] is not SUM_Kahan:
+            res = [map_reduce(bodies[0], analysis, types, leaves, n,
+                              kinds[0].name, device)]
+        else:
+            res = map_reduce_multi(pairs, analysis, types, leaves, n, device)
+        vals = [r.item() for r in res]
+        k = len(kinds)
+        per = [tuple(vals[i * k:(i + 1) * k]) if self._combined else vals[i]
+               for i in range(len(bodies))]
+        return tuple(per) if multi else per[0]

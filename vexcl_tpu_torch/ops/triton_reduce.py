@@ -1,51 +1,65 @@
-"""The map-reduce kernel (Triton): SUM, MIN or MAX of an expression.
+"""The map-reduce kernel (Triton): SUM, MIN, MAX or compensated SUM of
+one or several expressions, several accumulators in one pass.
 
 Replaces ``vexcl_tpu/ops/pallas_reduce.py::_kernel`` (called through
-``pallas_map_reduce``).  On the TPU the grid runs in order on one core, so
-that kernel carries one running total in SMEM from block to block.  CUDA
-blocks run at the same time and in no order; here one persistent launch
-does the whole reduction, deterministic and without atomics on the data:
+``pallas_map_reduce``) and, for several (body, kind) pairs, the one XLA
+reduction ``vexcl_tpu/ops/reductor.py`` traces over all kinds of a
+``CombineReductors`` and the components of a multivector.  On the TPU the
+grid runs in order on one core, so that kernel carries one running total
+in SMEM from block to block.  CUDA blocks run at the same time and in no
+order; here one persistent launch does the whole reduction,
+deterministic and without atomics on the data:
 
 1. the grid is ``min(cdiv(n, BLOCK), SMs x PROGRAMS_PER_SM)`` programs.
    Program p walks tiles p, p + grid, p + 2 grid, ... (``tl.range``,
-   ``num_stages=REDUCE_STAGES``), evaluates the expression body that
-   ``expr/triton_emit.py`` generates for the assignment kernel, replaces
-   the tail lanes by the identity AFTER the map (as ``pallas_reduce.py``
-   does: ``sum(exp(x))`` must not count ``exp(0)`` for padded lanes), and
-   folds the tile into a ``BLOCK``-wide accumulator in registers, which it
-   reduces once at the end and stores as its partial;
+   ``num_stages=REDUCE_STAGES``), evaluates the expression bodies that
+   ``expr/triton_emit.py`` generates for the assignment kernel (a node
+   shared by several bodies, or one body under several kinds, once),
+   replaces the tail lanes by each accumulator's identity AFTER the map
+   (as ``pallas_reduce.py`` does: ``sum(exp(x))`` must not count
+   ``exp(0)`` for padded lanes), and folds the tile into one
+   ``BLOCK``-wide accumulator per (body, kind) in registers, which it
+   reduces once at the end and stores as its partials;
 2. each program then draws a ticket (``tl.atomic_add``, acq_rel at GPU
    scope); the one that draws the last ticket reads every partial past L1
-   (``volatile``), combines them in program order, writes the result and
+   (``volatile``), combines them in program order, writes the results and
    sets the ticket back to 0.
+
+``SUM_Kahan`` keeps a compensated pair (s, c) per lane (y = v - c,
+t = s + y, c = (t - s) - y, s = t; no multiply, so nothing contracts to
+an FMA, and Triton does not reassociate), and the per-program reduction
+and the final combine join pairs with an error-free two-sum, so the
+lanes' compensation survives to the result, s - c.
 
 Tiles belong to programs in a fixed way and the partials combine in a
 fixed order, so a result is the same bits from call to call on one card.
-The partials and the ticket are scratch allocated once per (device,
-stream, accumulator type): keyed by stream, two reductions enqueued on two
-streams never share a ticket.  Only the 0-d result is allocated per
-call.
+Each partial is one 8-byte word (a Kahan pair two) of a scratch of
+(words, grid) int64 words, allocated once per (device, stream, words):
+keyed by stream, two reductions enqueued on two streams never share a
+ticket.  One result comes back as a 0-d tensor of its type, several as
+one int64 word each; only that tensor is allocated per call.
 
 Accumulation is in f32 for f32 (and 16-bit) values, as ``acc_dtype`` in
-the JAX kernel, in f64 for f64 and in i64 (u64) for integer SUM.  The
-kernel serves every size: the TPU's ``n >= 2*BLOCK`` threshold was a TPU
-choice.  It is bound by device memory bandwidth: one read of each leaf,
-e.g. 134 MB for ``Sum(p*Ap)`` at 2^24 f32, 0.0401 ms at 3.35 TB/s.  The
-two-pass form it replaces ran 4096 one-tile programs (31 waves over 132
-SMs), each ending in a block-wide reduction with no loads in flight, and
-made two launches and two allocations per call.  MIN and MAX propagate
-NaN, as ``jnp.min`` and ``jnp.max`` do: both the per-program and the
-final combine use ``tl.minimum`` / ``tl.maximum`` under
-``propagate_nan=ALL`` (``tl.min`` and ``tl.max`` drop NaN).  Tail lanes
-still hold the identity, +-inf.
+the JAX kernel, in f64 for f64 and in i64 (u64) for integer SUM (Kahan of
+integers is their exact sum).  The kernel serves every size: the TPU's
+``n >= 2*BLOCK`` threshold was a TPU choice.  It is bound by device
+memory bandwidth: one read of each leaf, e.g. 134 MB for ``Sum(p*Ap)`` at
+2^24 f32, 0.0401 ms at 3.35 TB/s, and 67 MB for ``MIN_MAX(x)``, 0.0200
+ms.  BLOCK shrinks from 4096 as the words grow, so that the
+accumulators stay in registers.  MIN and MAX propagate NaN, as
+``jnp.min`` and ``jnp.max`` do: both the per-program and the final
+combine use ``tl.minimum`` / ``tl.maximum`` under ``propagate_nan=ALL``
+(``tl.min`` and ``tl.max`` drop NaN).  Tail lanes still hold the
+identity, +-inf.
 
-``map_reduce`` is the wrapper: the kernel for CUDA tensors, the plain
-PyTorch reduction of the tree's ``emit`` for CPU tensors.
+``map_reduce`` (one pair) and ``map_reduce_multi`` are the wrappers: the
+kernel for CUDA tensors, the plain PyTorch reductions of the trees'
+``emit`` forms for CPU tensors.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -53,13 +67,16 @@ from ..cache import kernel_cache
 from ..config import config
 from ..expr.node import Analysis, Expr
 from ..expr.triton_emit import (_HEADER, _NAN_ALL, body, jit_header,
-                                kernel_key, launch_args, plain_value, tl_type)
+                                kernel_key, launch_args, plain_values,
+                                tl_type)
 from ..types import dtype_of_code
 
-__all__ = ["map_reduce", "map_reduce_plain", "reduce_source", "acc_code",
-           "REDUCE_BLOCK"]
+__all__ = ["map_reduce", "map_reduce_plain", "map_reduce_multi",
+           "map_reduce_multi_plain", "reduce_source", "reduce_multi_source",
+           "acc_code", "kahan_sum_plain", "REDUCE_BLOCK"]
 
-#: elements per tile (per program per grid-stride step)
+#: elements per tile (per program per grid-stride step) of one or two
+#: accumulator words; halved for every doubling of the words past two
 REDUCE_BLOCK = 4096
 REDUCE_WARPS = 8
 #: programs per SM in the persistent grid
@@ -72,7 +89,7 @@ REDUCE_STAGES = 1
 #: partials combined per step by the last program
 FINAL_BLOCK = 1024
 
-KINDS = ("SUM", "MIN", "MAX")
+KINDS = ("SUM", "MIN", "MAX", "SUM_Kahan")
 
 
 def acc_code(kind: str, code: str) -> str:
@@ -83,7 +100,7 @@ def acc_code(kind: str, code: str) -> str:
                                   "the CUDA map-reduce kernel")
     if dt.is_floating_point:
         return "f64" if dt == torch.float64 else "f32"
-    if kind == "SUM":
+    if kind in ("SUM", "SUM_Kahan"):
         return "u64" if dt == torch.uint64 else "i64"
     if dt == torch.bool:
         raise NotImplementedError("MIN/MAX of booleans is not covered by the "
@@ -92,7 +109,7 @@ def acc_code(kind: str, code: str) -> str:
 
 
 def _identity(kind: str, code: str) -> str:
-    if kind == "SUM":
+    if kind in ("SUM", "SUM_Kahan"):
         return "0"
     dt = dtype_of_code(code)
     if dt.is_floating_point:
@@ -101,56 +118,147 @@ def _identity(kind: str, code: str) -> str:
     return str(info.max if kind == "MIN" else info.min)
 
 
-def reduce_source(expr: Expr, analysis: Analysis, types: Dict[int, str],
-                  kind: str) -> str:
-    acc = acc_code(kind, types[id(expr)])
-    lines, res = body(expr, analysis, types, acc)
-    idv = _identity(kind, acc)
+_COMBINES = f"""@triton.jit
+def min_nan(a, b):
+    return tl.minimum(a, b, {_NAN_ALL})
 
-    def ident(width):
-        return f"tl.full([{width}], {idv}, {tl_type(acc)})"
-    src = [_HEADER]
-    if kind == "SUM":
-        red, comb = "tl.sum({}, axis=0)", "{} + {}"
-    else:
-        fn = "minimum" if kind == "MIN" else "maximum"
-        nan = f", {_NAN_ALL}" if dtype_of_code(acc).is_floating_point else ""
-        src.append(f"@triton.jit\ndef combine(a, b):\n"
-                   f"    return tl.{fn}(a, b{nan})\n\n\n")
-        red, comb = "tl.reduce({}, 0, combine)", "combine({}, {})"
-    value = f"tl.where(mask, {res}, {ident('BLOCK')})"
-    src += [jit_header("reduce_kernel", analysis,
-                       ["part_ptr", "ticket_ptr", "out_ptr"],
-                       ["n", "ntiles", "BLOCK: tl.constexpr",
-                        "FINAL: tl.constexpr"]),
-            "    pid = tl.program_id(0)\n",
-            "    nprog = tl.num_programs(0)\n",
-            f"    acc = {ident('BLOCK')}\n",
-            "    for tile in tl.range(pid, ntiles, nprog, "
+
+@triton.jit
+def max_nan(a, b):
+    return tl.maximum(a, b, {_NAN_ALL})
+
+
+@triton.jit
+def min_int(a, b):
+    return tl.minimum(a, b)
+
+
+@triton.jit
+def max_int(a, b):
+    return tl.maximum(a, b)
+
+
+@triton.jit
+def kahan(s1, c1, s2, c2):
+    # two compensated sums (true value s - c) joined by an error-free
+    # two-sum: s1 + s2 == t + e exactly
+    t = s1 + s2
+    bp = t - s1
+    e = (s1 - (t - bp)) + (s2 - bp)
+    return t, (c1 + c2) - e
+
+
+"""
+
+
+def _block(words: int) -> int:
+    """Tile length for ``words`` accumulator words a lane."""
+    return max(512, REDUCE_BLOCK >> max(0, (words - 1).bit_length() - 1))
+
+
+def _words(pairs_kinds: Sequence[str]) -> int:
+    return sum(2 if k == "SUM_Kahan" else 1 for k in pairs_kinds)
+
+
+def _layout(pairs: Sequence[Tuple[Expr, str]], types: Dict[int, str]):
+    """(kind, accumulator code) of each pair, Kahan of integers as SUM."""
+    out = []
+    for e, kind in pairs:
+        if kind not in KINDS:
+            raise ValueError(f"unknown reduction kind {kind!r}")
+        acc = acc_code(kind, types[id(e)])
+        if kind == "SUM_Kahan" and not dtype_of_code(acc).is_floating_point:
+            kind = "SUM"            # Kahan of integers: their exact sum
+        out.append((kind, acc))
+    return out
+
+
+def reduce_multi_source(pairs: Sequence[Tuple[Expr, str]],
+                        analysis: Analysis, types: Dict[int, str]) -> str:
+    """The kernel reducing each (body, kind) pair of ``pairs`` to one
+    result word of ``out_ptr``; bodies may repeat (``MIN_MAX``)."""
+    layout = _layout(pairs, types)
+    lines, res = body([e for e, _ in pairs], analysis, types,
+                      [acc for _, acc in layout])
+    init, update, store, final, fold, result = [], [], [], [], [], []
+    w = 0
+    for a, ((kind, acc), r) in enumerate(zip(layout, res)):
+        tl_t, idv = tl_type(acc), _identity(kind, acc)
+        ptr = f"(part_ptr + {w} * stride).to(tl.pointer_type({tl_t}))"
+        init.append(f"a{a} = tl.full([BLOCK], {idv}, {tl_t})")
+        v = f"tl.where(mask, {r}, {idv})"
+        if kind == "SUM_Kahan":
+            cptr = (f"(part_ptr + {w + 1} * stride)"
+                    f".to(tl.pointer_type({tl_t}))")
+            init.append(f"c{a} = tl.zeros([BLOCK], {tl_t})")
+            update += [f"y{a} = {v} - c{a}", f"u{a} = a{a} + y{a}",
+                       f"c{a} = (u{a} - a{a}) - y{a}", f"a{a} = u{a}"]
+            store += [f"ps{a}, pc{a} = tl.reduce((a{a}, c{a}), 0, kahan)",
+                      f"tl.store({ptr} + pid, ps{a})",
+                      f"tl.store({cptr} + pid, pc{a})"]
+            final.append(f"fs{a} = tl.zeros([FINAL], {tl_t})")
+            final.append(f"fc{a} = tl.zeros([FINAL], {tl_t})")
+            fold += [f"fs{a}, fc{a} = kahan(fs{a}, fc{a}, "
+                     f"tl.load({ptr} + o, mask=o < nprog, other=0, "
+                     "volatile=True), "
+                     f"tl.load({cptr} + o, mask=o < nprog, other=0, "
+                     "volatile=True))"]
+            result += [f"rs{a}, rc{a} = tl.reduce((fs{a}, fc{a}), 0, kahan)",
+                       f"tl.store((out_ptr + {a}).to(tl.pointer_type({tl_t})),"
+                       f" rs{a} - rc{a})"]
+            w += 2
+            continue
+        if kind == "SUM":
+            comb, red = "{} + {}", "tl.sum({}, axis=0)"
+        else:
+            fn = ("min" if kind == "MIN" else "max") + (
+                "_nan" if dtype_of_code(acc).is_floating_point else "_int")
+            comb, red = fn + "({}, {})", "tl.reduce({}, 0, " + fn + ")"
+        update.append(f"a{a} = {comb.format(f'a{a}', v)}")
+        store.append(f"tl.store({ptr} + pid, {red.format(f'a{a}')})")
+        final.append(f"f{a} = tl.full([FINAL], {idv}, {tl_t})")
+        fold.append(f"f{a} = " + comb.format(
+            f"f{a}", f"tl.load({ptr} + o, mask=o < nprog, other={idv}, "
+            "volatile=True)"))
+        result.append(f"tl.store((out_ptr + {a}).to(tl.pointer_type({tl_t})),"
+                      f" {red.format(f'f{a}')})")
+        w += 1
+
+    def block(stmts, indent):
+        return [" " * indent + st + "\n" for st in stmts]
+    src = [_HEADER, _COMBINES,
+           jit_header("reduce_kernel", analysis,
+                      ["part_ptr", "ticket_ptr", "out_ptr"],
+                      ["n", "ntiles", "stride", "BLOCK: tl.constexpr",
+                       "FINAL: tl.constexpr"]),
+           "    pid = tl.program_id(0)\n",
+           "    nprog = tl.num_programs(0)\n"]
+    src += block(init, 4)
+    src += ["    for tile in tl.range(pid, ntiles, nprog, "
             f"num_stages={REDUCE_STAGES}):\n",
             "        offs = tile.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)\n",
             "        mask = offs < n\n"]
-    src += [f"        {line}\n" for line in lines]
-    src += [f"        acc = {comb.format('acc', value)}\n",
-            f"    tl.store(part_ptr + pid, {red.format('acc')})\n",
-            "    tl.debug_barrier()\n",
+    src += block(lines, 8) + block(update, 8) + block(store, 4)
+    src += ["    tl.debug_barrier()\n",
             "    ticket = tl.atomic_add(ticket_ptr, 1, sem='acq_rel', "
             "scope='gpu')\n",
-            "    if ticket == nprog - 1:\n",
-            f"        tot = {ident('FINAL')}\n",
-            "        for start in range(0, nprog, FINAL):\n",
-            "            o = start + tl.arange(0, FINAL)\n",
-            f"            v = tl.load(part_ptr + o, mask=o < nprog, other={idv}, "
-            "volatile=True)\n",
-            f"            tot = {comb.format('tot', 'v')}\n",
-            f"        tl.store(out_ptr, {red.format('tot')})\n",
-            "        tl.store(ticket_ptr, 0)\n"]
+            "    if ticket == nprog - 1:\n"]
+    src += block(final, 8)
+    src += ["        for start in range(0, nprog, FINAL):\n",
+            "            o = start + tl.arange(0, FINAL)\n"]
+    src += block(fold, 12) + block(result, 8)
+    src.append("        tl.store(ticket_ptr, 0)\n")
     return "".join(src)
 
 
-#: (device, stream, accumulator dtype) -> (partials, ticket)
+def reduce_source(expr: Expr, analysis: Analysis, types: Dict[int, str],
+                  kind: str) -> str:
+    return reduce_multi_source([(expr, kind)], analysis, types)
+
+
+#: (device, stream, words) -> (partials, ticket)
 _scratch: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
-#: entries kept; past it the oldest is freed (see ``cuda_compact``)
+#: entries kept; past it the oldest is freed (see ``cuda_scratch``)
 _MAX_ENTRIES = 64
 _sm_count: Dict[torch.device, int] = {}
 
@@ -164,16 +272,17 @@ def _programs(device: torch.device) -> int:
     return sms * PROGRAMS_PER_SM
 
 
-def _scratch_for(device: torch.device, dtype: torch.dtype):
-    """The partials (one per program of the largest grid) and the zeroed
-    ticket of the current stream on ``device`` (an indexed CUDA device),
-    allocated at first use."""
+def _scratch_for(device: torch.device, words: int):
+    """The (words, largest grid) partial words and the zeroed ticket of
+    the current stream on ``device`` (an indexed CUDA device), allocated
+    at first use."""
     # the raw stream handle, as Triton's launcher reads it: ~0.1 us where
     # torch.cuda.current_stream() builds a Stream object (~3 us a call)
-    key = (device, torch._C._cuda_getCurrentRawStream(device.index), dtype)
+    key = (device, torch._C._cuda_getCurrentRawStream(device.index), words)
     s = _scratch.get(key)
     if s is None:
-        s = (torch.empty(_programs(device), dtype=dtype, device=device),
+        s = (torch.empty(words, _programs(device), dtype=torch.int64,
+                         device=device),
              torch.zeros(1, dtype=torch.int32, device=device))
         _scratch[key] = s
         while len(_scratch) > _MAX_ENTRIES:
@@ -182,21 +291,28 @@ def _scratch_for(device: torch.device, dtype: torch.dtype):
 
 
 class _ReduceKernel:
-    def __init__(self, src: str, acc: str):
+    def __init__(self, src: str, accs: Sequence[str], words: int):
         from .._build import triton_module
 
         if config.show_kernels:
             print(src)
-        self.acc = dtype_of_code(acc)
+        self.accs = [dtype_of_code(a) for a in accs]
+        self.words = words
+        self.block = _block(words)
         self.fn = triton_module(src).reduce_kernel
 
-    def launch(self, leaves: Sequence, n: int, device) -> torch.Tensor:
-        ntiles = -(-n // REDUCE_BLOCK)
+    def launch(self, leaves: Sequence, n: int,
+               device) -> List[torch.Tensor]:
+        ntiles = -(-n // self.block)
         nprog = min(ntiles, _programs(device))
-        part, ticket = _scratch_for(device, self.acc)
-        out = torch.empty((), dtype=self.acc, device=device)
-        args = (part, ticket, out, *launch_args(leaves), n, ntiles)
-        opts = dict(BLOCK=REDUCE_BLOCK, FINAL=FINAL_BLOCK,
+        part, ticket = _scratch_for(device, self.words)
+        # one result: a 0-d tensor of its type; several: an 8-byte word each
+        one = len(self.accs) == 1
+        out = torch.empty((), dtype=self.accs[0], device=device) if one \
+            else torch.empty(len(self.accs), dtype=torch.int64, device=device)
+        args = (part, ticket, out, *launch_args(leaves), n, ntiles,
+                part.shape[1])
+        opts = dict(BLOCK=self.block, FINAL=FINAL_BLOCK,
                     num_warps=REDUCE_WARPS)
         # Triton launches on the current device: switch only when needed
         # (entering torch.cuda.device costs a few us of a ~40 us call)
@@ -205,17 +321,79 @@ class _ReduceKernel:
         else:
             with torch.cuda.device(device):
                 self.fn[(nprog,)](*args, **opts)
-        return out
+        if one:
+            return [out]
+        # each result sits at the start of its 8-byte word
+        views = {dt: out.view(dt) for dt in set(self.accs)}
+        return [views[dt][a * (8 // dt.itemsize)]
+                for a, dt in enumerate(self.accs)]
+
+
+def kahan_sum_plain(x: torch.Tensor, chunk: int = 4096) -> torch.Tensor:
+    """Compensated summation: chunk partials + Kahan over the partials
+    (the JAX package's ``_kahan_sum``)."""
+    n = x.shape[0]
+    pad = (-n) % chunk
+    if pad:
+        x = torch.cat([x, torch.zeros(pad, dtype=x.dtype, device=x.device)])
+    partials = x.reshape(-1, chunk).sum(dim=1)
+    s = torch.zeros((), dtype=x.dtype, device=x.device)
+    c = torch.zeros((), dtype=x.dtype, device=x.device)
+    for p in partials:
+        y = p - c
+        t = s + y
+        c = (t - s) - y
+        s = t
+    return s
+
+
+def map_reduce_multi_plain(pairs: Sequence[Tuple[Expr, str]],
+                           analysis: Analysis, types, leaves, n: int,
+                           device) -> List[torch.Tensor]:
+    """The kernel's plain PyTorch version: the per-kind reductions."""
+    layout = _layout(pairs, types)
+    vals = plain_values([e for e, _ in pairs], analysis, types, leaves, n,
+                        device)
+    out = []
+    for val, (kind, acc) in zip(vals, layout):
+        if kind == "SUM":
+            out.append(torch.sum(val.to(dtype_of_code(acc))))
+        elif kind == "SUM_Kahan":
+            out.append(kahan_sum_plain(val.to(dtype_of_code(acc))))
+        else:
+            out.append(torch.amin(val) if kind == "MIN" else torch.amax(val))
+    return out
 
 
 def map_reduce_plain(expr: Expr, analysis: Analysis, types, leaves, n: int,
                      kind: str, device) -> torch.Tensor:
-    """The kernel's plain PyTorch version."""
-    val = plain_value(expr, analysis, types, leaves, n, device)
-    if kind == "SUM":
-        dt = dtype_of_code(acc_code(kind, types[id(expr)]))
-        return torch.sum(val.to(dt))
-    return torch.amin(val) if kind == "MIN" else torch.amax(val)
+    """The one-pair kernel's plain PyTorch version."""
+    return map_reduce_multi_plain([(expr, kind)], analysis, types, leaves, n,
+                                  device)[0]
+
+
+def _reduce(pairs: Sequence[Tuple[Expr, str]], shape: tuple,
+            analysis: Analysis, types, leaves, n: int,
+            device: torch.device) -> List[torch.Tensor]:
+    """Launch the kernel of ``pairs``, whose (body number, kind) tuple
+    ``shape`` is its cache key with the analysis."""
+    if device.type != "cuda":
+        raise NotImplementedError(f"no map-reduce kernel for {device}")
+    if n == 0:
+        raise ValueError("reduction over an empty expression")
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = ("reduce", shape) + kernel_key(analysis, None)
+
+    def factory():
+        layout = _layout(pairs, types)
+        return _ReduceKernel(reduce_multi_source(pairs, analysis, types),
+                             [acc for _, acc in layout],
+                             _words([kind for kind, _ in layout]))
+
+    k = (kernel_cache.get_or_create(key, factory) if config.cache_kernels
+         else factory())
+    return k.launch(leaves, n, device)
 
 
 def map_reduce(expr: Expr, analysis: Analysis, types, leaves, n: int,
@@ -227,24 +405,31 @@ def map_reduce(expr: Expr, analysis: Analysis, types, leaves, n: int,
     if device.type == "cpu":
         return map_reduce_plain(expr, analysis, types, leaves, n, kind,
                                 device)
-    if device.type != "cuda":
-        raise NotImplementedError(f"no map-reduce kernel for {device}")
-    if n == 0:
-        raise ValueError("reduction over an empty expression")
-    if device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    acc = acc_code(kind, types[id(expr)])
-    key = ("reduce", kind) + kernel_key(analysis, None)
-
-    def factory():
-        return _ReduceKernel(reduce_source(expr, analysis, types, kind), acc)
-
-    k = (kernel_cache.get_or_create(key, factory) if config.cache_kernels
-         else factory())
-    res = k.launch(leaves, n, device)
+    res = _reduce([(expr, kind)], ((0, kind),), analysis, types, leaves, n,
+                  device)[0]
     map_reduce.launches += 1
     return res
 
 
-#: launches of the map-reduce kernel (not of its plain version)
+#: launches of the one-pair map-reduce kernel (not of its plain version)
 map_reduce.launches = 0
+
+
+def map_reduce_multi(pairs: Sequence[Tuple[Expr, str]], analysis: Analysis,
+                     types, leaves, n: int,
+                     device: torch.device) -> List[torch.Tensor]:
+    """Reduce each (elementwise body, kind) of ``pairs`` over ``n``
+    elements in one launch: a list of 0-d tensors on ``device``."""
+    if device.type == "cpu":
+        return map_reduce_multi_plain(pairs, analysis, types, leaves, n,
+                                      device)
+    first: Dict[int, int] = {}
+    shape = tuple((first.setdefault(id(e), len(first)), kind)
+                  for e, kind in pairs)
+    res = _reduce(pairs, shape, analysis, types, leaves, n, device)
+    map_reduce_multi.launches += 1
+    return res
+
+
+#: launches of the several-pair kernel (not of its plain version)
+map_reduce_multi.launches = 0

@@ -22,9 +22,14 @@ matrix in f32 and f64 (the timings in turns of ``chip_smoke.py``'s phase
 only on request (``fmt="sellr"``).  An explicit ``fmt`` in ``FORMATS``
 works on both.  Two parts of the JAX policy are TPU workarounds and are
 not ported: the f64 guard that sends f64 matrices to ``"hyb"`` (v5e has
-no f64); and the warning about the TPU's gather speed.  Vector-valued
-matrices (``val`` of shape (nnz, k)) need ``multivector``, which is not
-ported yet, and raise.
+no f64); and the warning about the TPU's gather speed.
+
+A vector-valued matrix (``val`` of shape (nnz, k), the reference's
+``cl_double2`` values, tests/spmv.cpp:440-530) is k scalar matrices, one
+per value plane, applied to the k components of a multivector; a scalar
+matrix applied to a multivector applies to each component.  Each
+component's product is one launch of its format's kernel, hoisted before
+the fused assignment that reads it.
 """
 
 from __future__ import annotations
@@ -58,11 +63,24 @@ def default_format(device_type: str) -> str:
     raise NotImplementedError(f"no sparse format for {device_type} devices")
 
 
-def _no_vector_values(val) -> None:
-    if val is not None and np.ndim(val) == 2:
-        raise NotImplementedError(
-            "vector-valued matrices (val of shape (nnz, k)) act on a "
-            "multivector, which is not ported yet (ROADMAP queue item 7)")
+def _products(mat, x, node):
+    """``mat * x`` as an expression: with a multivector (or a multivector
+    expression) x, a ``MultiExpr`` of one product per component, plane c
+    of a vector-valued matrix on component c."""
+    comps = mat._components
+    if not getattr(x, "_multi", False):
+        if comps is not None:
+            raise TypeError("a vector-valued matrix is applied to a "
+                            "multivector")
+        return node(mat, x)
+    from ..multivector import MultiExpr, parts
+
+    xs = parts(x)
+    if comps is not None and len(comps) != len(xs):
+        raise ValueError(f"matrix with {len(comps)}-component values applied "
+                         f"to a {len(xs)}-component multivector")
+    return MultiExpr([node(a, xc) for a, xc in
+                      zip(comps or [mat] * len(xs), xs)])
 
 
 class SpMVExpr(Expr):
@@ -117,7 +135,15 @@ class SpMat:
         if m is None:
             m = n
         self.n, self.m = int(n), int(m)
-        _no_vector_values(val)
+        self._components = None
+        if val is not None and np.ndim(val) == 2:
+            val = np.asarray(val)
+            self._components = tuple(
+                SpMat(n, m, ptr, col, np.ascontiguousarray(val[:, c]),
+                      fmt=fmt, context=self.context)
+                for c in range(val.shape[1]))
+            self.device = self._components[0].device
+            return
         if fmt is not None and fmt not in FORMATS:
             raise ValueError(f"unknown sparse format {fmt!r}")
         dev = self.context.device
@@ -149,7 +175,7 @@ class SpMat:
         return self.device.apply(x)
 
     def __mul__(self, x):
-        return SpMVExpr(self, x)
+        return _products(self, x, SpMVExpr)
 
     matvec = __mul__
 
@@ -199,7 +225,18 @@ class SpMatCCSR:
 
     def __init__(self, n: int, m: Optional[int], idx, row, col, val, *,
                  context=None, cache_expansion: Optional[bool] = None):
-        _no_vector_values(val)
+        self._components = None
+        if np.ndim(val) == 2:
+            val = np.asarray(val)
+            self._components = tuple(
+                SpMatCCSR(n, m, idx, row, col,
+                          np.ascontiguousarray(val[:, c]), context=context,
+                          cache_expansion=cache_expansion)
+                for c in range(val.shape[1]))
+            # shape, pattern and type are the first plane's
+            self.__dict__.update(vars(self._components[0]),
+                                 _components=self._components)
+            return
         idx = np.asarray(idx, dtype=np.int32)
         row = np.asarray(row, dtype=np.int64)
         col = np.asarray(col, dtype=np.int32)
@@ -265,6 +302,7 @@ class SpMatCCSR:
         from ..vector import host_tensor
 
         obj = cls.__new__(cls)
+        obj._components = None
         obj._setup(n, m, idx, off, pval, offset_union, union_table, context)
         if cached_coeffs is not None:
             obj.cached_coeffs = host_tensor(cached_coeffs).to(
@@ -298,7 +336,7 @@ class SpMatCCSR:
                                                    device=x.device)).sum(1)
 
     def __mul__(self, x):
-        return CCSRExpr(self, x)
+        return _products(self, x, CCSRExpr)
 
     def apply(self, x, y, alpha: float = 1.0, append: bool = False) -> None:
         y.assign(alpha * (self * x), "+=" if append else "=")
