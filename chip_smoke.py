@@ -66,12 +66,16 @@ values of 1e-8 (within 2 f32 ulp of the f64 sum, and closer than
 matrix, and ``enqueue`` onto a ``tie`` of CPU vectors; (13) views on
 the 4096 x 4096 grid (2^24 elements): the grid interior ``2 *
 slc[r(1, n-1), r(1, n-1)](x)`` in f32 and f64, a transpose through
-``reshape``, a permutation and a ``raw_pointer`` gather at 2^24 f32 (the
-assignment kernel's indexed loads, V1, each bitwise against its plain
-version, in one launch, timed in turns with ``torch.mul``,
-``.t().contiguous()`` and ``index_select``), ``reduce_view`` row sums in
-f32 and f64 and a column max with a NaN (V2, in turns with ``sum`` and
-``amax``), a ``multi_array`` of 256^3 f64 with slabs written through
+``reshape`` in f32 and f64 and a 3-D ``reshape`` of order (2, 0, 1) at
+2^24 f32 (the tiled kernel, ``assign_tiled_kernel``), a permutation and
+a ``raw_pointer`` gather at 2^24 f32 (the assignment kernel's indexed
+loads, V1, each bitwise against its plain version and over two calls,
+in one launch, timed in turns with ``torch.mul``, ``.t().contiguous()``,
+``permute(...).contiguous()`` and ``index_select``), ``reduce_view``
+row sums in f32 and f64, column sums in f32 and f64 (the reduced range
+split across programs) and column maxima with a NaN in f32 and f64 (V2,
+the same bits over two calls, in turns with ``sum`` and ``amax``), a
+``multi_array`` of 256^3 f64 with slabs written through
 ``indices[i][_][_]`` (the view-assignment kernel, V3) and summed over its
 last axis (V2), a scatter through a permutation (V3, in turns with
 ``index_copy_``), the histogram ``eval(atomic_add(permutation(k)(h),
@@ -178,6 +182,7 @@ RANDOM_N = 1 << 20
 SPMV_TOL = {"f32": 1e-5, "f64": 1e-12}
 VIEW_GRID = 4096              # the views' 2-D grid: 2^24 elements
 VIEW_N = VIEW_GRID * VIEW_GRID
+VIEW_3D = (512, 256, 128)     # a 3-D reshape's output dims: 2^24 elements
 MULTI_EXT = 256               # multi_array extents[256][256][256]
 HIST_BINS = 1 << 16
 VIEW_SUM_TOL = {"f32": 1e-5, "f64": 1e-12}
@@ -215,11 +220,6 @@ LORENZ_STEPS = 100
 LORENZ_TOL = {"f32": (1e-5, 1e-4), "f64": (1e-12, 1e-10)}  # 1, 100 steps
 MULTI_N = 1 << 24
 MV_TOL = {"f32": 1e-5, "f64": 1e-12}
-VIEW_GRID = 4096              # the views' 2-D grid: 2^24 elements
-VIEW_N = VIEW_GRID * VIEW_GRID
-MULTI_EXT = 256               # multi_array extents[256][256][256]
-HIST_BINS = 1 << 16
-VIEW_SUM_TOL = {"f32": 1e-5, "f64": 1e-12}
 PHILOX_KATS = [
     ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
     ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
@@ -2184,9 +2184,12 @@ def main() -> int:
                                                      "library_ms_range")))
             return out
 
-        def v1(tag, expr, out, library, nbytes, lib_check=None):
-            """A V1 assignment against its plain version (bitwise), one launch
-            through the API, and its timings."""
+        def v1(tag, expr, out, library, nbytes, lib_check=None,
+               kernel_name="assign_kernel"):
+            """A V1 assignment against its plain version and over two calls
+            (bitwise), one launch through the API, and its timings; the
+            profiler counts ``kernel_name`` (the tiled kernel for a
+            transpose)."""
             api(("indexed",), lambda: out.assign(expr), 1)
             e, an, ty, lv = prepare(expr, out.size, dev)
             k = torch.empty_like(out.storage)
@@ -2200,7 +2203,7 @@ def main() -> int:
                       "differs")
             return view_timing(tag, lambda: assign(e, an, ty, lv, k),
                                lambda: assign_plain(e, an, ty, lv, p), nbytes,
-                               library, "assign_kernel")
+                               library, kernel_name)
 
         interior = g - 2
         for dname, dt in (("f32", torch.float32), ("f64", torch.float64)):
@@ -2213,13 +2216,25 @@ def main() -> int:
                 lambda: torch.mul(xv[1:-1, 1:-1], 2),
                 2 * interior * interior * x.storage.element_size(),
                 lambda: torch.mul(xv[1:-1, 1:-1], 2).reshape(-1))
-            if dname == "f32":
-                rec["transpose_f32"] = v1(
-                    "view_transpose_f32", vex.reshape(x, (g, g), (1, 0)),
-                    vex.vector(nv, dtype=dt, context=ctx),
-                    lambda: xv.t().contiguous(), 2 * 4 * nv,
-                    lambda: xv.t().contiguous().reshape(-1))
+            rec[f"transpose_{dname}"] = v1(
+                f"view_transpose_{dname}", vex.reshape(x, (g, g), (1, 0)),
+                vex.vector(nv, dtype=dt, context=ctx),
+                lambda: xv.t().contiguous(),
+                2 * x.storage.element_size() * nv,
+                lambda: xv.t().contiguous().reshape(-1),
+                "assign_tiled_kernel")
             del x, y, xv
+        # a 3-D reshape of order (2, 0, 1): out[i, j, k] = x[k, i, j]
+        x = rand(nv, torch.float32)
+        d0, d1, d2 = VIEW_3D
+        x3 = x.storage.view(d2, d0, d1)
+        rec["reshape3d_201_f32"] = v1(
+            "view_reshape3d_201_f32", vex.reshape(x, VIEW_3D, (2, 0, 1)),
+            vex.vector(nv, context=ctx),
+            lambda: x3.permute(1, 2, 0).contiguous(), 2 * 4 * nv,
+            lambda: x3.permute(1, 2, 0).contiguous().reshape(-1),
+            "assign_tiled_kernel")
+        del x, x3
         x = rand(nv, torch.float32)
         perm = torch.randperm(nv, generator=gen, device=dev).to(torch.int32)
         pv = vex.vector._adopt(perm, ctx)
@@ -2246,44 +2261,56 @@ def main() -> int:
                 "host_us", "plain_ms", "bound_ms") if kk in v}
                 for k, v in rec.items() if k != "interior_f32"})
 
-        # V2: row sums (f32, f64) and a column max with a NaN
-        for dname, dt in (("f32", torch.float32), ("f64", torch.float64)):
-            xr = rand(nv, dt)
-            xv = xr.storage.view(g, g)
-            node = vex.reduce_view("sum", slc[:, :](xr), 1)
+        def v2(tag, node, library, nbytes, dname, exact):
+            """A V2 reduction: one launch through the API, the same bits
+            over two calls, against its plain version (``exact``: equal
+            values and NaN where a NaN is, the library call too; else within
+            VIEW_SUM_TOL), and its timings."""
             got = api(("reduce_view",), lambda: vex.eval(node), 1)
+            again = api(("reduce_view",), lambda: vex.eval(node), 1)
             args = prepare_reduce_view(node, dev)
             reduce_view_apply(*args)
             plain = torch.empty_like(args[-1])
             reduce_view_plain(*args[:-1], plain)
-            abs_err, rel = errors(args[-1], plain)
-            check(rel <= VIEW_SUM_TOL[dname] and bitwise(got, args[-1]),
-                  f"row sums {dname}: rel err {rel} against the plain version")
-            rec[f"rowsum_{dname}"] = view_timing(
+            check(bitwise(got, again) and bitwise(got, args[-1]),
+                  f"{tag}: two calls give other bits")
+            if exact:
+                check(same(args[-1], plain) and same(library(), plain),
+                      f"{tag}: differs from its plain version")
+                abs_err, rel = 0.0, 0.0
+            else:
+                abs_err, rel = errors(args[-1], plain)
+                check(rel <= VIEW_SUM_TOL[dname],
+                      f"{tag}: rel err {rel} against the plain version")
+            out = view_timing(tag, lambda: reduce_view_apply(*args),
+                              lambda: reduce_view_plain(*args[:-1], plain),
+                              nbytes, library, "reduce_view_kernel")
+            out.update(max_abs_err=abs_err, max_rel_err=rel)
+            return out, got
+
+        # V2: row sums and column sums (the reduced range split across
+        # programs) and column maxima with a NaN, f32 and f64
+        for dname, dt in (("f32", torch.float32), ("f64", torch.float64)):
+            xr = rand(nv, dt)
+            xv = xr.storage.view(g, g)
+            nbytes = (nv + g) * xr.storage.element_size()
+            rec[f"rowsum_{dname}"], _ = v2(
                 f"reduce_view_rowsum_{dname}",
-                lambda: reduce_view_apply(*args),
-                lambda: reduce_view_plain(*args[:-1], plain),
-                (nv + g) * xr.storage.element_size(), lambda: xv.sum(1),
-                "reduce_view_kernel")
-            rec[f"rowsum_{dname}"].update(max_abs_err=abs_err, max_rel_err=rel)
-            if dname == "f32":
-                xv[5, 7] = float("nan")
-                node = vex.reduce_view("max", slc[:, :](xr), 0)
-                got = api(("reduce_view",), lambda: vex.eval(node), 1)
-                args = prepare_reduce_view(node, dev)
-                reduce_view_apply(*args)
-                plain = torch.empty_like(args[-1])
-                reduce_view_plain(*args[:-1], plain)
-                lib = xv.amax(0)
-                check(same(args[-1], plain) and same(got, plain)
-                      and same(lib, plain) and got[7] != got[7]
-                      and not torch.isnan(got[:7]).any(),
-                      "column max with a NaN differs from its plain version")
-                rec["colmax_f32"] = view_timing(
-                    "reduce_view_colmax_f32", lambda: reduce_view_apply(*args),
-                    lambda: reduce_view_plain(*args[:-1], plain),
-                    (nv + g) * 4, lambda: xv.amax(0), "reduce_view_kernel")
-            del xr, xv, node, args, plain, got
+                vex.reduce_view("sum", slc[:, :](xr), 1), lambda: xv.sum(1),
+                nbytes, dname, False)
+            rec[f"colsum_{dname}"], _ = v2(
+                f"reduce_view_colsum_{dname}",
+                vex.reduce_view("sum", slc[:, :](xr), 0), lambda: xv.sum(0),
+                nbytes, dname, False)
+            xv[5, 7] = float("nan")
+            rec[f"colmax_{dname}"], got = v2(
+                f"reduce_view_colmax_{dname}",
+                vex.reduce_view("max", slc[:, :](xr), 0), lambda: xv.amax(0),
+                nbytes, dname, True)
+            check(got[7] != got[7] and not torch.isnan(got[:7]).any()
+                  and not torch.isnan(got[8:]).any(),
+                  f"column max {dname}: the NaN is not where it was put")
+            del xr, xv, got
         # multi_array 256^3 f64: slabs written through views (V3), then summed
         # over the last axis (V2)
         e3 = MULTI_EXT
@@ -2305,22 +2332,11 @@ def main() -> int:
         api(("to_view",), slab_writes, len(slabs))
         check(torch.equal(m.vec().storage.view(e3, e3, e3), want_m),
               "multi_array slabs written through views")
-        node = vex.reduce_view("sum", m, 2)
-        got = api(("reduce_view",), lambda: vex.eval(node), 1)
-        args = prepare_reduce_view(node, dev)
-        plain = torch.empty_like(args[-1])
-        reduce_view_plain(*args[:-1], plain)
-        _, rel = errors(got, plain)
-        check(rel <= VIEW_SUM_TOL["f64"],
-              f"multi_array sum over axis 2: rel err {rel}")
         mv = m.vec().storage.view(e3, e3, e3)
-        rec["multi_array_sum2_f64"] = view_timing(
-            "reduce_view_multi_array_sum2_f64",
-            lambda: reduce_view_apply(*args),
-            lambda: reduce_view_plain(*args[:-1], plain),
-            (e3 ** 3 + e3 * e3) * 8, lambda: mv.sum(2), "reduce_view_kernel")
-        rec["multi_array_sum2_f64"]["max_rel_err"] = rel
-        del m, want_m, node, args, plain, got, mv
+        rec["multi_array_sum2_f64"], _ = v2(
+            "reduce_view_multi_array_sum2_f64", vex.reduce_view("sum", m, 2),
+            lambda: mv.sum(2), (e3 ** 3 + e3 * e3) * 8, "f64", False)
+        del m, want_m, mv
         kernels["reduce_view"] = dict(
             kernel_row(*(rec["rowsum_f32"][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bytes")), 0,
@@ -2333,6 +2349,7 @@ def main() -> int:
                 "ms", "library_ms", "device_us", "library_device_us",
                 "host_us", "plain_ms", "bound_ms") if kk in v}
                     for k, v in rec.items() if k.startswith(("rowsum_f64",
+                                                              "colsum",
                                                               "colmax",
                                                               "multi_array"))})
 

@@ -1845,6 +1845,150 @@ def test_reduce_view_integer_and_multi_array(gpu, cpu):
         _bitwise(res[0], res[1])
 
 
+_SPLIT_SHAPES = [(4096, 33), (3, 5000), (20000, 1), (64, 512, 3)]
+
+
+def _reduce_data(n, dt, seed, op):
+    """Values for a reduction by ``op``; a product's factors are 1, 2 and
+    -1 (integers) or 1/2 (floats), so that every order gives its exact
+    value and the comparison is bitwise."""
+    rng = np.random.default_rng(seed)
+    if dt == torch.bool:
+        return torch.from_numpy(rng.random(n) < 0.9)
+    if op == "prod":
+        u = rng.random(n)
+        other = 0.5 if dt.is_floating_point else -1
+        return torch.from_numpy(np.where(u < 0.005, 2, np.where(
+            u < 0.01, other, 1))).to(dt)
+    if dt.is_floating_point:
+        return torch.from_numpy(rng.uniform(0.9, 1.1, n)).to(dt)
+    return torch.from_numpy(rng.integers(-3, 4, n)).to(dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64, torch.int32,
+                                torch.bool])
+@pytest.mark.parametrize("op", ["sum", "prod", "min", "max"])
+@pytest.mark.parametrize("shape", _SPLIT_SHAPES)
+def test_reduce_view_split_matches_plain(gpu, cpu, dt, op, shape):
+    """V2 where the reduced range is split across programs: every axis
+    set, a NaN in the reduced range's last chunk only (min, max), one
+    launch a reduction, the same bits from two calls; against the plain
+    version bitwise (min, max, products, integers) or, for float sums
+    (another summation order), within 1e-5 / 1e-12 of the largest
+    magnitude."""
+    import itertools
+
+    from vexcl_tpu_torch.ops.triton_reduce import _programs
+    from vexcl_tpu_torch.ops.triton_reduce_view import (_layout, plan,
+                                                        reduce_view_apply)
+
+    n, nd = int(np.prod(shape)), len(shape)
+    splits = 0
+    for k in range(1, nd + 1):
+        for axes in itertools.combinations(range(nd), k):
+            h = _reduce_data(n, dt, 20 + len(axes), op)
+            kc, _, rc, _, r_fast, _ = _layout(shape, axes)
+            pl = plan(int(np.prod(kc)), int(np.prod(rc)), r_fast,
+                      h.element_size(), _programs(gpu.device))
+            splits += pl.nsplit > 1
+            if dt.is_floating_point and op in ("min", "max"):
+                # a NaN at the last reduced index of output 0's reduced
+                # range: in the last chunk, and in no other
+                idx = np.zeros(nd, dtype=np.int64)
+                for a in axes:
+                    idx[a] = shape[a] - 1
+                h[int(np.ravel_multi_index(tuple(idx), shape))] = float("nan")
+            res = []
+            for c in (gpu, cpu):
+                x = vex.vector(data=h, context=c)
+                node = vex.reduce_view(op, vex.slicer(shape)[(vex._,) * nd](x),
+                                       axes)
+                before = reduce_view_apply.launches
+                res.append(vex.eval(node))
+                if c is gpu:
+                    again = vex.eval(node)
+                    torch.cuda.synchronize()
+                    assert reduce_view_apply.launches == before + 2
+                    _bitwise(res[0], again)
+            k_, p_ = res[0].cpu(), res[1]
+            if dt.is_floating_point and op == "sum":
+                _close(k_, p_, 1e-5 if dt == torch.float32 else 1e-12)
+            elif dt.is_floating_point and op in ("min", "max"):
+                _same(k_, p_)
+                assert torch.isnan(k_[0])
+            else:
+                _bitwise(k_, p_)
+    assert splits > 0
+
+
+def _view_data(n, dt, seed):
+    if dt == torch.bool:
+        return _host_data(n, torch.int32, seed) % 2 != 0
+    return _host_data(n, dt, seed)
+
+
+def _transpose_cases(dt):
+    """(name, function of (x, y) vectors writing into a new vector of n
+    elements, n, the length of x and y, whether the tiled form is
+    taken) for the tiled assignment kernel."""
+    a, b = 1000, 777
+    c3 = (37, 45, 29)
+    n3 = int(np.prod(c3))
+    combine = (lambda u, v: u != v) if dt == torch.bool else (
+        lambda u, v: u + v)
+    return [
+        ("2d", lambda x, y: vex.reshape(x, (a, b), (1, 0)), a * b, a * b,
+         True),
+        ("3d_201", lambda x, y: vex.reshape(x, c3, (2, 0, 1)), n3, n3, True),
+        ("3d_021", lambda x, y: vex.reshape(x, c3, (0, 2, 1)), n3, n3, True),
+        ("leaf_plus_plain", lambda x, y: combine(
+            vex.reshape(x, (a, b), (1, 0)), y), a * b, a * b, True),
+        ("under_slicer", lambda x, y: vex.slicer((b, a))[vex.r(1, b - 1), :](
+            vex.reshape(x, (b, a), (1, 0))), (b - 2) * a, a * b, False),
+        ("of_a_slicer", lambda x, y: vex.reshape(
+            vex.slicer((a, b))[:, :](x), (b, a), (1, 0)), a * b, a * b,
+         True),
+        ("broadcast", lambda x, y: vex.reshape(x[0:a], (a, b), (0,)), a * b,
+         a * b, True),
+    ]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64, torch.int8,
+                                torch.bool])
+def test_tiled_transpose_matches_plain(gpu, cpu, dt):
+    """V1's tiled form (a view read with coefficient 1 on an axis before
+    the innermost): 2-D and 3-D transposes at sizes that are no tile
+    multiples, beside a plain leaf, under and over a slicer, a broadcast
+    reshape, bitwise against the plain version, one launch each; and a
+    target read under its own transpose."""
+    from vexcl_tpu_torch.expr.triton_emit import assign_indexed, tiled_view
+
+    for name, fn, n, m, tiled in _transpose_cases(dt):
+        hx, hy = _view_data(m, dt, 30), _view_data(m, dt, 31)
+        res = []
+        for c in (gpu, cpu):
+            x, y = vex.vector(data=hx, context=c), vex.vector(data=hy,
+                                                              context=c)
+            out = vex.vector(n, dtype=dt, context=c)
+            expr = fn(x, y)
+            before = assign_indexed.launches
+            out[:] = expr
+            if c is gpu:
+                torch.cuda.synchronize()
+                assert assign_indexed.launches == before + 1, name
+                e, an, _, _ = prepare(expr, n, gpu.device)
+                assert (tiled_view([e]) is not None) == tiled, name
+            res.append(out.storage.cpu())
+        _bitwise(res[0], res[1])
+    # a target read under its own transpose goes through a temporary
+    s = 300
+    hx = _view_data(s * s, dt, 32)
+    k, pl = _on_both(gpu, cpu, lambda x: x.assign(
+        vex.reshape(x, (s, s), (1, 0))), hx)
+    _bitwise(k[0], pl[0])
+    _bitwise(k[0], hx.view(s, s).t().reshape(-1))
+
+
 @pytest.mark.parametrize("op", ["=", "+=", "-=", "*=", "/="])
 @pytest.mark.parametrize("dt", [torch.float32, torch.int32])
 def test_assign_through_views_matches_plain(gpu, cpu, op, dt):

@@ -136,6 +136,49 @@ def test_slice_reduce(ctx1, tctx, op, axis):
     _close(ty.to_numpy(), jy.to_numpy(), RTOL[np.float64])
 
 
+@pytest.mark.parametrize("dst,order", [((1000, 777), (1, 0)),
+                                       ((37, 45, 29), (2, 0, 1)),
+                                       ((37, 45, 29), (0, 2, 1)),
+                                       ((100, 77), (0,))])
+def test_reshape_tiled_shapes(ctx1, tctx, dst, order):
+    """The tiled kernel's card shapes (no tile multiples), alone and beside
+    a leaf read in the output's order."""
+    n = int(np.prod([dst[o] for o in order]))
+    m = int(np.prod(dst))
+    rng = np.random.default_rng(6)
+    hx, hz = rng.random(n), rng.random(m)
+    jx, tx = _pair(hx, ctx1, tctx)
+    jz, tz = _pair(hz, ctx1, tctx)
+    jy, ty = _out(m, np.float64, ctx1, tctx)
+    jy[:] = vex.reshape(jx, dst, order=order)
+    ty[:] = vt.reshape(tx, dst, order=order)
+    _exact(ty.to_numpy(), jy.to_numpy())
+    jy[:] = vex.reshape(jx, dst, order=order) + jz
+    ty[:] = vt.reshape(tx, dst, order=order) + tz
+    _exact(ty.to_numpy(), jy.to_numpy())
+
+
+@pytest.mark.parametrize("op", ["sum", "max", "min", "prod"])
+@pytest.mark.parametrize("shape,axis", [((4096, 33), 0), ((3, 5000), 0),
+                                        ((20000, 1), 0), ((20000, 1), (0, 1)),
+                                        ((64, 512, 3), (0, 1))])
+def test_slice_reduce_split_shapes(ctx1, tctx, op, shape, axis):
+    """The shapes whose reduced range the CUDA kernel splits; factors
+    near 1 for products (no underflow), a NaN for min and max."""
+    n, nd = int(np.prod(shape)), len(shape)
+    rng = np.random.default_rng(7)
+    hx = (1 + 1e-3 * (rng.random(n) - 0.5)) if op == "prod" else (
+        rng.random(n) + 0.5)
+    if op in ("min", "max"):
+        hx[n - 1] = np.nan
+    jx, tx = _pair(hx, ctx1, tctx)
+    want = vex.eval(vex.reduce_view(op, vex.slicer(shape)[(vex._,) * nd](jx),
+                                    axis))
+    got = vt.eval(vt.reduce_view(op, vt.slicer(shape)[(vt._,) * nd](tx),
+                                 axis))
+    _close(got, np.ravel(want), RTOL[np.float64])
+
+
 def test_tensordot_matmul(ctx1, tctx):
     n = 16
     rng = np.random.default_rng(6)

@@ -27,6 +27,17 @@ produces
   286-337`` and ``expr/pointer.py:32-35``).  Every load still comes
   before the first store; a target that is read beneath a view is
   written through a temporary (``compile.evaluate``);
+* for a tree whose affine view reads with coefficient 1 on an axis
+  before its innermost one (a transpose: ``reshape(x, dims, order)``
+  whose last source axis is not the last output axis), the tiled
+  assignment kernel (``assign_tiled_source``, chosen by ``tiled_view``
+  from the structure and recorded in the key): one (TU, TL) tile of
+  that axis and the innermost one a program, the view's leaves loaded
+  with lanes fast along the axis it reads contiguously, its value moved
+  to the output's order by a 2-D ``tl.trans`` (through shared memory),
+  every other leaf loaded and every output stored with lanes fast along
+  the innermost axis: whole 128-byte lines on both sides, where the 1-D
+  kernel's neighbouring lanes would read addresses a row apart;
 * the view-assignment kernel (V3, ``assign_to_view``): a value over a
   view's length stored at the indices the view computes into its
   vector, or combined there by an atomic add, min, max or (by
@@ -68,10 +79,14 @@ __all__ = ["Emitter", "assign_source", "assign_multi_source", "assign",
            "assign_plain", "assign_multi", "assign_multi_plain",
            "assign_indexed", "assign_to_view", "assign_to_view_plain",
            "assign_to_view_source", "plain_value", "plain_values",
-           "kernel_key", "launch_args", "ASSIGN_BLOCK", "BASE",
-           "TARGET_MODES"]
+           "kernel_key", "launch_args", "assign_tiled_source", "tiled_view",
+           "ASSIGN_BLOCK", "ASSIGN_TILE", "BASE", "TARGET_MODES"]
 
 ASSIGN_BLOCK = 1024
+#: the tiled assignment kernel's tile: TU elements along the axis a
+#: transposing view reads contiguously, TL along the output's innermost
+#: axis, and the warps of a program
+ASSIGN_TILE = (32, 32, 8)
 
 _TL = {
     "b1": "tl.int1", "u8": "tl.uint8", "u16": "tl.uint16",
@@ -174,6 +189,13 @@ class Emitter:
         #: of an unravel in 32 bits
         self.ity = ("tl.int32" if getattr(analysis, "index_bits", 64) == 32
                     else "tl.int64")
+        #: (id(view), index variable) -> the coordinates of that context
+        #: over the view's axes, where the kernel computed them itself, so
+        #: that the view does not unravel its index by runtime counts
+        self.coords: Dict[Tuple[int, str], List[str]] = {}
+        #: the tiled kernel's transposing view and its load-order context
+        #: (``tiled``), or None
+        self.tile = None
 
     # -- variables ------------------------------------------------------
     def value(self, node: Expr, at: Tuple[str, str] = None) -> str:
@@ -190,6 +212,24 @@ class Emitter:
                 self.at = prev
             self._vals[key] = v
         return v
+
+    def tiled(self, view: Expr):
+        """In the tiled assignment kernel, the transposing view's value in
+        the output's order: evaluated in the load-order context (lanes fast
+        along the axis it reads contiguously), then moved through a 2-D
+        transpose, which Triton lowers through shared memory.  None for
+        every other node and context."""
+        if self.tile is None or self.tile[0] is not view or self.at != BASE:
+            return None
+        v = self.value(view, self.tile[1])
+        # tl.where broadcasts a leafless (scalar-only) value to the block
+        v = self.define(f"tl.where({self.tile[1][1]}, {v}, {v})")
+        boolean = self.types[id(view)] == "b1"
+        if boolean:
+            v = self.define(f"{v}.to(tl.int8)")
+        v = self.define(f"tl.reshape(tl.trans(tl.reshape({v}, (TL, TU))), "
+                        "(BLOCK,))")
+        return self.define(f"({v} != 0)") if boolean else v
 
     def define(self, src: str) -> str:
         name = f"t{self._n}"
@@ -463,25 +503,147 @@ def assign_source(expr: Expr, analysis: Analysis, types: Dict[int, str],
     return assign_multi_source([expr], analysis, types, [out_code])
 
 
+def tiled_view(exprs: Sequence[Expr]):
+    """The view that makes an assignment kernel tiled: the first affine
+    view, in preorder, reached from the roots through elementwise nodes
+    only (so read at the element's own index) whose ``tiled_axis`` is an
+    axis: (its ordinal among the views reached, the view, that axis), or
+    None.  A function of the trees' structure only (the axis markers are
+    part of the signature)."""
+    from .view import _View
+
+    seen, k = set(), 0
+    stack = list(reversed(exprs))
+    while stack:
+        node = stack.pop()
+        if id(node) in seen:
+            continue
+        seen.add(id(node))
+        if isinstance(node, _View):
+            u = node.tiled_axis()
+            if u is not None:
+                return k, node, u
+            k += 1
+            continue
+        stack.extend(reversed(node.children))
+    return None
+
+
+def tiled_programs(tile) -> int:
+    """The tiled kernel's grid: the other axes' coordinates times the
+    (TU, TL) tiles over the view's loaded and innermost axes."""
+    _, view, u = tile
+    counts = [c for c, _, _, _ in view.axes]
+    tu, tl_, _ = ASSIGN_TILE
+    grid = -(-counts[u] // tu) * -(-counts[-1] // tl_)
+    for e, c in enumerate(counts[:-1]):
+        if e != u:
+            grid *= c
+    return grid
+
+
+def assign_tiled_source(exprs: Sequence[Expr], analysis: Analysis,
+                        types: Dict[int, str], out_codes: Sequence[str],
+                        tile) -> str:
+    """The assignment kernel over (TU, TL) tiles of a transposing view's
+    loaded axis u and its innermost axis (``tiled_view``), one tile a
+    program, the other axes over the grid.  The view's leaves are loaded
+    with lanes fast along u (``offs_t``, ``mask_t``), where it reads
+    contiguously; its value is transposed to the output's order
+    (``Emitter.tiled``); every other node is evaluated, and each output
+    stored, with lanes fast along the innermost axis (``offs``, ``mask``),
+    so both sides move whole lines."""
+    _, view, u = tile
+    em = Emitter(analysis, types)
+    ity = em.ity
+    _, counts, _, _ = view.emit_params(em)
+    last = len(view.axes) - 1
+    others = [e for e in range(last) if e != u]
+    if u == 0:
+        # the outermost count is not a parameter of the view: n / the rest
+        rest = counts[1]
+        for c in counts[2:]:
+            rest = em.define(f"{rest} * {c}")
+        counts[0] = em.define(f"n.to({ity}) // {rest}")
+    # the output's row-major strides over the view's axes
+    ost: List = [None] * (last + 1)
+    stride = None
+    for e in range(last - 1, -1, -1):
+        stride = counts[e + 1] if stride is None else em.define(
+            f"{stride} * {counts[e + 1]}")
+        ost[e] = stride
+    cu, cl = counts[u], counts[last]
+    pid = em.define(f"tl.program_id(0).to({ity})")
+    ntl = em.define(f"({cl} + TL - 1) // TL")
+    ntu = em.define(f"({cu} + TU - 1) // TU")
+    tlid = em.define(f"{pid} % {ntl}")
+    r = em.define(f"{pid} // {ntl}")
+    tuid = em.define(f"{r} % {ntu}")
+    r = em.define(f"{r} // {ntu}")
+    oc = {}
+    for i, e in enumerate(reversed(others)):
+        if i == len(others) - 1:
+            oc[e] = r
+        else:
+            oc[e] = em.define(f"{r} % {counts[e]}")
+            r = em.define(f"{r} // {counts[e]}")
+    obase = "0"
+    for e in others:
+        obase = em.define(f"{obase} + {oc[e]} * {ost[e]}")
+    lane = em.define(f"tl.arange(0, BLOCK).to({ity})")
+    for name, ul, ll in (("", f"{lane} // TL", f"{lane} % TL"),
+                         ("_t", f"{lane} % TU", f"{lane} // TU")):
+        cu_v = em.define(f"{tuid} * TU + {ul}")
+        cl_v = em.define(f"{tlid} * TL + {ll}")
+        em.lines.append(f"mask{name} = ({cu_v} < {cu}) & ({cl_v} < {cl})")
+        flat = f"{obase} + {cu_v} * {ost[u]} + {cl_v}"
+        em.lines.append(f"offs{name} = ({flat}).to(tl.int64)" if not name
+                        else f"offs{name} = {flat}")
+        if name:
+            em.coords[(id(view), "offs_t")] = [
+                cu_v if e == u else cl_v if e == last else oc[e]
+                for e in range(last + 1)]
+    em.tile = (view, ("offs_t", "mask_t"))
+    res = [em.cast(em.value(e), types[id(e)], c)
+           for e, c in zip(exprs, out_codes)]
+    outs = [f"o{i}" for i in range(len(exprs))]
+    src = [_HEADER,
+           jit_header("assign_tiled_kernel", analysis, outs,
+                      ["n", "TU: tl.constexpr", "TL: tl.constexpr",
+                       "BLOCK: tl.constexpr"])]
+    src += [f"    {line}\n" for line in em.lines]
+    src += [f"    tl.store({o} + offs, tl.where(mask, {r}, {r}), mask=mask)\n"
+            for o, r in zip(outs, res)]
+    return "".join(src)
+
+
 class _AssignKernel:
     """A generated kernel over n elements, ``BLOCK`` a program: the
-    assignment kernels and the view-assignment kernel."""
+    assignment kernels and the view-assignment kernel; with ``tiled``,
+    the tiled assignment kernel, one (TU, TL) tile a program."""
 
-    def __init__(self, src: str, name: str = "assign_kernel"):
+    def __init__(self, src: str, name: str = "assign_kernel",
+                 tiled: bool = False):
         from .._build import triton_module
 
         if config.show_kernels:
             print(src)
+        self.tiled = tiled
         self.fn = getattr(triton_module(src), name)
 
     def launch(self, outs: Sequence[torch.Tensor], leaves: Sequence,
-               n: int) -> None:
+               n: int, programs: int = 0) -> None:
         import triton
 
-        grid = (triton.cdiv(n, ASSIGN_BLOCK),)
+        if self.tiled:
+            tu, tl_, warps = ASSIGN_TILE
+            grid, opts = (programs,), dict(TU=tu, TL=tl_, BLOCK=tu * tl_,
+                                          num_warps=warps)
+        else:
+            grid = (triton.cdiv(n, ASSIGN_BLOCK),)
+            opts = dict(BLOCK=ASSIGN_BLOCK, num_warps=4)
         with torch.cuda.device(outs[0].device):
-            self.fn[grid](*outs, *launch_args(leaves), n, BLOCK=ASSIGN_BLOCK,
-                          num_warps=4)
+            self.fn[grid](*outs, *launch_args(leaves), n, **opts)
 
 
 def plain_values(exprs: Sequence[Expr], analysis: Analysis, types, leaves,
@@ -523,15 +685,27 @@ def assign_multi_plain(exprs: Sequence[Expr], analysis: Analysis, types,
 
 def _launch(exprs: Sequence[Expr], analysis: Analysis, types, leaves,
             outs: Sequence[torch.Tensor]) -> None:
-    key = ("assign",) + kernel_key(analysis, tuple(o.dtype for o in outs))
+    # the tiled form is a function of the structure: its choice (which
+    # view, which axis) is part of the key, and a tiled kernel that fails
+    # raises
+    tile = tiled_view(exprs) if analysis.indexed else None
+    form = None if tile is None else ("tiled", tile[0], tile[2])
+    key = ("assign", form) + kernel_key(analysis,
+                                        tuple(o.dtype for o in outs))
+    codes = [code_of(o.dtype) for o in outs]
 
     def factory():
-        return _AssignKernel(assign_multi_source(
-            exprs, analysis, types, [code_of(o.dtype) for o in outs]))
+        if tile is None:
+            return _AssignKernel(assign_multi_source(exprs, analysis, types,
+                                                     codes))
+        return _AssignKernel(assign_tiled_source(exprs, analysis, types,
+                                                 codes, tile),
+                             "assign_tiled_kernel", tiled=True)
 
     k = (kernel_cache.get_or_create(key, factory) if config.cache_kernels
          else factory())
-    k.launch(outs, leaves, outs[0].numel())
+    k.launch(outs, leaves, outs[0].numel(),
+             tiled_programs(tile) if tile is not None else 0)
 
 
 def assign(expr: Expr, analysis: Analysis, types, leaves,

@@ -169,6 +169,9 @@ class _View(Expr):
         return out
 
     def emit_src(self, em) -> str:
+        tiled = em.tiled(self)
+        if tiled is not None:
+            return tiled
         j, mask, valid = self.emit_index(em)
         v = em.value(self.children[0], (j, mask))
         if valid is None:
@@ -183,6 +186,11 @@ class _View(Expr):
 
         assign_to_view(self, value, op)
         return self
+
+    def tiled_axis(self) -> Optional[int]:
+        """The axis a tiled assignment kernel loads along, or None (see
+        ``_AffineView.tiled_axis``)."""
+        return None
 
     # the subclasses give the index: (index, valid lanes or None)
     def plain_index(self, env: EmitEnv):
@@ -218,9 +226,28 @@ class _AffineView(_View):
                          *(ScalarTerminal(int(p)) for p in params))
 
     def _struct(self) -> str:
-        return "".join("x" if a is not None else "a"
-                       for _, _, a, _ in self.axes) + (
+        """Per axis: ``x`` an index-array key, ``u`` a slice read with
+        coefficient 1 (the kernels add its coordinate unscaled, so Triton
+        sees the contiguity), ``a`` another slice."""
+        return "".join("x" if a is not None else "u" if coef == 1 else "a"
+                       for _, coef, a, _ in self.axes) + (
             "|b" if self.broadcast else "")
+
+    def tiled_axis(self) -> Optional[int]:
+        """The axis a tiled assignment kernel loads along
+        (``triton_emit.tiled_view``): the last axis before the innermost
+        one that reads with coefficient 1 where the innermost one does not
+        (a transpose); None where the view is a broadcast, has an
+        index-array key or fewer than two axes, or reads its innermost
+        axis contiguously."""
+        if self.broadcast or len(self.axes) < 2 or any(
+                a is not None for _, _, a, _ in self.axes):
+            return None
+        unit = [coef == 1 for _, coef, _, _ in self.axes]
+        if unit[-1]:
+            return None
+        return max((e for e in range(len(unit) - 1) if unit[e]),
+                   default=None)
 
     def child_sizes(self, m):
         sizes = [self.extent]
@@ -251,26 +278,40 @@ class _AffineView(_View):
             idx += v[i] * coef
         return idx, None
 
-    def emit_index(self, em):
-        mask = em.at[1]
+    def emit_params(self, em):
+        """(base, counts (None for the outermost axis), coefficients,
+        index-array lengths (None for slices)): the view's runtime
+        integers as variables in the index type."""
         ps = iter(self.children[self._p0:])
-        j = em.param(next(ps))
+        base = em.param(next(ps))
         counts, coefs, dims = [], [], []
         for e, (_, _, a, _) in enumerate(self.axes):
             counts.append(em.param(next(ps)) if e else None)
             coefs.append(em.param(next(ps)))
             dims.append(em.param(next(ps)) if a is not None else None)
+        return base, counts, coefs, dims
+
+    def emit_index(self, em):
+        mask = em.at[1]
+        j, counts, coefs, dims = self.emit_params(em)
+        given = em.coords.get((id(self), em.at[0]))
         if self.broadcast:
             # every lane reads the one element: coordinates 0
             zero = em.define(f"tl.zeros([BLOCK], {em.ity})")
             j = em.define(f"{zero} + {j}")
             coords = [zero] * len(self.axes)
+        elif given is not None:
+            # the kernel computed this context's coordinates itself (V2's
+            # kept and reduced axes, the tiled kernel's load order)
+            coords = given
         else:
             coords = em.unravel(em.index(), counts)
         k = 1
-        for (_, _, a, _), i, coef, d in zip(self.axes, coords, coefs, dims):
+        for (_, coef_v, a, _), i, coef, d in zip(self.axes, coords, coefs,
+                                                 dims):
             if a is None:
-                j = em.define(f"{j} + {i} * {coef}")
+                j = em.define(f"{j} + {i}" if coef_v == 1
+                              else f"{j} + {i} * {coef}")
                 continue
             v = em.value(self.children[k], (i, mask))
             k += 1

@@ -11,24 +11,53 @@ view, usually) has shape S, o runs over the axes of S that are kept and
 r over the reduced ones, and p is the row-major position in S of the
 pair.  The inner expression is emitted at p by the views' machinery
 (V1), so a slicer, a reshape or a permutation under the reduction reads
-its leaves in place.
+its leaves in place.  Where the inner is itself an affine view, the
+kernel hands it the coordinates of (o, r) over its axes (the axis
+pattern of kept and reduced axes is part of the key), so no lane
+divides by a runtime count in the loop, and an axis read with
+coefficient 1 is added unscaled: Triton sees the lanes' contiguity.
 
-The schedule: each program owns ``OT`` consecutive outputs and walks the
-reduced range in steps of ``RT``, its ``BLOCK = OT * RT`` lanes a tile of
-(output, reduced) pairs.  Where the innermost axis of S is reduced
-(row sums), the reduced index runs fastest across the lanes, and where it
-is kept (column reductions), the output does, so that neighbouring lanes
-read neighbouring addresses either way.  Each lane folds its pairs in
-registers; at the end the tile is reshaped to (OT, RT) and reduced along
-the reduced axis.  The order is fixed, so a result repeats bit for bit.
+The schedule (``plan``, a function of the output and reduced counts,
+whether the innermost axis is reduced, the value's width and the SM
+count only, so a result repeats bit for bit on one card):
+
+* a program's ``BLOCK`` lanes are a tile of ``OT`` outputs by ``RT``
+  reduced steps, 8 warps.  Where the innermost axis of S is reduced
+  (row sums), the reduced index runs fastest across the lanes: a row as
+  long as a program's budget (8 KB of values) takes all of its lanes, a
+  shorter one a warp's 32 lanes, several rows a program, so that each
+  row's fold stays within its warp.  Where the innermost axis is kept
+  (column reductions), the output does, ``OT`` up to 32 (a warp's row
+  segment, 128 bytes at f32), and each lane folds ``UNROLL`` reduced
+  steps among themselves before the one dependent combine with its
+  accumulator, 16 KB of values in flight a program;
+* the outputs give ``cdiv(n_out, OT)`` tiles (grid axis 0).  Where they
+  are fewer than ``SMs x PROGRAMS_PER_SM``, the reduced range is split
+  into ``nsplit`` chunks (grid axis 1): each program folds its chunk for
+  its tile, stores its partials in the accumulator's type to scratch and
+  draws its tile's ticket (``tl.atomic_add``, acq_rel at GPU scope); the
+  program that draws the tile's last ticket reads the partials past L1
+  (``volatile``), folds them in a fixed order (lane s of an output the
+  splits s, s + RT, ..., then the tile's reduction), stores the results
+  and sets the ticket back to 0 (the scheme of
+  ``ops/triton_reduce.py``).  One ticket a tile, so no program folds the
+  partials of every output.  Scratch and tickets are kept per (device,
+  stream);
+* at the end the tile is reshaped to (OT, RT) and reduced along the
+  reduced axis.
+
 The kernel is bound by device memory: one read of the inner's leaves and
-one write of the output (a row sum of 4096 x 4096 f32: 67 MB, 0.0200 ms
-at 3.35 TB/s).  A column reduction gets few programs (n_out / OT), each
-walking the whole reduced range: a simple schedule, not a fast one.
+one write of the output (a row or column reduction of 4096 x 4096 f32:
+67 MB, 0.0200 ms at 3.35 TB/s).  A column reduction of that grid is 128
+tiles of 32 columns, each split into 5 chunks of 896 rows: 640
+programs.  The constants were chosen on an H100 by
+``scripts/torch_view_turns.py`` (PERF.md §6).
 
 Accumulation: f32 for f32 and 16-bit floats, f64 for f64, i64 (u64) for
 integer and boolean sums and products; min and max in the value's type
-(i32 for booleans), NaN propagated (``propagate_nan=ALL``).
+(i32 for booleans), NaN propagated (``propagate_nan=ALL``) in the fold,
+the tile's reduction and the combine of the partials, so a split
+returns NaN where any chunk holds one.
 
 ``reduce_view_apply`` is the wrapper: the kernel for CUDA tensors, the
 plain ``sum``/``prod``/``amin``/``amax`` over the viewed tensor for CPU
@@ -37,7 +66,7 @@ tensors.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,11 +78,23 @@ from ..expr.triton_emit import (_HEADER, _NAN_ALL, Emitter, jit_header,
                                 kernel_key, launch_args, plain_value,
                                 tl_type)
 from ..types import code_of, dtype_of_code
+from .triton_reduce import _programs
 
 __all__ = ["reduce_view_apply", "reduce_view_plain", "reduce_view_source",
-           "reduce_view_eval", "prepare_reduce_view", "REDUCE_VIEW_BLOCK"]
+           "reduce_view_eval", "prepare_reduce_view", "plan", "Plan"]
 
-REDUCE_VIEW_BLOCK = 1024
+REDUCE_VIEW_WARPS = 8
+#: bytes of values a program has in flight in one pass of its loop: its
+#: lanes times the reduced steps each folds before its dependent combine
+#: (a column reduction; a row reduction, whose loop is short, takes
+#: ``ROW_STEP_BYTES``)
+STEP_BYTES = 16384
+ROW_STEP_BYTES = 8192
+#: outputs of a column reduction's tile: a warp's row segment (128
+#: bytes of f32)
+MAX_OT = 32
+#: lanes of a column reduction's tile (the rest of the budget unrolled)
+COLUMN_BLOCK = 1024
 OPS = ("sum", "prod", "min", "max")
 
 _COMBINES = f"""@triton.jit
@@ -110,106 +151,223 @@ def _identity(op: str, acc: str) -> str:
 
 def _layout(shape: Sequence[int], axes: Sequence[int]):
     """(kept counts, kept coefficients, reduced counts, reduced
-    coefficients, whether the reduced index runs fastest)."""
+    coefficients, whether the reduced index runs fastest (the innermost
+    axis is reduced), the axis pattern: ``k`` or ``r`` an axis)."""
     strides = [int(np.prod(shape[d + 1:], dtype=np.int64))
                for d in range(len(shape))]
     kept = [d for d in range(len(shape)) if d not in axes]
     red = [d for d in range(len(shape)) if d in axes]
+    pattern = "".join("r" if d in axes else "k" for d in range(len(shape)))
     return ([shape[d] for d in kept], [strides[d] for d in kept],
             [shape[d] for d in red], [strides[d] for d in red],
-            bool(red) and red[-1] == len(shape) - 1)
+            bool(red) and red[-1] == len(shape) - 1, pattern)
 
 
-def _tile(n_out: int, r: int, r_fast: bool) -> Tuple[int, int]:
-    """(OT, RT): outputs and reduced steps of a program's tile."""
-    block = REDUCE_VIEW_BLOCK
+class Plan(NamedTuple):
+    """A reduction's schedule (see the module's docstring)."""
+
+    ot: int        #: outputs of a program's tile
+    rt: int        #: reduced steps of a tile's lanes (ot * rt lanes)
+    unroll: int    #: steps a lane folds before combining with its acc
+    tiles: int     #: output tiles: grid axis 0
+    nsplit: int    #: chunks of the reduced range: grid axis 1
+    chunk: int     #: reduced indices a chunk, a multiple of rt * unroll
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, (max(n, 1) - 1).bit_length())
+
+
+def plan(n_out: int, nred: int, r_fast: bool, itemsize: int,
+         programs: int) -> Plan:
+    """The schedule of a reduction of ``nred`` steps into ``n_out``
+    outputs of values ``itemsize`` bytes wide, on a card whose grid
+    should hold ``programs`` programs to be full."""
+    # values a program has in flight in one pass of its loop
+    budget = (ROW_STEP_BYTES if r_fast else STEP_BYTES) // max(4, itemsize)
     if r_fast:
-        rt = min(block, 1 << max(0, (max(r, 1) - 1).bit_length()))
-        return block // rt, rt
-    ot = min(block, max(32, 1 << max(0, (n_out // 512 - 1).bit_length())))
-    return ot, block // ot
+        # a row as long as the budget takes a program's lanes; a shorter
+        # one a warp's 32, several rows a program, so that each row's fold
+        # stays within its warp
+        rt = min(budget, _pow2(nred)) if nred >= budget else min(
+            32, _pow2(nred))
+        ot, unroll = budget // rt, 1
+    else:
+        ot = min(MAX_OT, _pow2(n_out))
+        rt = max(1, min(budget, COLUMN_BLOCK) // ot)
+        unroll = max(1, min(budget // (ot * rt), _pow2(-(-nred // rt))))
+    step = rt * unroll
+    tiles = -(-n_out // ot)
+    nsplit = max(1, min(-(-programs // tiles), -(-nred // step)))
+    chunk = max(step, -(-(-(-nred // nsplit)) // step) * step)
+    nsplit = max(1, -(-nred // chunk))
+    return Plan(ot, rt, unroll, tiles, nsplit, chunk)
+
+
+def _fold(vals: List[str], fn) -> str:
+    """Pairwise fold of ``vals`` by ``fn`` (text): a fixed order."""
+    while len(vals) > 1:
+        vals = [fn(vals[i], vals[i + 1]) if i + 1 < len(vals) else vals[i]
+                for i in range(0, len(vals), 2)]
+    return vals[0]
 
 
 def reduce_view_source(inner: Expr, analysis: Analysis,
-                       types: Dict[int, str], op: str, nk: int, nr: int,
-                       r_fast: bool, out_code: str) -> str:
-    """The kernel reducing ``inner`` (nk kept and nr reduced axes) into
-    ``out_ptr``, in type ``out_code``."""
+                       types: Dict[int, str], op: str, pattern: str,
+                       unroll: int, out_code: str) -> str:
+    """The kernel reducing ``inner`` (its axes kept or reduced as
+    ``pattern`` says) into ``out_ptr``, in type ``out_code``, folding
+    ``unroll`` reduced steps a lane at a time."""
+    from ..expr.view import _AffineView
+
+    r_fast = pattern.endswith("r")
     em = Emitter(analysis, types)
     ity = em.ity
     acc = _acc_code(op, types[id(inner)])
     tl_acc, idv = tl_type(acc), _identity(op, acc)
+    nk, nr = pattern.count("k"), pattern.count("r")
     kc = [f"kc{e}" for e in range(1, nk)]
     kk = [f"kk{e}" for e in range(nk)]
     rc = [f"rc{e}" for e in range(1, nr)]
     rk = [f"rk{e}" for e in range(nr)]
-    ints = ["n_out", "nred", *kc, *kk, *rc, *rk]
+    ints = ["n_out", "nred", "chunk", "nsplit", *kc, *kk, *rc, *rk]
     iv = {a: em.define(f"{a}.to({ity})") for a in ints}
     lane = em.define(f"tl.arange(0, BLOCK).to({ity})")
     if r_fast:
         ol, rl = em.define(f"{lane} // RT"), em.define(f"{lane} % RT")
     else:
         ol, rl = em.define(f"{lane} % OT"), em.define(f"{lane} // OT")
-    o = em.define(f"tl.program_id(0).to({ity}) * OT + {ol}")
+    pid = em.define(f"tl.program_id(0).to({ity})")
+    o = em.define(f"{pid} * OT + {ol}")
     mo = em.define(f"{o} < {iv['n_out']}")
+    kept = (em.unravel(o, [None] + [iv[a] for a in kc]) if nk > 1
+            else [o] * nk)
     po = em.define(f"tl.zeros([BLOCK], {ity})")
-    if nk:
-        for c, k in zip(em.unravel(o, [None] + [iv[a] for a in kc]), kk):
-            po = em.define(f"{po} + {c} * {iv[k]}")
+    for c, k in zip(kept, kk):
+        po = em.define(f"{po} + {c} * {iv[k]}")
+    rbeg = em.define(f"tl.program_id(1).to({ity}) * {iv['chunk']}")
+    rend = em.define(f"tl.minimum({rbeg} + {iv['chunk']}, {iv['nred']})")
     pre, em.lines = em.lines, []
-    rv = em.define(f"rstart + {rl}")
-    m = em.define(f"{mo} & ({rv} < {iv['nred']})")
-    p = po
-    if nr:
-        for c, k in zip(em.unravel(rv, [None] + [iv[a] for a in rc]), rk):
-            p = em.define(f"{p} + {c} * {iv[k]}")
-    v = em.cast(em.value(inner, (p, m)), types[id(inner)], acc)
-    v = f"tl.where({m}, {v}, {idv})"
     is_float = dtype_of_code(acc).is_floating_point
     if op == "sum":
-        upd, red = f"acc + {v}", "tl.sum(tile, axis={ax})"
+        comb, red = "({} + {})", "tl.sum(tile, axis={ax})"
     elif op == "prod":
-        upd, red = f"acc * {v}", "tl.reduce(tile, {ax}, mul)"
+        comb, red = "({} * {})", "tl.reduce(tile, {ax}, mul)"
     else:
         fn = op + ("_nan" if is_float else "_int")
-        upd, red = f"{fn}(acc, {v})", "tl.reduce(tile, {ax}, " + fn + ")"
+        comb, red = fn + "({}, {})", "tl.reduce(tile, {ax}, " + fn + ")"
+    vals = []
+    for u in range(unroll):
+        rv = em.define(f"rstart + {u} * RT + {rl}")
+        m = em.define(f"{mo} & ({rv} < {rend})")
+        red_c = (em.unravel(rv, [None] + [iv[a] for a in rc]) if nr > 1
+                 else [rv] * nr)
+        p = po
+        for c, k in zip(red_c, rk):
+            p = em.define(f"{p} + {c} * {iv[k]}")
+        if isinstance(inner, _AffineView) and len(inner.axes) == len(
+                pattern):
+            ki, ri = iter(kept), iter(red_c)
+            em.coords[(id(inner), p)] = [next(ri) if a == "r" else next(ki)
+                                         for a in pattern]
+        v = em.cast(em.value(inner, (p, m)), types[id(inner)], acc)
+        vals.append(em.define(f"tl.where({m}, {v}, {idv})"))
     loop, em.lines = em.lines, []
     res = em.cast("res", acc, out_code)
     shape, ax = ("(OT, RT)", 1) if r_fast else ("(RT, OT)", 0)
     src = [_HEADER, _COMBINES,
-           jit_header("reduce_view_kernel", analysis, ["out_ptr"],
+           jit_header("reduce_view_kernel", analysis,
+                      ["out_ptr", "part_ptr", "ticket_ptr"],
                       ints + ["OT: tl.constexpr", "RT: tl.constexpr",
-                              "BLOCK: tl.constexpr"], ints)]
+                              "BLOCK: tl.constexpr", "SPLIT: tl.constexpr"],
+                      ints)]
     src += [f"    {line}\n" for line in pre]
     src += [f"    acc = tl.full([BLOCK], {idv}, {tl_acc})\n",
-            "    for rstart in range(0, nred, RT):\n"]
+            f"    for rstart in range({rbeg}, {rend}, RT * {unroll}):\n"]
     src += [f"        {line}\n" for line in loop]
-    src += [f"        acc = {upd}\n",
+    src += [f"        acc = {comb.format('acc', _fold(vals, comb.format))}\n",
             f"    tile = tl.reshape(acc, {shape})\n",
             f"    res = {red.format(ax=ax)}\n",
-            f"    oo = tl.program_id(0).to({ity}) * OT + tl.arange(0, OT)\n",
-            f"    tl.store(out_ptr + oo, {res}, mask=oo < {iv['n_out']})\n"]
+            f"    oo = {pid} * OT + tl.arange(0, OT).to({ity})\n",
+            "    if SPLIT:\n",
+            f"        part = part_ptr.to(tl.pointer_type({tl_acc}))\n",
+            f"        tl.store(part + tl.program_id(1).to({ity}) * "
+            f"{iv['n_out']} + oo, res, mask=oo < {iv['n_out']})\n",
+            "        tl.debug_barrier()\n",
+            "        ticket = tl.atomic_add(ticket_ptr + tl.program_id(0), 1, "
+            "sem='acq_rel', scope='gpu')\n",
+            f"        if ticket == {iv['nsplit']} - 1:\n",
+            # the last program of the tile folds the nsplit partials of
+            # its outputs: lane (o, s) the splits s, s + RT, ...
+            f"            acc = tl.full([BLOCK], {idv}, {tl_acc})\n",
+            f"            for s0 in range(0, {iv['nsplit']}, RT):\n",
+            f"                sv = s0 + {rl}\n",
+            f"                ms = {mo} & (sv < {iv['nsplit']})\n",
+            f"                v = tl.load(part + sv * {iv['n_out']} + {o}, "
+            "mask=ms, volatile=True)\n",
+            f"                acc = {comb.format('acc', f'tl.where(ms, v, {idv})')}"
+            "\n",
+            f"            tile = tl.reshape(acc, {shape})\n",
+            f"            res = {red.format(ax=ax)}\n",
+            f"            tl.store(out_ptr + oo, {res}, "
+            f"mask=oo < {iv['n_out']})\n",
+            "            tl.store(ticket_ptr + tl.program_id(0), 0)\n",
+            "    else:\n",
+            f"        tl.store(out_ptr + oo, {res}, mask=oo < {iv['n_out']})\n"]
     return "".join(src)
 
 
+#: (device, stream) -> (partials as int64 words, zeroed int32 tickets)
+_scratch: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+#: entries kept; past it the oldest is freed (see ``cuda_scratch``)
+_MAX_ENTRIES = 64
+
+
+def _scratch_for(device: torch.device, words: int, tiles: int):
+    """At least ``words`` partial words and ``tiles`` zeroed tickets of
+    the current stream on ``device``; grown (doubled) when a call needs
+    more.  Every launch leaves its tickets at 0."""
+    key = (device, torch._C._cuda_getCurrentRawStream(device.index))
+    s = _scratch.get(key)
+    if s is None or s[0].numel() < words or s[1].numel() < tiles:
+        old = (0, 0) if s is None else (s[0].numel(), s[1].numel())
+        s = (torch.empty(max(words, 2 * old[0]), dtype=torch.int64,
+                         device=device),
+             torch.zeros(max(tiles, 2 * old[1]), dtype=torch.int32,
+                         device=device))
+        _scratch[key] = s
+        while len(_scratch) > _MAX_ENTRIES:
+            del _scratch[next(iter(_scratch))]
+    return s
+
+
 class _ReduceViewKernel:
-    def __init__(self, src: str, tile: Tuple[int, int]):
+    def __init__(self, src: str):
         from .._build import triton_module
 
         if config.show_kernels:
             print(src)
-        self.tile = tile
         self.fn = triton_module(src).reduce_view_kernel
 
     def launch(self, out: torch.Tensor, leaves: Sequence, ints: Sequence[int],
-               n_out: int) -> None:
-        import triton
-
-        ot, rt = self.tile
-        with torch.cuda.device(out.device):
-            self.fn[(triton.cdiv(n_out, ot),)](
-                out, *launch_args(leaves), *ints, OT=ot, RT=rt,
-                BLOCK=REDUCE_VIEW_BLOCK, num_warps=4)
+               pl: Plan) -> None:
+        split = pl.nsplit > 1
+        if split:
+            part, ticket = _scratch_for(out.device, pl.nsplit * ints[0],
+                                        pl.tiles)
+        else:
+            part = ticket = out    # not read: SPLIT is False
+        args = (out, part, ticket, *launch_args(leaves), ints[0], ints[1],
+                pl.chunk, pl.nsplit, *ints[2:])
+        opts = dict(OT=pl.ot, RT=pl.rt, BLOCK=pl.ot * pl.rt, SPLIT=split,
+                    num_warps=REDUCE_VIEW_WARPS)
+        grid = (pl.tiles, pl.nsplit)
+        # Triton launches on the current device: switch only when needed
+        if torch.cuda.current_device() == out.device.index:
+            self.fn[grid](*args, **opts)
+        else:
+            with torch.cuda.device(out.device):
+                self.fn[grid](*args, **opts)
 
 
 def reduce_view_plain(inner: Expr, analysis: Analysis, types, leaves, op: str,
@@ -249,24 +407,26 @@ def reduce_view_apply(inner: Expr, analysis: Analysis, types, leaves,
         return
     if out.device.type != "cuda":
         raise NotImplementedError(f"no reduce_view kernel for {out.device}")
-    kcount, kcoef, rcount, rcoef, r_fast = _layout(shape, axes)
+    kcount, kcoef, rcount, rcoef, r_fast, pattern = _layout(shape, axes)
     n_out = int(np.prod(kcount, dtype=np.int64))
     nred = int(np.prod(rcount, dtype=np.int64))
     if n_out == 0:
         return
-    tile = _tile(n_out, nred, r_fast)
-    key = ("reduce_view", op, len(kcount), len(rcount), r_fast,
-           tile) + kernel_key(analysis, (out.dtype,))
+    code = types[id(inner)]
+    pl = plan(n_out, nred, r_fast, dtype_of_code(code).itemsize,
+              _programs(out.device))
+    key = ("reduce_view", op, pattern, pl.ot, pl.rt,
+           pl.unroll) + kernel_key(analysis, (out.dtype,))
 
     def factory():
         return _ReduceViewKernel(reduce_view_source(
-            inner, analysis, types, op, len(kcount), len(rcount), r_fast,
-            code_of(out.dtype)), tile)
+            inner, analysis, types, op, pattern, pl.unroll,
+            code_of(out.dtype)))
 
     k = (kernel_cache.get_or_create(key, factory) if config.cache_kernels
          else factory())
     k.launch(out, leaves, [n_out, nred, *kcount[1:], *kcoef, *rcount[1:],
-                           *rcoef], n_out)
+                           *rcoef], pl)
     reduce_view_apply.launches += 1
 
 
