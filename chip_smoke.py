@@ -194,6 +194,11 @@ RUN = 64                      # the bench's key runs (bench.py:584-609)
 RBK_N_LARGE = (1 << 25) + 7
 KERNEL_REPS = 100             # launches per timing of the kernels line
 TURNS = 5                     # timings each of a kernel and its library call
+PROFILE_LEAD = 256            # spin kernels a trace launches first
+PROFILE_TRIES = 4             # traces of one call, 4x the lead-in each
+SPIN_KERNEL = "spin_kernel"   # torch.cuda._sleep's kernel
+#: the lead-in records each trace of profile_call lost, in order
+PROFILE_LOST: list = []
 HOST_CALLS = 200              # calls timed on the host clock, no sync
 HBM_BYTES_S = 3.35e12         # H100 SXM: NVIDIA's data sheet
 F32_OPS_S = 67e12
@@ -219,6 +224,14 @@ LORENZ_N = 1 << 22            # the bench's ensemble (bench.py:721)
 LORENZ_STEPS = 100
 LORENZ_TOL = {"f32": (1e-5, 1e-4), "f64": (1e-12, 1e-10)}  # 1, 100 steps
 MULTI_N = 1 << 24
+#: phase 12's numbers before the launch records and the per-binding
+#: analysis, as PERF.md records them (H100 80GB HBM3, 700.00 W), printed
+#: beside this run's
+PARENT_LORENZ = {
+    "f32": {"host_us": "532.48-549.17 (scripts/torch_host_breakdown.py)",
+            "step_ms": "0.541-0.632", "overhead": "10.97-14.59"},
+    "f64": {"host_us": "not measured", "step_ms": "not measured",
+            "overhead": "6.45-7.30"}}
 MV_TOL = {"f32": 1e-5, "f64": 1e-12}
 PHILOX_KATS = [
     ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
@@ -522,23 +535,45 @@ def errors(k, p):
 
 def profile_call(fn, reps: int = 10):
     """Device time per call by kernel name (µs), and the device's busy
-    share of the wall time, over reps calls traced by torch.profiler."""
+    share of the wall time, over reps calls traced by torch.profiler.
+
+    On the H100's host the profiler drops the first device records of a
+    trace, more of them the longer the process has run (one more every
+    ~14 s in one run, all 100 of a loop in another): so each trace first
+    launches ``lead`` spin kernels (``torch.cuda._sleep``, not counted),
+    which take the loss.  A trace in which none of them is left may have
+    lost the loop's records too, and is taken again with four times as
+    many, up to PROFILE_TRIES traces; then the run fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    kernels = {e.key[:60]: e.self_device_time_total / reps
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0}
+    lead = PROFILE_LEAD
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        seen = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        spins = sum(e.count for e in seen if SPIN_KERNEL in e.key)
+        PROFILE_LOST.append(lead - spins)
+        if spins:
+            break
+        lead *= 4
+    else:
+        raise SmokeFailure(f"the profiler lost every one of {lead // 4} "
+                           "lead-in records in each of its traces")
+    kernels = {e.key[:60]: e.self_device_time_total / reps for e in seen
+               if SPIN_KERNEL not in e.key}
     busy = sum(kernels.values()) * reps * 1e-6 / wall
     return dict(sorted(kernels.items(), key=lambda kv: -kv[1])), busy
 
@@ -841,6 +876,16 @@ def main() -> int:
         3 * nrows * 4, 2 * nrows,
         cuda_ms(lambda: torch.add(rv.storage, pv.storage, alpha=0.7),
                 KERNEL_REPS))
+
+    def api_assign():
+        Apv[:] = rv + 0.7 * pv
+    # the host's time per call: the prepared kernel, the whole assignment
+    # through the API (tree, analysis, launch) and torch.add
+    kernels["expr"].update(
+        host_us=host_us(lambda: assign(e, an, ty, lv, kern)),
+        api_host_us=host_us(api_assign),
+        library_host_us=host_us(lambda: torch.add(rv.storage, pv.storage,
+                                                  alpha=0.7)))
     pap = prepare(pv * Apv, nrows, dev)      # kept for the profiler, last
     e, an, ty, lv = pap
     pap_k = map_reduce(e, an, ty, lv, nrows, "SUM", dev).item()
@@ -1929,6 +1974,13 @@ def main() -> int:
         rec["plain_ms"] = cuda_ms(lambda: assign_multi_plain(e, an, ty, lv,
                                                              po))
         report(f"lorenz_rk4_{dname}", rec)
+        parent = PARENT_LORENZ[dname]
+        print(f"lorenz {dname} against the parent: API step host_us "
+              f"{rec['host_us']:.2f} (parent {parent['host_us']}), "
+              f"step_ms {rec['step_ms']:.4f} (parent {parent['step_ms']}), "
+              f"lorenz_overhead_vs_raw_cuda "
+              f"{rec['lorenz_overhead_vs_raw_cuda']:.3f} (parent "
+              f"{parent['overhead']})")
         lorenz[dname] = rec
         del ens, ref, raw, rx, ry, rz, rR, plain, e, lv, outs, ko, po
         torch.cuda.empty_cache()
@@ -2562,6 +2614,10 @@ def main() -> int:
         for name, route, src, rep, key in rows]}
     results["kernels"] = line["kernels"]
     results["total_s"] = time.perf_counter() - start_s
+    results["profile_lost_records"] = PROFILE_LOST
+    print(f"profiler: {len(PROFILE_LOST)} traces; lead-in records lost "
+          f"a trace: first {PROFILE_LOST[:1]}, most "
+          f"{max(PROFILE_LOST, default=0)}, last {PROFILE_LOST[-1:]}")
     if args.json:
         with open(args.json, "w") as fh:
             json.dump(results, fh, indent=1)

@@ -30,6 +30,7 @@ from vexcl_tpu_torch.expr.compile import prepare
 from vexcl_tpu_torch.expr.triton_emit import assign, assign_plain
 from vexcl_tpu_torch.ops.triton_reduce import map_reduce, map_reduce_plain
 from vexcl_tpu_torch.sparse.cuda_dia import dia_matvec, dia_matvec_plain
+from vexcl_tpu_torch.types import dtype_of_code
 
 pytestmark = pytest.mark.cuda
 
@@ -2068,3 +2069,237 @@ def test_view_aliasing_on_the_card(gpu, cpu):
     for case in cases:
         k, pl = _on_both(gpu, cpu, case, hx, hp)
         _close(k[0], pl[0], 1e-5)
+
+
+# -- the launch path: records and the direct launch (_build.TritonLauncher) --
+#
+# Every generated kernel form, run from raw tensor leaves at element
+# offset ``off``: its results (moves, MIN, MAX bitwise; the sums of one
+# kernel repeat bit for bit on one card).  Against the plain version: sums
+# 1e-5 (f32, another order), the rest bitwise.
+
+_G = 64
+
+
+def _launch_forms(ctx, off):
+    """name -> (counter, a function running that form once and returning
+    its results) for leaves at element ``off`` of their buffers."""
+    from vexcl_tpu_torch.expr.compile import evaluate, evaluate_multi
+    from vexcl_tpu_torch.expr.triton_emit import (assign, assign_indexed,
+                                                  assign_multi,
+                                                  assign_to_view)
+    from vexcl_tpu_torch.ops.triton_reduce import map_reduce, map_reduce_multi
+    from vexcl_tpu_torch.ops.triton_reduce_view import reduce_view_apply
+
+    dev, n, g = ctx.device, _G * _G, _G
+    h = np.random.default_rng(5).random(2 * n + 16).astype(np.float32) - 0.5
+    base = torch.from_numpy(h).to(dev)
+    a, b = base[off:off + n], base[n + 8 + off:2 * n + 8 + off]
+    perm = np.random.default_rng(6).permutation(n)
+    idx = torch.from_numpy(perm).to(dev)
+    o = vex.vector(n, context=ctx)
+
+    def to_view():
+        o[perm] = a * 2
+        return [o.storage.clone()]
+
+    return {
+        "assign": (assign, lambda: [evaluate(2 * a + vex.sin(b), n=n,
+                                             device=dev)]),
+        "indexed": (assign_indexed, lambda: [evaluate(
+            vex.permutation(idx)(a) * 2, n=n, device=dev)]),
+        "tiled": (assign_indexed, lambda: [evaluate(
+            vex.reshape(a, (g, g), (1, 0)), n=n, device=dev)]),
+        "multi": (assign_multi, lambda: list(evaluate_multi(
+            [a + b, a * b - 1], n=n, device=dev))),
+        "reduce": (map_reduce, lambda: [torch.tensor(
+            vex.Reductor(vex.SUM, context=ctx)(a * b))]),
+        "reduce_multi": (map_reduce_multi, lambda: [torch.tensor(
+            vex.Reductor(vex.MIN_MAX, context=ctx)(a))]),
+        "reduce_view": (reduce_view_apply, lambda: [evaluate(
+            vex.reduce_view("sum", vex.slicer((g, g))[:, :](a), 1),
+            device=dev)]),
+        "reduce_view_split": (reduce_view_apply, lambda: [evaluate(
+            vex.reduce_view("max", vex.slicer((512, 8))[:, :](a), 0),
+            device=dev)]),
+        "to_view": (assign_to_view, to_view),
+    }
+
+
+_FORMS = ("assign", "indexed", "tiled", "multi", "reduce", "reduce_multi",
+          "reduce_view", "reduce_view_split", "to_view")
+
+
+def _agree(k, p, exact):
+    k, p = k.cpu(), p.cpu()
+    if exact:
+        _bitwise(k, p)
+    else:
+        _close(k, p, 1e-5)
+
+
+@pytest.mark.parametrize("form", _FORMS)
+def test_direct_launch_same_bits_as_jit(gpu, cpu, form, monkeypatch):
+    """Each form: the direct launch of its record writes the same bits
+    as Triton's ``fn[grid]``; one launch a call; a leaf offset by one
+    element after warm calls on aligned ones gets its own record and the
+    plain version's result."""
+    from vexcl_tpu_torch._build import TritonLauncher
+
+    counter, run = _launch_forms(gpu, 0)[form]
+    run()                                 # the record: through fn[grid]
+    before = counter.launches
+    direct = run()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    with monkeypatch.context() as m:
+        m.setattr(TritonLauncher, "__call__", TritonLauncher.jit_launch)
+        jit = run()
+    torch.cuda.synchronize()
+    for d, j in zip(direct, jit):
+        _bitwise(d, j)
+    exact = form not in ("reduce", "reduce_view", "multi", "assign")
+    for off in (1, 0, 1):
+        got = _launch_forms(gpu, off)[form][1]()
+        want = _launch_forms(cpu, off)[form][1]()
+        for k, p in zip(got, want):
+            _agree(k, p, exact)
+
+
+def test_launch_classes_match_tritons_binder(gpu):
+    """For the assignment kernel, arguments that ``arg_classes`` puts in
+    one class are ones Triton's own binder specialises alike: pointers at
+    every offset, integer scalars of every width, f64 scalars as bits,
+    element counts of every class."""
+    from triton import knobs
+
+    from vexcl_tpu_torch._build import arg_classes
+    from vexcl_tpu_torch.cache import kernel_cache
+    from vexcl_tpu_torch.expr.node import as_expr
+    from vexcl_tpu_torch.expr.triton_emit import launch_args, launch_key
+
+    dev = gpu.device
+    buf = torch.zeros(4096 + 64, device=dev)
+    e, an, ty, lv = prepare(as_expr(buf[:4096]) * 2.5 + 3, 4096, dev)
+    k = torch.empty(4096, device=dev)
+    assign(e, an, ty, lv, k)
+    key, _ = launch_key([e], an, [torch.float32])
+    launcher = kernel_cache.get(key).launcher
+    binder = launcher.fn.device_caches[dev.index][4]
+    kw = dict(zip(launcher.constexprs, (1024,)), debug=knobs.runtime.debug,
+              instrumentation_mode=knobs.compilation.instrumentation_mode)
+    seen = {}
+    for off in range(9):
+        for n in (1, 2, 16, 17, (1 << 31) + 16):
+            for s, i in ((2.5, 3), (0.0, 1), (-1.0, (1 << 31) + 1),
+                         (1e300, (1 << 63) + 5)):
+                args = [k, *launch_args([buf[off:off + 4096], s, i]), n]
+                cls = arg_classes(args, launcher.specialized)
+                spec = str(binder(*args, **kw)[1])
+                assert seen.setdefault(cls, spec) == spec, (off, n, s, i)
+    assert len(seen) >= 8
+
+
+def test_launches_on_two_streams(gpu, cpu):
+    """The assignment, K1 and V2 forms enqueued on two streams in turn:
+    each launch reads its own stream; every result right."""
+    forms = _launch_forms(gpu, 0)
+    want = {f: _launch_forms(cpu, 0)[f][1]() for f in
+            ("assign", "multi", "reduce_view_split")}
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    got = []
+    torch.cuda.synchronize()
+    for _ in range(10):
+        for s in (s1, s2):
+            with torch.cuda.stream(s):
+                for f in want:
+                    got.append((f, forms[f][1]()))
+    torch.cuda.synchronize()
+    for f, res in got:
+        for k, p in zip(res, want[f]):
+            _agree(k, p, f == "reduce_view_split")
+
+
+@pytest.mark.parametrize("dt", [np.uint16, np.uint32, np.uint64])
+def test_unsigned_expressions_match_plain(gpu, dt):
+    """Unsigned arithmetic in the kernel's native types against the plain
+    forms' signed carriers: wrapping, order, division, shifts, bitwise."""
+    top = {np.uint16: 1 << 16, np.uint32: 1 << 32, np.uint64: 1 << 64}[dt]
+    n = 4099
+    a = (np.arange(n, dtype=np.uint64) * np.uint64(2654435761)).astype(dt)
+    a[:3] = [top // 2, top - 1, top // 2 + 5]
+    b = a[::-1].copy() | dt(1)
+    x, y = _vec(gpu, a), _vec(gpu, b)
+    exprs = [x + x, x - y, x * y, x // y, x % y, x >> 3, x << 2, ~x, -x,
+             x ^ y, vex.max(x, y), vex.min(x, y), vex.if_else(x > y, x, y),
+             x < y, abs(x), vex.fdim(x, y), vex.abs_diff(x, y),
+             vex.hadd(x, y), vex.rhadd(x, y)]
+    for expr in exprs:
+        e, an, ty, lv = prepare(expr, n, gpu.device)
+        code = ty[id(e)]
+        k = torch.empty(n, dtype=dtype_of_code(code),
+                        device=gpu.device)
+        p = torch.empty_like(k)
+        assign(e, an, ty, lv, k)
+        assign_plain(e, an, ty, lv, p)
+        _bitwise(k, p)
+    for kind in ("MIN", "MAX", "SUM"):
+        e, an, ty, lv = prepare(x ^ y, n, gpu.device)
+        kr = map_reduce(e, an, ty, lv, n, kind, gpu.device).cpu()
+        pr = map_reduce_plain(e, an, ty, lv, n, kind, gpu.device).cpu()
+        assert kr.item() == pr.item(), kind
+
+
+def test_boolean_expressions_match_plain(gpu):
+    n = 4099
+    bh = np.arange(n) % 3 == 0
+    b, t = _vec(gpu, bh), _vec(gpu, np.ones(n, dtype=bool))
+    for expr in (abs(b), b // t, b % t, b << b, b >> t, (b & t) | b,
+                 vex.if_else(b, t, b), vex.min(b, t)):
+        e, an, ty, lv = prepare(expr, n, gpu.device)
+        k = torch.empty(n, dtype=dtype_of_code(ty[id(e)]),
+                        device=gpu.device)
+        p = torch.empty_like(k)
+        assign(e, an, ty, lv, k)
+        assign_plain(e, an, ty, lv, p)
+        _bitwise(k, p)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64, torch.int64])
+def test_zero_d_leaves_on_the_card(gpu, dt):
+    """A 0-d CUDA tensor leaf is loaded once in the kernel and broadcast
+    (never read on the host); a 0-d CPU one crosses as a scalar of its
+    type; both against the plain version, and ``x[:] = t``."""
+    n = 4099
+    x = _vec(gpu, np.arange(n, dtype=np.float32))
+    for t in (torch.tensor(3, dtype=dt, device=gpu.device),
+              torch.tensor(3, dtype=dt)):
+        k, p = _both((x + t) * t, n, torch.promote_types(dt, torch.float32)
+                     if dt != torch.int64 else torch.float32, gpu.device)
+        _bitwise(k, p)
+        y = _vec(gpu, np.zeros(n, np.float32))
+        y[:] = t
+        assert torch.equal(y.storage.cpu(), torch.full((n,), 3.0))
+        assert vex.Reductor(vex.SUM)(vex.sin(2.0) + x) == pytest.approx(
+            float((torch.arange(n) + np.sin(2.0)).sum()), rel=1e-6)
+
+
+def test_spmv_into_its_target_on_the_card(gpu):
+    """``Ap[:] = A * p`` writes the DIA kernel's product into Ap (one
+    DIA launch, no copy kernel), the same bits as the product alone;
+    ``x[:] = A * x`` keeps its temporary and the right answer."""
+    from vexcl_tpu_torch.utils.poisson import poisson_7pt
+
+    ptr, col, val = poisson_7pt(16, dtype=np.float32)
+    n = 16 ** 3
+    A = vex.SpMat(n, n, ptr, col, val, context=gpu)
+    p = _vec(gpu, np.random.default_rng(2).random(n).astype(np.float32))
+    Ap = vex.vector(n, context=gpu)
+    want = A._matvec(p.storage)
+    before = dia_matvec.launches
+    Ap[:] = A * p
+    torch.cuda.synchronize()
+    assert dia_matvec.launches == before + 1
+    _bitwise(Ap.storage, want)
+    p[:] = A * p
+    _bitwise(p.storage, want)

@@ -13,6 +13,9 @@
   ``<build_dir>/triton_cache`` unless the caller has set it.
 * User CUDA C++ (``backend.cuda_kernel``): ``nvcc -cubin`` builds each
   source into ``<build_dir>/user/``, keyed by a hash of the source.
+* ``TritonLauncher`` launches a generated Triton kernel: through
+  ``fn[grid]`` the first time for each argument class, directly through
+  the compiled kernel's launcher after that.
 
 ``triton`` and ``nvcc`` exist only where there is a card: nothing here
 runs at import time.  A failed build raises; nothing falls back.
@@ -29,11 +32,13 @@ import subprocess
 import threading
 from typing import Dict, List, Sequence, Tuple
 
+import torch
+
 from .config import config
 
 __all__ = ["cuda_library", "build_cuda_libraries", "cuda_cubin",
-           "triton_module", "import_triton", "NVCC_FLAGS", "CUBIN_FLAGS",
-           "LIBRARIES"]
+           "triton_module", "import_triton", "TritonLauncher",
+           "arg_classes", "Pointer", "NVCC_FLAGS", "CUBIN_FLAGS", "LIBRARIES"]
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 
@@ -187,3 +192,160 @@ def triton_module(src: str):
         spec.loader.exec_module(mod)
         _modules[name] = mod
         return mod
+
+
+class Pointer:
+    """A tensor's memory passed to a Triton kernel as a pointer to
+    ``dtype`` (the tensor's own by default): a 0-d leaf crosses as this,
+    since Triton takes a tensor of one element for a Python number (it
+    converts), and so does a buffer the kernel reads through another
+    type.  It has a ``data_ptr`` and a ``dtype`` and no number
+    protocol."""
+
+    __slots__ = ("dtype", "_ptr")
+
+    def __init__(self, t: torch.Tensor, dtype: torch.dtype = None):
+        self.dtype = t.dtype if dtype is None else dtype
+        self._ptr = t.data_ptr()
+
+    def data_ptr(self) -> int:
+        return self._ptr
+
+
+#: what a launcher passes as a pointer
+_POINTERS = (torch.Tensor, Pointer)
+
+
+def arg_classes(args: Sequence, specialized: Sequence[bool]) -> tuple:
+    """The specialisation classes of the non-constexpr arguments ``args``
+    of a Triton kernel.
+
+    Triton compiles a kernel for the class of each argument it is given
+    (``JITFunction.run``'s binder): a tensor's dtype and whether its data
+    pointer is 16-byte aligned; an integer's width (i32 where it fits,
+    u64 from 2^63, i64 else) and, where the parameter is specialised
+    (``specialized``: not in ``do_not_specialize``), whether it is 1 and
+    whether it is a multiple of 16; a float is f32.  A class here is at
+    least that fine, so one record never serves two compiled kernels (a
+    card test holds it against the installed Triton's binder)."""
+    cls = []
+    for a, sp in zip(args, specialized):
+        if isinstance(a, _POINTERS):
+            cls.append((a.dtype, a.data_ptr() & 15 == 0))
+        elif isinstance(a, float):
+            cls.append(0.0)
+        elif a is True or a is False:
+            cls.append(a)           # Triton's u1
+        else:
+            w = 0 if -0x80000000 <= a <= 0x7FFFFFFF else (
+                2 if a > 0x7FFFFFFFFFFFFFFF else 1)
+            cls.append((w, a == 1, a & 15 == 0) if sp else w)
+    return tuple(cls)
+
+
+def _record(kernel) -> tuple:
+    """(the launch function, the arguments between the stream and the
+    kernel's own) of a ``CompiledKernel``: its launcher's C entry point
+    where the kernel needs no global or profile scratch (the launcher's
+    Python ``__call__`` only allocates those: ~1.4 us a call on the H100's
+    host), else the launcher itself; no launch hooks either way."""
+    run = kernel.run
+    if not run.global_scratch_size and not run.profile_scratch_size:
+        return run.launch, (kernel.function, run.launch_cooperative_grid,
+                            run.launch_pdl, None, None,
+                            kernel.packed_metadata, None, None, None)
+    return run, (kernel.function, kernel.packed_metadata, None, None, None)
+
+
+class TritonLauncher:
+    """Launches one generated ``@triton.jit`` kernel with as little host
+    work as the installed Triton allows.
+
+    ``fn[grid](*args)`` (``JITFunction.run``) binds the arguments,
+    computes their specialisation, builds its cache key and looks the
+    compiled kernel up on every call, about 14-17 µs of host a call of
+    the ~20 µs it takes on the H100's host (PERF.md §5).  Here a launch
+    record per (device, constexpr values, argument classes) holds the
+    ``CompiledKernel`` that the first ``fn[grid]`` call of the class
+    returns (that call compiles and launches as Triton always does).
+    Every later call of the class calls the compiled kernel's launcher
+    (``CompiledKernel.run``, which ``CompiledKernel.__getitem__`` calls, or
+    its C entry point: ``_record``) with the grid, the current stream's
+    raw handle, the kernel handle, its packed metadata and the arguments,
+    pointers as integers, no launch hooks.  Nothing falls back: a launch
+    that raises, raises."""
+
+    def __init__(self, fn, num_warps: int):
+        self.fn = fn
+        self.num_warps = num_warps
+        #: (device index, constexpr values, argument classes) -> the
+        #: compiled kernel's ``_record``
+        self.records: Dict[tuple, tuple] = {}
+        params = fn.params
+        self.specialized = tuple(not p.do_not_specialize for p in params
+                                 if not p.is_constexpr)
+        self.constexprs = tuple(p.name for p in params if p.is_constexpr)
+        #: the scalar and trailing integer arguments' values -> their
+        #: classes
+        self._scalar_classes: Dict[tuple, tuple] = {}
+
+    def __call__(self, grid: Tuple[int, ...], args: Sequence,
+                 ints: Tuple[int, ...], consts: tuple,
+                 device: torch.device) -> None:
+        """Launch over ``grid`` (one to three counts) with the
+        non-constexpr arguments ``args`` followed by ``ints`` (integers
+        such as counts) and the constexpr values ``consts`` (in parameter
+        order) on ``device``, on its current stream.  A pointer's class
+        (``arg_classes``) is taken on every call, and the pointer goes to
+        the launcher as an integer, which it takes as it is; the scalars'
+        and ``ints``' classes are kept per tuple of their values (a
+        recorded kernel's constants, a schedule's counts repeat from call
+        to call)."""
+        idx = device.index
+        vals, ptrs, scal = [], [], []
+        for a in args:
+            if isinstance(a, _POINTERS):
+                p = a.data_ptr()
+                vals.append(p)
+                ptrs.append((a.dtype, p & 15 == 0))
+            else:
+                vals.append(a)
+                scal.append(a)
+        scal = (*scal, *ints)
+        cls = self._scalar_classes.get(scal)
+        if cls is None:
+            if len(self._scalar_classes) >= 256:
+                self._scalar_classes.clear()
+            spec = [sp for a, sp in zip(args, self.specialized)
+                    if not isinstance(a, _POINTERS)]
+            cls = arg_classes(scal, spec + list(
+                self.specialized[len(args):]))
+            self._scalar_classes[scal] = cls
+        key = (idx, consts, tuple(ptrs), cls)
+        rec = self.records.get(key)
+        if rec is None:
+            self.records[key] = _record(self.jit_launch(grid, args, ints,
+                                                        consts, device))
+            return
+        launch, mid = rec
+        g = tuple(grid) + (1, 1)
+        stream = torch._C._cuda_getCurrentRawStream(idx)
+        # the raw calls, as Triton's launcher reads them: ~0.1 us where
+        # torch.cuda.current_device() and current_stream() cost several
+        if torch._C._cuda_getDevice() == idx:
+            launch(g[0], g[1], g[2], stream, *mid, *vals, *ints, *consts)
+        else:
+            with torch.cuda.device(device):
+                launch(g[0], g[1], g[2], stream, *mid, *vals, *ints,
+                       *consts)
+
+    def jit_launch(self, grid: Tuple[int, ...], args: Sequence,
+                   ints: Tuple[int, ...], consts: tuple,
+                   device: torch.device):
+        """The same launch through ``fn[grid]`` (Triton's own path);
+        returns the ``CompiledKernel``."""
+        kw = dict(zip(self.constexprs, consts), num_warps=self.num_warps)
+        if torch._C._cuda_getDevice() == device.index:
+            return self.fn[tuple(grid)](*args, *ints, **kw)
+        with torch.cuda.device(device):
+            return self.fn[tuple(grid)](*args, *ints, **kw)

@@ -30,6 +30,11 @@ class ObjectCache:
             return self._store.get(key, default)
 
     def get_or_create(self, key: Hashable, factory: Callable[[], Any]) -> Any:
+        # a hit needs no lock: one dict read is atomic in CPython, and a
+        # stored object is never replaced
+        hit = self._store.get(key)
+        if hit is not None:
+            return hit
         with self._lock:
             if key in self._store:
                 return self._store[key]

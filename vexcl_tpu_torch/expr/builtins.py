@@ -7,7 +7,8 @@ kernel form)``:
 * the type rule follows the jnp function the JAX package maps the name
   to: ``"inexact"`` (promote, then make floating: ``sin`` of i32 is f32),
   ``"join"`` (promote only: ``fmin``, ``floor``, ``fabs`` keep an integer
-  type), ``"bool"`` (classification);
+  type), ``"numeric"`` (``fmod``: booleans computed as i32), ``"bool"``
+  (classification);
 * the PyTorch form gets its operands already cast to the compute type
   and serves CPU tensors;
 * the kernel form is the spelling in the generated Triton source, with
@@ -21,7 +22,10 @@ A builtin whose kernel form is ``None`` computes on CPU tensors and raises
 ``NotImplementedError`` (with its name) on CUDA tensors.  Entries of the
 JAX catalog that are not in this table are listed in ROADMAP.md.
 Applied to plain numbers or tensors a builtin computes eagerly (the
-VEX_DUAL_FUNCTOR behaviour, function.hpp:243); applied to a multivector
+VEX_DUAL_FUNCTOR behaviour, function.hpp:243): on tensors it returns a
+tensor; on plain Python numbers a Python number, computed in f64 or i64
+(``jnp`` keeps such a result weakly typed, so ``sin(2.0) + x`` has x's
+type in both packages); applied to a multivector
 or a multivector expression, it applies componentwise.
 """
 
@@ -57,10 +61,23 @@ class builtin:
         if any(isinstance(a, Expr) or hasattr(a, "_as_terminal")
                for a in args):
             return FuncCall(self.name, self.entry, [as_expr(a) for a in args])
+        if all(type(a) in _WEAK for a in args):
+            # plain Python numbers: jnp computes them weakly typed (f64 in
+            # 64-bit mode) and the result stays weak, so it comes back as a
+            # Python number, which an expression takes as a weak scalar
+            inexact = self.entry[0] == "inexact"
+            vals = [torch.tensor(a, dtype=torch.float64 if inexact and type(
+                a) in (bool, int) else _WEAK[type(a)]) for a in args]
+            return self.entry[1](*vals).item()
         return self.entry[1](*[torch.as_tensor(a) for a in args])
 
     def __repr__(self):
         return f"<device function {self.name}>"
+
+
+#: the types of plain Python numbers and the widest dtype of their kind
+_WEAK = {bool: torch.bool, int: torch.int64, float: torch.float64,
+         complex: torch.complex128}
 
 
 def _ld(fn: str, nargs: int = 1) -> str:
@@ -140,7 +157,7 @@ _CATALOG = {
     "fabs": ("join", torch.abs, "tl.abs({0})"),
     "abs": ("join", torch.abs, "tl.abs({0})"),
     "sign": ("join", torch.sign, None),
-    "fmod": ("join", torch.fmod, "fmod"),
+    "fmod": ("numeric", torch.fmod, "fmod"),
     "remainder": ("inexact", lambda x, y: x - torch.round(x / y) * y, None),
     "copysign": ("inexact", torch.copysign, _ld("copysign", 2)),
     "nextafter": ("inexact", torch.nextafter, None),

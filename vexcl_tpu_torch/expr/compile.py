@@ -4,13 +4,16 @@ Port of ``vexcl_tpu/expr/compile.py`` (vexcl/operations.hpp
 ``assign_expression`` :1818-1909, ``assign_multiexpression``
 :2081-2185).  One evaluation:
 
-1. ``hoist``: nodes that read other indices than their own (the SpMV,
-   the stencils) run first, each into a temporary, and become array
-   leaves, so ``x[:] = A * x`` never overwrites an element another
-   thread still reads; the ``"hw"`` generator runs its Philox kernel
-   here and comes back as an elementwise node over the words it wrote;
-2. ``analyze`` gives the signature and the leaves, ``infer_types`` the
-   type of every node;
+1. ``analyze`` gives the signature and the leaves; the type of every
+   node (``infer_types``) is taken where something reads it;
+2. where that walk met a node that reads other indices than its own
+   (the SpMV, the stencils), ``hoist`` runs each such node first, into a
+   temporary, as an array leaf, so ``x[:] = A * x`` never overwrites an
+   element another thread still reads (the ``"hw"`` generator runs its
+   Philox kernel here and comes back as an elementwise node over the
+   words it wrote), and the hoisted trees are analysed again.  A tree
+   that is one such node, assigned to a target of its type and length
+   that it does not read, is materialized straight into the target;
 3. ``triton_emit.assign`` launches the generated kernel (CUDA) or the
    plain PyTorch form (CPU), writing the destination in place.
 
@@ -49,9 +52,9 @@ import torch
 
 from ..config import config
 from ..types import dtype_of, dtype_of_code
-from .node import (Analysis, ArrayTerminal, BinOp, CastExpr, Expr, UnOp,
-                   VectorTerminal, analyze, as_expr, expression_properties,
-                   infer_types)
+from .node import (Analysis, ArrayTerminal, BinOp, CastExpr, Expr,
+                   LazyTypes, UnOp, VectorTerminal, analyze, as_expr,
+                   expression_properties)
 from .triton_emit import assign, assign_multi
 from .triton_emit import assign_to_view as assign_to_view_kernel
 
@@ -161,6 +164,13 @@ def _check_leaves(exprs: Sequence[Expr], analysis: Analysis,
         analysis.index_bits = 32 if top < _INDEX32 else 64
     leaves = []
     for slot, leaf in enumerate(analysis.leaves):
+        if isinstance(leaf, torch.Tensor) and leaf.ndim == 0:
+            leaf = _scalar_leaf(leaf, device)
+            # the kernel's source and key follow what crosses: a CPU
+            # tensor's value is a scalar parameter of the kernel
+            analysis.leaves[slot] = leaf
+            leaves.append(leaf)
+            continue
         if isinstance(leaf, torch.Tensor):
             if leaf.device != device:
                 if leaf.device.type != "cpu":
@@ -176,6 +186,22 @@ def _check_leaves(exprs: Sequence[Expr], analysis: Analysis,
             leaf = leaf.contiguous()
         leaves.append(leaf)
     return leaves
+
+
+def _scalar_leaf(leaf: torch.Tensor, device: torch.device):
+    """A 0-d tensor leaf, a scalar of its own (strong) type: kept as it is
+    on the evaluation's device (the kernel loads it once and broadcasts
+    it, so a CUDA value is never read on the host); a CPU one in a CUDA
+    evaluation crosses as a numpy scalar of its type, or as a copy where
+    numpy has no such type (bf16)."""
+    if leaf.device == device:
+        return leaf
+    if leaf.device.type != "cpu":
+        raise ValueError(f"expression leaf on {leaf.device}, evaluation on "
+                         f"{device}")
+    if leaf.dtype == torch.bfloat16:
+        return leaf.to(device)
+    return leaf.numpy()[()]
 
 
 def fit_index_bits(analysis: Analysis, size: int) -> None:
@@ -206,12 +232,18 @@ def prepare_multi(exprs: Sequence[Any], n: Optional[int],
                   device: torch.device):
     """Hoist, analyse and type several expressions together: (exprs,
     analysis, types, leaves on ``device``); a node they share is hoisted
-    and analysed once."""
-    memo: Dict[int, Expr] = {}
-    exprs = [hoist(as_expr(e), device, n, memo) for e in exprs]
+    and analysed once.  One walk analyses the trees; only where it meets a
+    node that runs its own kernel first are they hoisted and walked
+    again.  The types are inferred at their first lookup (``LazyTypes``):
+    a launch of a kernel built already reads none."""
+    exprs = [as_expr(e) for e in exprs]
     analysis = analyze(*exprs)
-    types = infer_types(*exprs)
-    return exprs, analysis, types, _check_leaves(exprs, analysis, n, device)
+    if analysis.hoist:
+        memo: Dict[int, Expr] = {}
+        exprs = [hoist(e, device, n, memo) for e in exprs]
+        analysis = analyze(*exprs)
+    return (exprs, analysis, LazyTypes(*exprs),
+            _check_leaves(exprs, analysis, n, device))
 
 
 def prepare(expr: Any, n: Optional[int], device: torch.device):
@@ -230,6 +262,17 @@ def _device_of(expr: Expr) -> torch.device:
     return current_context().device
 
 
+def _writes_into(expr: Expr, n: int, out: torch.Tensor) -> bool:
+    """True when ``expr`` is one node that runs its own kernel and can
+    write its value straight into ``out`` (``Ap[:] = A * p``): out has
+    its type and length, and none of its inputs is out's memory
+    (``x[:] = A * x`` goes through a temporary)."""
+    direct = expr.direct_dtype
+    return (direct is not None and out.shape[0] == n
+            and direct() == out.dtype
+            and not _storages(analyze(expr).leaves) & _storages([out]))
+
+
 def evaluate(expr: Any, n: Optional[int] = None, op: str = "=",
              out: Optional[torch.Tensor] = None, out_dtype=None,
              device: Optional[torch.device] = None):
@@ -245,6 +288,9 @@ def evaluate(expr: Any, n: Optional[int] = None, op: str = "=",
     if out is not None:
         n = out.shape[0] if n is None else n
         device = out.device
+        if combine is None and _writes_into(expr, n, out):
+            expr.materialize(device, n, out=out)
+            return out
     else:
         if n is None:
             n = expr.size_hint()

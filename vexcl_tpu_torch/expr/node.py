@@ -40,7 +40,8 @@ __all__ = [
     "ArrayTerminal", "ScalarTerminal", "ConstantTerminal", "ElementIndex",
     "TaggedTerminal", "Temporary", "CastExpr", "element_index", "tag",
     "make_temp", "constant", "cast", "if_else", "as_expr", "EmitEnv",
-    "Analysis", "analyze", "infer_types", "expression_properties",
+    "Analysis", "analyze", "infer_types", "LazyTypes",
+    "expression_properties",
 ]
 
 
@@ -64,21 +65,36 @@ class EmitEnv:
     def cast(self, node: "Expr", code: str) -> torch.Tensor:
         return node.emit_cached(self).to(dtype_of_code(code))
 
+    def leaf(self, node: "Expr") -> torch.Tensor:
+        """A leaf's value as a tensor: a scalar payload (a Python number,
+        or a 0-d CPU tensor that crossed into a CUDA evaluation as a numpy
+        scalar) becomes a 0-d tensor of the leaf's type."""
+        v = self.leaves[id(node)]
+        if isinstance(v, torch.Tensor):
+            return v
+        if isinstance(v, np.generic):
+            return torch.from_numpy(np.asarray(v)).to(self.device)
+        return torch.tensor(v, dtype=dtype_of_code(self.types[id(node)]),
+                            device=self.device)
+
 
 class Analysis:
     """Result of one structural traversal: cache signature + flat leaves."""
 
     __slots__ = ("sig", "leaves", "slot_of", "elementwise_sizes", "indexed",
-                 "index_bits", "gathered")
+                 "index_bits", "gathered", "hoist")
 
     def __init__(self, sig: str, leaves: List[Any], slot_of: Dict[int, int],
-                 elementwise_sizes: List[int] = (), indexed: bool = False):
+                 elementwise_sizes: List[int] = (), indexed: bool = False,
+                 hoist: bool = False):
         self.sig = sig
         self.leaves = leaves
         self.slot_of = slot_of
         self.elementwise_sizes = elementwise_sizes
         #: True when a view reads a subtree at computed indices (V1)
         self.indexed = indexed
+        #: True when a node runs its own kernel first (``compile.hoist``)
+        self.hoist = hoist
         #: width of the kernel's index arithmetic, 32 or 64 bits, and the
         #: slots read beneath a view: set by ``compile.prepare_multi`` from
         #: the sizes the views reach
@@ -100,25 +116,27 @@ class _SigCtx:
         self.seen_transparent: set = set()
         # a view node was walked: the kernel computes indices
         self.indexed: bool = False
+        # a node that runs its own kernel first was walked
+        self.hoist: bool = False
 
     def slot(self, node: "Expr") -> int:
         key = node.leaf_key()
-        if key in self._key_slot:
-            s = self._key_slot[key]
-        else:
-            s = len(self.leaves)
-            self._key_slot[key] = s
+        s = self._key_slot.get(key)
+        if s is None:
+            s = self._key_slot[key] = len(self.leaves)
             self.leaves.append(node.payload())
         self.slot_of[id(node)] = s
         return s
 
 
 def analyze(*exprs: "Expr") -> Analysis:
-    """One deterministic preorder traversal over (possibly several) DAGs."""
+    """One deterministic preorder traversal over (possibly several) DAGs;
+    ``Analysis.hoist`` tells whether it met a node that runs its own
+    kernel first (the trees are then to be hoisted and analysed again)."""
     ctx = _SigCtx()
     sigs = [e.sig_cached(ctx) for e in exprs]
     return Analysis(";".join(sigs), ctx.leaves, ctx.slot_of,
-                    ctx.elementwise_sizes, ctx.indexed)
+                    ctx.elementwise_sizes, ctx.indexed, ctx.hoist)
 
 
 def infer_types(*exprs: "Expr") -> Dict[int, str]:
@@ -127,6 +145,24 @@ def infer_types(*exprs: "Expr") -> Dict[int, str]:
     for e in exprs:
         e.infer(types)
     return types
+
+
+class LazyTypes(dict):
+    """``infer_types`` of some trees, taken at the first lookup of a
+    missing node: a launch whose kernel is built already reads no type,
+    so the types cost nothing on that path."""
+
+    def __init__(self, *exprs: "Expr"):
+        super().__init__()
+        self._exprs = exprs
+
+    def __missing__(self, key: int) -> str:
+        exprs, self._exprs = self._exprs, ()
+        for e in exprs:
+            e.infer(self)
+        if key in self:
+            return dict.__getitem__(self, key)
+        raise KeyError(key)
 
 
 class Expr:
@@ -141,20 +177,26 @@ class Expr:
     #: Evaluation computes them first into a temporary (``hoist``), so the
     #: elementwise kernel never reads an index it does not write.
     _elementwise = True
+    #: a method on nodes that can write their value straight into a
+    #: target (``compile.evaluate``): the value's type, or None
+    direct_dtype = None
 
     # -- structural signature ---------------------------------------------
     def extra_sig(self) -> str:
         return ""
 
     def sig_cached(self, ctx: _SigCtx) -> str:
-        ref = ctx.node_ref.get(id(self))
+        nid = id(self)
+        ref = ctx.node_ref.get(nid)
         if ref is not None:
-            if ctx.transparent and id(self) not in ctx.seen_transparent:
+            if ctx.transparent and nid not in ctx.seen_transparent:
                 self._collect_sizes(ctx)
             return f"@{ref}"
-        ctx.node_ref[id(self)] = len(ctx.node_ref)
+        ctx.node_ref[nid] = len(ctx.node_ref)
         if ctx.transparent:
-            ctx.seen_transparent.add(id(self))
+            ctx.seen_transparent.add(nid)
+        if not self._elementwise:
+            ctx.hoist = True
         return self._sig(ctx)
 
     def _collect_sizes(self, ctx: _SigCtx) -> None:
@@ -167,10 +209,10 @@ class Expr:
 
     def _sig(self, ctx: _SigCtx) -> str:
         if self._size_transparent or not ctx.transparent:
-            inner = ",".join(c.sig_cached(ctx) for c in self.children)
+            inner = ",".join([c.sig_cached(ctx) for c in self.children])
         else:
             ctx.transparent = False
-            inner = ",".join(c.sig_cached(ctx) for c in self.children)
+            inner = ",".join([c.sig_cached(ctx) for c in self.children])
             ctx.transparent = True
         ex = self.extra_sig()
         return f"{self._opname}{'[' + ex + ']' if ex else ''}({inner})"
@@ -184,10 +226,11 @@ class Expr:
 
     # -- types ----------------------------------------------------------------
     def infer(self, types: Dict[int, str]) -> str:
-        code = types.get(id(self))
+        nid = id(self)
+        code = types.get(nid)
         if code is None:
             code = self._infer([c.infer(types) for c in self.children])
-            types[id(self)] = code
+            types[nid] = code
         return code
 
     def _infer(self, child_codes: List[str]) -> str:
@@ -350,6 +393,8 @@ class Expr:
 # ---------------------------------------------------------------------------
 # Operators.  Each entry: (result-type rule, PyTorch form, kernel form).
 # Result types follow jnp: "join" = promoted type of the operands,
+# "numeric" = the same, with booleans computed as i32 (jnp's
+# ``promote_args_numeric``: ``b // b``, ``b % b``, ``b << b`` are i32),
 # "inexact" = promoted and then made floating (i32 / i32 -> f32),
 # "bool" = comparisons.  The PyTorch and kernel forms receive operands
 # already cast to the compute type (the promoted operand type).
@@ -384,14 +429,14 @@ _BINOPS: Dict[str, Tuple[str, Any, Optional[str]]] = {
     "sub": ("join", torch.sub, "({0} - {1})"),
     "mul": ("join", torch.mul, "({0} * {1})"),
     "div": ("inexact", torch.div, "libdevice.div_rn({0}, {1})"),
-    "floordiv": ("join", _floordiv, "floordiv"),
-    "mod": ("join", _mod, "mod"),
-    "pow": ("join", torch.pow, "pow"),
+    "floordiv": ("numeric", _floordiv, "floordiv"),
+    "mod": ("numeric", _mod, "mod"),
+    "pow": ("numeric", torch.pow, "pow"),
     "bitand": ("join", torch.bitwise_and, "({0} & {1})"),
     "bitor": ("join", torch.bitwise_or, "({0} | {1})"),
     "bitxor": ("join", torch.bitwise_xor, "({0} ^ {1})"),
-    "shl": ("join", torch.bitwise_left_shift, "({0} << {1})"),
-    "shr": ("join", torch.bitwise_right_shift, "({0} >> {1})"),
+    "shl": ("numeric", torch.bitwise_left_shift, "({0} << {1})"),
+    "shr": ("numeric", torch.bitwise_right_shift, "({0} >> {1})"),
     "lt": ("bool", torch.lt, "({0} < {1})"),
     "le": ("bool", torch.le, "({0} <= {1})"),
     "gt": ("bool", torch.gt, "({0} > {1})"),
@@ -399,7 +444,7 @@ _BINOPS: Dict[str, Tuple[str, Any, Optional[str]]] = {
     "eq": ("bool", torch.eq, "({0} == {1})"),
     "ne": ("bool", torch.ne, "({0} != {1})"),
     "atan2": ("inexact", torch.atan2, "libdevice.atan2({0}, {1})"),
-    "fmod": ("join", torch.fmod, "fmod"),
+    "fmod": ("numeric", torch.fmod, "fmod"),
     "min": ("join", torch.minimum, "min"),
     "max": ("join", torch.maximum, "max"),
     "hypot": ("inexact", torch.hypot, "libdevice.hypot({0}, {1})"),
@@ -430,7 +475,107 @@ def _result_code(rule: str, codes: List[str]) -> Tuple[str, str]:
         return c, c
     if rule == "bool":
         return c, "b1"
+    if rule == "numeric" and c == "b1":
+        return "i32", "i32"
     return c, c
+
+
+# ---------------------------------------------------------------------------
+# Unsigned arithmetic in the plain forms.  PyTorch's CPU kernels lack most
+# operations on u16, u32 and u64 (add, compares, min/max, shifts, ...), so
+# the plain forms compute them in a signed carrier and wrap the result
+# back, as ``ops/random.py`` carries u32 words in int64: u16 in i32 and
+# u32 in i64, where every operation the catalog has is right on the
+# carried value once wrapped; u64 in i64 two's complement, where add,
+# sub, mul, neg, the bitwise operations and ``<<`` are right bit for bit
+# and the rest needs unsigned semantics by hand: order by the sign bit
+# flipped, an unsigned divide, a logical ``>>``.
+# ---------------------------------------------------------------------------
+
+_CARRIER = {"u16": (torch.int32, 0xFFFF), "u32": (torch.int64, 0xFFFFFFFF),
+            "u64": (torch.int64, None)}
+_I64_MIN = -(1 << 63)
+#: operations that compare (or select by comparing) their operands
+_ORDERED = {"lt", "le", "gt", "ge", "isless", "islessequal", "isgreater",
+            "isgreaterequal", "min", "max", "fmin", "fmax", "clamp"}
+
+
+def _lshr64(a: torch.Tensor, s) -> torch.Tensor:
+    """Logical right shift of i64 words by s (0-63, or a tensor of them)."""
+    s = torch.as_tensor(s, dtype=torch.int64, device=a.device)
+    # shift by one logically, then arithmetically by the rest: no sign
+    # bit is left to extend
+    once = torch.bitwise_right_shift(a, 1) & ((1 << 63) - 1)
+    return torch.where(s == 0, a, torch.bitwise_right_shift(
+        once, torch.clamp(s - 1, min=0)))
+
+
+def _ult64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a ^ _I64_MIN) < (b ^ _I64_MIN)
+
+
+def _udivmod64(a: torch.Tensor, b: torch.Tensor):
+    """Unsigned quotient and remainder of u64 words carried in i64."""
+    a, b = torch.broadcast_tensors(a, b)
+    big = b < 0                       # a divisor of 2^63 or more
+    bp = torch.where(big | (b == 0), 1, b)
+    # (a >> 1) // b fits a signed divide; the quotient is that doubled, or
+    # doubled plus one, as the remainder left says
+    q = torch.div(_lshr64(a, 1), bp, rounding_mode="trunc") << 1
+    r = a - q * bp
+    more = ~_ult64(r, bp)
+    q = torch.where(more, q + 1, q)
+    r = torch.where(more, r - bp, r)
+    ge = ~_ult64(a, b)
+    q = torch.where(big, ge.to(torch.int64), q)
+    r = torch.where(big, torch.where(ge, a - b, a), r)
+    return q, r
+
+
+def _u64_form(op: str, fn, args: List[torch.Tensor]) -> torch.Tensor:
+    """``fn`` of u64 words carried in i64, with unsigned semantics."""
+    if op in _ORDERED:
+        out = fn(*[a ^ _I64_MIN for a in args])
+        return out if out.dtype == torch.bool else out ^ _I64_MIN
+    if op in ("floordiv", "mod", "fmod"):
+        q, r = _udivmod64(*args)
+        return q if op == "floordiv" else r
+    if op == "shr":
+        return _lshr64(*args)
+    if op in ("abs", "fabs"):
+        return args[0]
+    if op == "sign":
+        return (args[0] != 0).to(torch.int64)
+    if op in ("fdim", "abs_diff"):
+        # jnp: max(a - b, 0) and |a - b| of the wrapped difference, which
+        # is never below 0
+        return args[0] - args[1]
+    if op in ("hadd", "rhadd"):
+        a, b = args
+        half = _lshr64(a ^ b, 1)
+        return (a & b) + half if op == "hadd" else (a | b) - half
+    return fn(*args)
+
+
+def _carried(op: str, fn, args: List[torch.Tensor], cc: str,
+             out: torch.dtype, cond=None) -> torch.Tensor:
+    """``fn`` over operands of the unsigned compute type ``cc`` (already
+    cast to it), computed in its carrier and wrapped back to ``out``;
+    ``where`` takes its condition as ``cond``."""
+    carrier, mask = _CARRIER[cc]
+    if mask is None:
+        vals = [a.view(torch.int64) for a in args]
+        r = (torch.where(cond, *vals) if cond is not None
+             else _u64_form(op, fn, vals))
+        return r if r.dtype == torch.bool else r.view(torch.uint64).to(out)
+    vals = [a.to(carrier) for a in args]
+    if cond is not None:
+        r = torch.where(cond, *vals)
+    elif op in ("fdim", "abs_diff"):
+        r = vals[0] - vals[1]
+    else:
+        r = fn(*vals)
+    return r.to(out) if r.dtype == torch.bool else (r & mask).to(out)
 
 
 class _Op(Expr):
@@ -451,10 +596,17 @@ class _Op(Expr):
     def emit(self, env: EmitEnv):
         cc = self._compute_code(env.types)
         args = [env.cast(c, cc) for c in self.children]
-        return self._entry()[1](*args).to(dtype_of_code(env.types[id(self)]))
+        out = dtype_of_code(env.types[id(self)])
+        if cc in _CARRIER:
+            return _carried(self.op, self._entry()[1], args, cc, out)
+        if cc == "b1" and self.op in ("abs", "fabs"):
+            return args[0]                  # jnp.abs of booleans
+        return self._entry()[1](*args).to(out)
 
     def emit_src(self, em) -> str:
         cc = self._compute_code(em.types)
+        if cc == "b1" and self.op in ("abs", "fabs"):
+            return em.value(self.children[0])     # jnp.abs of booleans
         form = self._entry()[2]
         if form is None:
             raise NotImplementedError(
@@ -532,8 +684,11 @@ class Where(Expr):
     def emit(self, env: EmitEnv):
         c, a, b = self.children
         code = env.types[id(self)]
-        return torch.where(env.cast(c, "b1"), env.cast(a, code),
-                           env.cast(b, code))
+        cond, av, bv = env.cast(c, "b1"), env.cast(a, code), env.cast(b, code)
+        if code in _CARRIER:       # no unsigned where on the CPU
+            return _carried("where", torch.where, [av, bv], code,
+                            av.dtype, cond)
+        return torch.where(cond, av, bv)
 
     def emit_src(self, em) -> str:
         c, a, b = self.children
@@ -574,10 +729,11 @@ class CastExpr(Expr):
 
 
 class _ArrayLeaf(Expr):
-    """Shared body of terminals whose payload is a 1-D tensor."""
+    """Shared body of terminals whose payload is a 1-D tensor, or a 0-d
+    one: a scalar of the tensor's (strong) type, broadcast."""
 
     def emit(self, env: EmitEnv):
-        return env.leaves[id(self)]
+        return env.leaf(self)
 
     def emit_src(self, em) -> str:
         return em.load(self)
@@ -668,9 +824,7 @@ class ScalarTerminal(Expr):
         return code
 
     def emit(self, env: EmitEnv):
-        v = env.leaves[id(self)]
-        return torch.tensor(v, dtype=dtype_of_code(env.types[id(self)]),
-                            device=env.device)
+        return env.leaf(self)
 
     def emit_src(self, em) -> str:
         return em.scalar(self)
@@ -769,11 +923,7 @@ class TaggedTerminal(Expr):
         return code
 
     def emit(self, env: EmitEnv):
-        v = env.leaves[id(self)]
-        if isinstance(self.inner, ScalarTerminal):
-            return torch.tensor(v, dtype=dtype_of_code(env.types[id(self)]),
-                                device=env.device)
-        return v
+        return env.leaf(self)
 
     def emit_src(self, em) -> str:
         if isinstance(self.inner, ScalarTerminal):

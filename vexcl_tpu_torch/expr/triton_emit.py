@@ -70,6 +70,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from .._build import Pointer
 from ..cache import kernel_cache
 from ..config import config
 from ..types import code_of, dtype_of_code, scalar_code
@@ -79,7 +80,8 @@ __all__ = ["Emitter", "assign_source", "assign_multi_source", "assign",
            "assign_plain", "assign_multi", "assign_multi_plain",
            "assign_indexed", "assign_to_view", "assign_to_view_plain",
            "assign_to_view_source", "plain_value", "plain_values",
-           "kernel_key", "launch_args", "assign_tiled_source", "tiled_view",
+           "kernel_key", "launch_key", "leaf_codes", "launch_args",
+           "assign_tiled_source", "tiled_view",
            "ASSIGN_BLOCK", "ASSIGN_TILE", "BASE", "TARGET_MODES"]
 
 ASSIGN_BLOCK = 1024
@@ -133,20 +135,31 @@ def _scalar_kind(value) -> str:
     return "int"
 
 
+_F64 = struct.Struct("<d")
+_I64 = struct.Struct("<q")
+
+
 def launch_args(leaves: Sequence) -> List:
-    """Kernel arguments for the leaves, in slot order."""
+    """Kernel arguments for the leaves, in slot order: a tensor as it is
+    (a 0-d one as a ``_build.Pointer``: Triton would take it for a
+    number), a scalar as ``_scalar_kind`` says."""
     out = []
     for leaf in leaves:
-        if isinstance(leaf, torch.Tensor):
+        t = type(leaf)
+        if t is float:                  # a weak Python float: its bits
+            out.append(_I64.unpack(_F64.pack(leaf))[0])
+        elif t is int:
             out.append(leaf)
-            continue
-        kind = _scalar_kind(leaf)
-        if kind == "bits":
-            out.append(struct.unpack("<q", struct.pack("<d", float(leaf)))[0])
-        elif kind == "float":
-            out.append(float(leaf))
+        elif isinstance(leaf, torch.Tensor):
+            out.append(leaf if leaf.ndim else Pointer(leaf))
         else:
-            out.append(int(leaf))
+            kind = _scalar_kind(leaf)
+            if kind == "bits":
+                out.append(_I64.unpack(_F64.pack(float(leaf)))[0])
+            elif kind == "float":
+                out.append(float(leaf))
+            else:
+                out.append(int(leaf))
     return out
 
 
@@ -155,9 +168,16 @@ def kernel_key(analysis: Analysis, out_dtypes) -> tuple:
     leaves dtype to jit's retrace), so the key adds them, and the output
     types.  A compound op is part of the signature: its old value is a
     leaf of the tree."""
-    leaf_codes = tuple(code_of(l.dtype) if isinstance(l, torch.Tensor)
-                       else scalar_code(l) for l in analysis.leaves)
-    return (analysis.sig, leaf_codes, out_dtypes, analysis.index_bits)
+    return (analysis.sig, leaf_codes(analysis.leaves), out_dtypes,
+            analysis.index_bits)
+
+
+def leaf_codes(leaves: Sequence) -> tuple:
+    """The leaves' types as the kernel sees them: a tensor's code (marked
+    ``@`` for a 0-d one, which the kernel loads once), a scalar's."""
+    return tuple((code_of(l.dtype) if l.ndim else code_of(l.dtype) + "@")
+                 if isinstance(l, torch.Tensor) else scalar_code(l)
+                 for l in leaves)
 
 
 #: the index context of an elementwise body: the element's index and the
@@ -299,6 +319,16 @@ class Emitter:
     # -- leaves -----------------------------------------------------------
     def load(self, node: Expr) -> str:
         slot = self.analysis.slot_of[id(node)]
+        leaf = self.analysis.leaves[slot]
+        if not isinstance(leaf, torch.Tensor):
+            return self.scalar(node)    # a 0-d CPU tensor, crossed as scalar
+        if leaf.ndim == 0:
+            # a 0-d tensor on the card: one load, broadcast like a scalar
+            if slot not in self._slots:
+                tl_type(self.types[id(node)])
+                self.lines.append(f"x{slot} = tl.load(p{slot})")
+                self._slots[slot] = f"x{slot}"
+            return self._slots[slot]
         key = ("load", slot, self.at)
         if key not in self._slots:
             tl_type(self.types[id(node)])  # raises on uncovered types
@@ -620,30 +650,31 @@ def assign_tiled_source(exprs: Sequence[Expr], analysis: Analysis,
 class _AssignKernel:
     """A generated kernel over n elements, ``BLOCK`` a program: the
     assignment kernels and the view-assignment kernel; with ``tiled``,
-    the tiled assignment kernel, one (TU, TL) tile a program."""
+    the tiled assignment kernel, one (TU, TL) tile a program.  The kernel
+    cache's entry: it holds the launcher (``_build.TritonLauncher``, whose
+    records keep the compiled kernel per argument class) and the
+    constexpr values, so a call costs its arguments and one launch."""
 
     def __init__(self, src: str, name: str = "assign_kernel",
                  tiled: bool = False):
-        from .._build import triton_module
+        from .._build import TritonLauncher, triton_module
 
         if config.show_kernels:
             print(src)
         self.tiled = tiled
-        self.fn = getattr(triton_module(src), name)
+        if tiled:
+            tu, tl_, warps = ASSIGN_TILE
+            self.consts = (tu, tl_, tu * tl_)       # TU, TL, BLOCK
+        else:
+            self.consts, warps = (ASSIGN_BLOCK,), 4
+        self.launcher = TritonLauncher(getattr(triton_module(src), name),
+                                       warps)
 
     def launch(self, outs: Sequence[torch.Tensor], leaves: Sequence,
                n: int, programs: int = 0) -> None:
-        import triton
-
-        if self.tiled:
-            tu, tl_, warps = ASSIGN_TILE
-            grid, opts = (programs,), dict(TU=tu, TL=tl_, BLOCK=tu * tl_,
-                                          num_warps=warps)
-        else:
-            grid = (triton.cdiv(n, ASSIGN_BLOCK),)
-            opts = dict(BLOCK=ASSIGN_BLOCK, num_warps=4)
-        with torch.cuda.device(outs[0].device):
-            self.fn[grid](*outs, *launch_args(leaves), n, **opts)
+        grid = (programs,) if self.tiled else (-(-n // ASSIGN_BLOCK),)
+        self.launcher(grid, [*outs, *launch_args(leaves)], (n,), self.consts,
+                      outs[0].device)
 
 
 def plain_values(exprs: Sequence[Expr], analysis: Analysis, types, leaves,
@@ -683,18 +714,26 @@ def assign_multi_plain(exprs: Sequence[Expr], analysis: Analysis, types,
         o.copy_(v)
 
 
-def _launch(exprs: Sequence[Expr], analysis: Analysis, types, leaves,
-            outs: Sequence[torch.Tensor]) -> None:
+def launch_key(exprs: Sequence[Expr], analysis: Analysis, out_dtypes):
+    """(the kernel cache's key of the assignment kernel of ``exprs`` into
+    outputs of ``out_dtypes``, the tiled form's view or None): a function
+    of the analysis and the types, which a caller that keeps the analysis
+    (``generator.Kernel``) keeps too."""
     # the tiled form is a function of the structure: its choice (which
     # view, which axis) is part of the key, and a tiled kernel that fails
     # raises
     tile = tiled_view(exprs) if analysis.indexed else None
     form = None if tile is None else ("tiled", tile[0], tile[2])
-    key = ("assign", form) + kernel_key(analysis,
-                                        tuple(o.dtype for o in outs))
-    codes = [code_of(o.dtype) for o in outs]
+    return ("assign", form) + kernel_key(analysis, tuple(out_dtypes)), tile
+
+
+def _launch(exprs: Sequence[Expr], analysis: Analysis, types, leaves,
+            outs: Sequence[torch.Tensor], keyed=None) -> None:
+    key, tile = keyed or launch_key(exprs, analysis,
+                                    [o.dtype for o in outs])
 
     def factory():
+        codes = [code_of(o.dtype) for o in outs]
         if tile is None:
             return _AssignKernel(assign_multi_source(exprs, analysis, types,
                                                      codes))
@@ -742,9 +781,10 @@ assign_indexed = _Launches()
 
 
 def assign_multi(exprs: Sequence[Expr], analysis: Analysis, types, leaves,
-                 outs: Sequence[torch.Tensor]) -> None:
+                 outs: Sequence[torch.Tensor], keyed=None) -> None:
     """Write the elementwise ``exprs[i]`` into ``outs[i]`` (1-D,
-    contiguous, one length and one device) in one launch."""
+    contiguous, one length and one device) in one launch; ``keyed`` is
+    ``launch_key``'s result where the caller keeps it."""
     device = outs[0].device
     if device.type == "cpu":
         assign_multi_plain(exprs, analysis, types, leaves, outs)
@@ -753,7 +793,7 @@ def assign_multi(exprs: Sequence[Expr], analysis: Analysis, types, leaves,
         raise NotImplementedError(f"no expression kernel for {device}")
     if outs[0].numel() == 0:
         return
-    _launch(exprs, analysis, types, leaves, outs)
+    _launch(exprs, analysis, types, leaves, outs, keyed)
     assign_multi.launches += 1
 
 

@@ -21,7 +21,15 @@ in-place step reads the old state::
 
 A parameter is a leaf whose tensor (or scalar) is bound only during a
 call; its signature is its slot, not the bound tensor, so the kernel
-cache hits from the second call on.  ``Kernel.as_function()`` gives the
+cache hits from the second call on.  The recorded trees never change, so
+a ``Kernel`` keeps their analysis per binding: the key is each bound
+parameter's (dtype, shape, device), or a scalar's kind, and a call with
+a known binding looks up the hoisted trees, the analysis, the types, the
+constant leaves and the kernel's key, puts the bound tensors into their
+slots and launches; the JAX package keys its jitted evaluator on the
+signature the same way (``vexcl_tpu/expr/compile.py:456-498``).  Trees
+with a node that runs its own kernel first (an SpMV) are hoisted anew on
+every call.  ``Kernel.as_function()`` gives the
 same kernel as a function of tensors returning new tensors; it has no
 backward kernel yet and refuses inputs that require a gradient.
 """
@@ -29,13 +37,14 @@ backward kernel yet and refuses inputs that require a gradient.
 from __future__ import annotations
 
 import itertools
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 
-from .expr.compile import evaluate_multi, prepare_multi
+from .expr.compile import _gathers_target, evaluate_multi, prepare_multi
 from .expr.function import Function
-from .expr.node import Expr, as_expr
+from .expr.node import Analysis, Expr, as_expr
+from .expr.triton_emit import assign_multi, launch_key
 from .types import code_of, dtype_of_code, scalar_code
 from .vector import _ExprOpsMixin, vector
 
@@ -120,6 +129,30 @@ class symbolic(_ExprOpsMixin):
         return self._expr
 
 
+class _Binding(NamedTuple):
+    """What a call of a ``Kernel`` needs of one binding's key."""
+
+    exprs: List[Expr]
+    analysis: Analysis
+    types: Dict[int, str]
+    #: the leaves in slot order, a bound parameter's slot holding the
+    #: first call's payload (replaced on every call)
+    leaves: List[Any]
+    #: (slot, argument number) of every bound parameter the trees read
+    slots: List[tuple]
+    #: ``triton_emit.launch_key``'s result
+    keyed: tuple
+
+
+def _binding_class(arg) -> tuple:
+    """A bound argument's part of a binding's key."""
+    if isinstance(arg, vector):
+        arg = arg.storage
+    if isinstance(arg, torch.Tensor):
+        return (arg.dtype, tuple(arg.shape), arg.device)
+    return (scalar_code(arg),)
+
+
 class Kernel:
     """A recorded kernel (generator.hpp kernel :547)."""
 
@@ -130,6 +163,9 @@ class Kernel:
         self.params = list(params)
         # freeze the recorded trees
         self._exprs: List[Expr] = [s._expr for s in self.outputs]
+        #: binding key -> _Binding, or None where the trees are hoisted
+        #: anew on every call
+        self._bindings: Dict[tuple, Optional[_Binding]] = {}
 
     def _bind(self, args) -> None:
         if len(args) != len(self.params):
@@ -156,18 +192,72 @@ class Kernel:
         outs = [t.storage for t in self._targets(args)]
         self._bind(args)
         try:
-            return (*prepare_multi(self._exprs, outs[0].shape[0],
-                                   outs[0].device), outs)
+            exprs, analysis, types, leaves = prepare_multi(
+                self._exprs, outs[0].shape[0], outs[0].device)
+            types[id(exprs[0])]     # a parameter is typed while it is bound
+            return exprs, analysis, types, leaves, outs
         finally:
             self._unbind()
 
+    def _binding(self, args, outs) -> Optional[_Binding]:
+        """The kept analysis of this binding, made at its first call."""
+        key = tuple(_binding_class(a) for a in args)
+        try:
+            return self._bindings[key]
+        except KeyError:
+            pass
+        n, device = outs[0].shape[0], outs[0].device
+        if any(o.shape[0] != n or o.device != device for o in outs):
+            raise ValueError("the targets of one fused assignment have one "
+                             "length and one device")
+        exprs, analysis, types, leaves, _ = self.prepare(*args)
+        rec = None
+        payloads = [a.storage if isinstance(a, vector) else a for a in args]
+        # a bound leaf must reach the kernel as it was bound (the analysis
+        # neither moved nor copied it), and nothing may have been hoisted
+        slots = [(analysis.slot_of[id(sym._param)], i)
+                 for i, sym in enumerate(self.params)
+                 if id(sym._param) in analysis.slot_of]
+        if (all(e is h for e, h in zip(self._exprs, exprs))
+                and all(leaves[s] is payloads[i] for s, i in slots)):
+            keyed = launch_key(exprs, analysis, [o.dtype for o in outs])
+            # the record keeps the bound tensors' types and shapes, not
+            # their memory
+            leaves = list(leaves)
+            for s, i in slots:
+                t = payloads[i]
+                leaves[s] = None
+                if isinstance(t, torch.Tensor):
+                    analysis.leaves[s] = torch.empty(
+                        t.shape, dtype=t.dtype, device="meta")
+            rec = _Binding(exprs, analysis, types, leaves, slots, keyed)
+        self._bindings[key] = rec
+        return rec
+
     def __call__(self, *args) -> None:
         outs = [t.storage for t in self._targets(args)]
-        self._bind(args)
-        try:
-            evaluate_multi(self._exprs, outs)
-        finally:
-            self._unbind()
+        rec = self._binding(args, outs)
+        if rec is None:
+            self._bind(args)
+            try:
+                evaluate_multi(self._exprs, outs)
+            finally:
+                self._unbind()
+            return
+        leaves = list(rec.leaves)
+        for s, i in rec.slots:
+            a = args[i]
+            leaves[s] = a.storage if isinstance(a, vector) else a
+        if rec.analysis.gathered and _gathers_target(rec.analysis, leaves,
+                                                     outs):
+            tmps = [torch.empty_like(o) for o in outs]
+            assign_multi(rec.exprs, rec.analysis, rec.types, leaves, tmps,
+                         rec.keyed)
+            for o, t in zip(outs, tmps):
+                o.copy_(t)
+            return
+        assign_multi(rec.exprs, rec.analysis, rec.types, leaves, outs,
+                     rec.keyed)
 
     def as_function(self) -> Callable:
         """The recorded kernel as ``fn(*tensors) -> tuple(outputs)``: new

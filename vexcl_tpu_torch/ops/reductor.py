@@ -20,6 +20,8 @@ from __future__ import annotations
 
 from typing import Any, Tuple, Union
 
+import torch
+
 from ..expr.compile import prepare_multi
 from ..expr.node import CastExpr, analyze, as_expr, expression_properties
 from ..types import dtype_of
@@ -103,7 +105,9 @@ class Reductor:
                               kinds[0].name, device)]
         else:
             res = map_reduce_multi(pairs, analysis, types, leaves, n, device)
-        vals = [r.item() for r in res]
+        # one transfer where the results came back as one tensor
+        vals = (res.tolist() if isinstance(res, torch.Tensor)
+                else [r.item() for r in res])
         k = len(kinds)
         per = [tuple(vals[i * k:(i + 1) * k]) if self._combined else vals[i]
                for i in range(len(bodies))]

@@ -63,6 +63,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from .._build import Pointer
 from ..cache import kernel_cache
 from ..config import config
 from ..expr.node import Analysis, Expr
@@ -72,7 +73,7 @@ from ..expr.triton_emit import (_HEADER, _NAN_ALL, body, jit_header,
 from ..types import dtype_of_code
 
 __all__ = ["map_reduce", "map_reduce_plain", "map_reduce_multi",
-           "map_reduce_multi_plain", "reduce_source", "reduce_multi_source",
+           "map_reduce_multi_plain", "min_max_plain", "reduce_source", "reduce_multi_source",
            "acc_code", "kahan_sum_plain", "REDUCE_BLOCK"]
 
 #: elements per tile (per program per grid-stride step) of one or two
@@ -92,17 +93,22 @@ FINAL_BLOCK = 1024
 KINDS = ("SUM", "MIN", "MAX", "SUM_Kahan")
 
 
-def acc_code(kind: str, code: str) -> str:
-    """Accumulator type of a reduction over values of type ``code``."""
+def acc_code(kind: str, code: str, kernel: bool = True) -> str:
+    """Accumulator type of a reduction over values of type ``code``; with
+    ``kernel``, raise on what the CUDA kernel does not cover (complex
+    values, MIN/MAX of booleans), which the plain forms compute in the
+    value's own type."""
     dt = dtype_of_code(code)
     if dt.is_complex:
-        raise NotImplementedError("complex reductions are not covered by "
-                                  "the CUDA map-reduce kernel")
+        if kernel:
+            raise NotImplementedError("complex reductions are not covered "
+                                      "by the CUDA map-reduce kernel")
+        return code
     if dt.is_floating_point:
         return "f64" if dt == torch.float64 else "f32"
     if kind in ("SUM", "SUM_Kahan"):
         return "u64" if dt == torch.uint64 else "i64"
-    if dt == torch.bool:
+    if dt == torch.bool and kernel:
         raise NotImplementedError("MIN/MAX of booleans is not covered by the "
                                   "CUDA map-reduce kernel")
     return code
@@ -160,13 +166,15 @@ def _words(pairs_kinds: Sequence[str]) -> int:
     return sum(2 if k == "SUM_Kahan" else 1 for k in pairs_kinds)
 
 
-def _layout(pairs: Sequence[Tuple[Expr, str]], types: Dict[int, str]):
-    """(kind, accumulator code) of each pair, Kahan of integers as SUM."""
+def _layout(pairs: Sequence[Tuple[Expr, str]], types: Dict[int, str],
+            kernel: bool = True):
+    """(kind, accumulator code) of each pair, Kahan of integers as SUM
+    (``kernel``: see ``acc_code``)."""
     out = []
     for e, kind in pairs:
         if kind not in KINDS:
             raise ValueError(f"unknown reduction kind {kind!r}")
-        acc = acc_code(kind, types[id(e)])
+        acc = acc_code(kind, types[id(e)], kernel)
         if kind == "SUM_Kahan" and not dtype_of_code(acc).is_floating_point:
             kind = "SUM"            # Kahan of integers: their exact sum
         out.append((kind, acc))
@@ -256,19 +264,20 @@ def reduce_source(expr: Expr, analysis: Analysis, types: Dict[int, str],
     return reduce_multi_source([(expr, kind)], analysis, types)
 
 
-#: (device, stream, words) -> (partials, ticket)
+#: (device index, stream, words) -> (partials, ticket)
 _scratch: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 #: entries kept; past it the oldest is freed (see ``cuda_scratch``)
 _MAX_ENTRIES = 64
-_sm_count: Dict[torch.device, int] = {}
+#: device index -> its SMs (an int key: hashing a torch.device costs more)
+_sm_count: Dict[int, int] = {}
 
 
 def _programs(device: torch.device) -> int:
     """The persistent grid's ceiling on ``device``."""
-    sms = _sm_count.get(device)
+    sms = _sm_count.get(device.index)
     if sms is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        _sm_count[device] = sms
+        _sm_count[device.index] = sms
     return sms * PROGRAMS_PER_SM
 
 
@@ -278,7 +287,8 @@ def _scratch_for(device: torch.device, words: int):
     at first use."""
     # the raw stream handle, as Triton's launcher reads it: ~0.1 us where
     # torch.cuda.current_stream() builds a Stream object (~3 us a call)
-    key = (device, torch._C._cuda_getCurrentRawStream(device.index), words)
+    idx = device.index
+    key = (idx, torch._C._cuda_getCurrentRawStream(idx), words)
     s = _scratch.get(key)
     if s is None:
         s = (torch.empty(words, _programs(device), dtype=torch.int64,
@@ -291,39 +301,49 @@ def _scratch_for(device: torch.device, words: int):
 
 
 class _ReduceKernel:
+    """The kernel cache's entry: the launcher (``_build.TritonLauncher``)
+    and what depends on the key alone (accumulator types, words, tile,
+    constexpr values)."""
+
     def __init__(self, src: str, accs: Sequence[str], words: int):
-        from .._build import triton_module
+        from .._build import TritonLauncher, triton_module
 
         if config.show_kernels:
             print(src)
         self.accs = [dtype_of_code(a) for a in accs]
         self.words = words
         self.block = _block(words)
-        self.fn = triton_module(src).reduce_kernel
+        self.consts = (self.block, FINAL_BLOCK)
+        #: the results' one type and its stride in the 8-byte words, or
+        #: None where they have several types
+        one_type = len(set(self.accs)) == 1
+        self.stride = 8 // self.accs[0].itemsize if one_type else None
+        self.launcher = TritonLauncher(triton_module(src).reduce_kernel,
+                                       REDUCE_WARPS)
 
-    def launch(self, leaves: Sequence, n: int,
-               device) -> List[torch.Tensor]:
+    def launch(self, leaves: Sequence, n: int, device):
         ntiles = -(-n // self.block)
         nprog = min(ntiles, _programs(device))
         part, ticket = _scratch_for(device, self.words)
-        # one result: a 0-d tensor of its type; several: an 8-byte word each
-        one = len(self.accs) == 1
-        out = torch.empty((), dtype=self.accs[0], device=device) if one \
-            else torch.empty(len(self.accs), dtype=torch.int64, device=device)
-        args = (part, ticket, out, *launch_args(leaves), n, ntiles,
-                part.shape[1])
-        opts = dict(BLOCK=self.block, FINAL=FINAL_BLOCK,
-                    num_warps=REDUCE_WARPS)
-        # Triton launches on the current device: switch only when needed
-        # (entering torch.cuda.device costs a few us of a ~40 us call)
-        if torch.cuda.current_device() == device.index:
-            self.fn[(nprog,)](*args, **opts)
+        # one result: a 0-d tensor of its type; several: an 8-byte word
+        # each, at the start of which the kernel stores its result
+        k = len(self.accs)
+        # new_empty on the scratch: no device argument to parse
+        if k == 1:
+            out = arg = part.new_empty((), dtype=self.accs[0])
+        elif self.stride is not None:
+            # one type: the words as (k, 8 / itemsize) values of it, whose
+            # first column is read back as one view (no view a result)
+            out = part.new_empty((k, self.stride), dtype=self.accs[0])
+            arg = Pointer(out, torch.int64)
         else:
-            with torch.cuda.device(device):
-                self.fn[(nprog,)](*args, **opts)
-        if one:
+            out = arg = part.new_empty(k)
+        self.launcher((nprog,), [part, ticket, arg, *launch_args(leaves)],
+                      (n, ntiles, part.shape[1]), self.consts, device)
+        if k == 1:
             return [out]
-        # each result sits at the start of its 8-byte word
+        if self.stride is not None:
+            return out.select(1, 0)
         views = {dt: out.view(dt) for dt in set(self.accs)}
         return [views[dt][a * (8 // dt.itemsize)]
                 for a, dt in enumerate(self.accs)]
@@ -350,19 +370,37 @@ def kahan_sum_plain(x: torch.Tensor, chunk: int = 4096) -> torch.Tensor:
 def map_reduce_multi_plain(pairs: Sequence[Tuple[Expr, str]],
                            analysis: Analysis, types, leaves, n: int,
                            device) -> List[torch.Tensor]:
-    """The kernel's plain PyTorch version: the per-kind reductions."""
-    layout = _layout(pairs, types)
+    """The kernel's plain PyTorch version: the per-kind reductions (also
+    of what the kernel does not cover: complex sums, MIN/MAX of
+    booleans)."""
+    layout = _layout(pairs, types, kernel=False)
     vals = plain_values([e for e, _ in pairs], analysis, types, leaves, n,
                         device)
     out = []
     for val, (kind, acc) in zip(vals, layout):
-        if kind == "SUM":
-            out.append(torch.sum(val.to(dtype_of_code(acc))))
-        elif kind == "SUM_Kahan":
-            out.append(kahan_sum_plain(val.to(dtype_of_code(acc))))
+        if kind in ("SUM", "SUM_Kahan"):
+            dt = dtype_of_code(acc)
+            s = (torch.sum if kind == "SUM" else kahan_sum_plain)(val.to(dt))
+            # the CPU sums u64 words into i64: the same bits
+            out.append(s.view(dt) if s.dtype != dt else s)
         else:
-            out.append(torch.amin(val) if kind == "MIN" else torch.amax(val))
+            out.append(min_max_plain(val, kind == "MIN"))
     return out
+
+
+def min_max_plain(val: torch.Tensor, least: bool, dim=None) -> torch.Tensor:
+    """``amin``/``amax`` (over ``dim``, or all), NaN propagated; unsigned
+    values, which the CPU's kernels do not order, in a signed carrier:
+    u16/u32 in i64, u64 in i64 with the sign bit flipped."""
+    fn = torch.amin if least else torch.amax
+    kw = {} if dim is None else {"dim": dim}
+    if val.dtype == torch.uint64:
+        flip = -(1 << 63)
+        return (fn(val.view(torch.int64) ^ flip, **kw) ^ flip).view(
+            torch.uint64)
+    if val.dtype in (torch.uint16, torch.uint32):
+        return fn(val.to(torch.int64), **kw).to(val.dtype)
+    return fn(val, **kw)
 
 
 def map_reduce_plain(expr: Expr, analysis: Analysis, types, leaves, n: int,
@@ -416,10 +454,10 @@ map_reduce.launches = 0
 
 
 def map_reduce_multi(pairs: Sequence[Tuple[Expr, str]], analysis: Analysis,
-                     types, leaves, n: int,
-                     device: torch.device) -> List[torch.Tensor]:
+                     types, leaves, n: int, device: torch.device):
     """Reduce each (elementwise body, kind) of ``pairs`` over ``n``
-    elements in one launch: a list of 0-d tensors on ``device``."""
+    elements in one launch: a sequence of 0-d tensors on ``device`` (a
+    list, or on the card a 1-D tensor where the results share a type)."""
     if device.type == "cpu":
         return map_reduce_multi_plain(pairs, analysis, types, leaves, n,
                                       device)

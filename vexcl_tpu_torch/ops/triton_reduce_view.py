@@ -66,6 +66,7 @@ tensors.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -78,10 +79,11 @@ from ..expr.triton_emit import (_HEADER, _NAN_ALL, Emitter, jit_header,
                                 kernel_key, launch_args, plain_value,
                                 tl_type)
 from ..types import code_of, dtype_of_code
-from .triton_reduce import _programs
+from .triton_reduce import _programs, min_max_plain
 
 __all__ = ["reduce_view_apply", "reduce_view_plain", "reduce_view_source",
-           "reduce_view_eval", "prepare_reduce_view", "plan", "Plan"]
+           "reduce_view_eval", "prepare_reduce_view", "plan", "Plan",
+           "schedule", "Schedule"]
 
 REDUCE_VIEW_WARPS = 8
 #: bytes of values a program has in flight in one pass of its loop: its
@@ -153,8 +155,7 @@ def _layout(shape: Sequence[int], axes: Sequence[int]):
     """(kept counts, kept coefficients, reduced counts, reduced
     coefficients, whether the reduced index runs fastest (the innermost
     axis is reduced), the axis pattern: ``k`` or ``r`` an axis)."""
-    strides = [int(np.prod(shape[d + 1:], dtype=np.int64))
-               for d in range(len(shape))]
+    strides = [math.prod(shape[d + 1:]) for d in range(len(shape))]
     kept = [d for d in range(len(shape)) if d not in axes]
     red = [d for d in range(len(shape)) if d in axes]
     pattern = "".join("r" if d in axes else "k" for d in range(len(shape)))
@@ -202,6 +203,39 @@ def plan(n_out: int, nred: int, r_fast: bool, itemsize: int,
     chunk = max(step, -(-(-(-nred // nsplit)) // step) * step)
     nsplit = max(1, -(-nred // chunk))
     return Plan(ot, rt, unroll, tiles, nsplit, chunk)
+
+
+class Schedule(NamedTuple):
+    """What a launch needs of (shape, axes, itemsize, programs) alone."""
+
+    pattern: str   #: ``k`` or ``r`` an axis (``_layout``)
+    n_out: int     #: outputs
+    plan: Plan
+    #: the kernel's integer arguments: n_out, nred, chunk, nsplit, the
+    #: kept counts (but the first) and coefficients, the reduced ones
+    ints: Tuple[int, ...]
+
+
+#: (shape, axes, itemsize, programs) -> Schedule
+_schedules: Dict[tuple, Schedule] = {}
+
+
+def schedule(shape: Tuple[int, ...], axes: Tuple[int, ...], itemsize: int,
+             programs: int) -> Schedule:
+    """The layout and ``plan`` of a reduction of ``shape`` over ``axes``
+    of values ``itemsize`` bytes wide on a card of ``programs`` programs,
+    computed once (Python ints) and kept."""
+    key = (shape, axes, itemsize, programs)
+    hit = _schedules.get(key)
+    if hit is None:
+        kcount, kcoef, rcount, rcoef, r_fast, pattern = _layout(shape, axes)
+        n_out, nred = math.prod(kcount), math.prod(rcount)
+        pl = plan(n_out, nred, r_fast, itemsize, programs)
+        hit = Schedule(pattern, n_out, pl, (
+            n_out, nred, pl.chunk, pl.nsplit, *kcount[1:], *kcoef,
+            *rcount[1:], *rcoef))
+        _schedules[key] = hit
+    return hit
 
 
 def _fold(vals: List[str], fn) -> str:
@@ -317,7 +351,8 @@ def reduce_view_source(inner: Expr, analysis: Analysis,
     return "".join(src)
 
 
-#: (device, stream) -> (partials as int64 words, zeroed int32 tickets)
+#: (device index, stream) -> (partials as int64 words, zeroed int32
+#: tickets)
 _scratch: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 #: entries kept; past it the oldest is freed (see ``cuda_scratch``)
 _MAX_ENTRIES = 64
@@ -327,7 +362,7 @@ def _scratch_for(device: torch.device, words: int, tiles: int):
     """At least ``words`` partial words and ``tiles`` zeroed tickets of
     the current stream on ``device``; grown (doubled) when a call needs
     more.  Every launch leaves its tickets at 0."""
-    key = (device, torch._C._cuda_getCurrentRawStream(device.index))
+    key = (device.index, torch._C._cuda_getCurrentRawStream(device.index))
     s = _scratch.get(key)
     if s is None or s[0].numel() < words or s[1].numel() < tiles:
         old = (0, 0) if s is None else (s[0].numel(), s[1].numel())
@@ -342,32 +377,29 @@ def _scratch_for(device: torch.device, words: int, tiles: int):
 
 
 class _ReduceViewKernel:
+    """The kernel cache's entry: the launcher (``_build.TritonLauncher``);
+    a call's schedule comes from ``schedule``."""
+
     def __init__(self, src: str):
-        from .._build import triton_module
+        from .._build import TritonLauncher, triton_module
 
         if config.show_kernels:
             print(src)
-        self.fn = triton_module(src).reduce_view_kernel
+        self.launcher = TritonLauncher(triton_module(src).reduce_view_kernel,
+                                       REDUCE_VIEW_WARPS)
 
-    def launch(self, out: torch.Tensor, leaves: Sequence, ints: Sequence[int],
-               pl: Plan) -> None:
+    def launch(self, out: torch.Tensor, leaves: Sequence,
+               sch: Schedule) -> None:
+        pl = sch.plan
         split = pl.nsplit > 1
         if split:
-            part, ticket = _scratch_for(out.device, pl.nsplit * ints[0],
+            part, ticket = _scratch_for(out.device, pl.nsplit * sch.n_out,
                                         pl.tiles)
         else:
             part = ticket = out    # not read: SPLIT is False
-        args = (out, part, ticket, *launch_args(leaves), ints[0], ints[1],
-                pl.chunk, pl.nsplit, *ints[2:])
-        opts = dict(OT=pl.ot, RT=pl.rt, BLOCK=pl.ot * pl.rt, SPLIT=split,
-                    num_warps=REDUCE_VIEW_WARPS)
-        grid = (pl.tiles, pl.nsplit)
-        # Triton launches on the current device: switch only when needed
-        if torch.cuda.current_device() == out.device.index:
-            self.fn[grid](*args, **opts)
-        else:
-            with torch.cuda.device(out.device):
-                self.fn[grid](*args, **opts)
+        self.launcher((pl.tiles, pl.nsplit),
+                      [out, part, ticket, *launch_args(leaves)], sch.ints,
+                      (pl.ot, pl.rt, pl.ot * pl.rt, split), out.device)
 
 
 def reduce_view_plain(inner: Expr, analysis: Analysis, types, leaves, op: str,
@@ -378,9 +410,7 @@ def reduce_view_plain(inner: Expr, analysis: Analysis, types, leaves, op: str,
     m = int(np.prod(shape, dtype=np.int64))
     v = plain_value(inner, analysis, types, leaves, m, out.device)
     acc = dtype_of_code(_acc_code(op, types[id(inner)]))
-    # the CPU's amin/amax take no u16/u32: their values fit in i64
-    work = torch.int64 if acc in (torch.uint16, torch.uint32) else acc
-    v = v.to(work).reshape(tuple(shape))
+    v = v.to(acc).reshape(tuple(shape))
     if not axes:
         res = v
     elif op == "sum":
@@ -390,7 +420,7 @@ def reduce_view_plain(inner: Expr, analysis: Analysis, types, leaves, op: str,
         for a in sorted(axes, reverse=True):
             res = torch.prod(res, dim=a)
     else:
-        res = (torch.amin if op == "min" else torch.amax)(v, dim=tuple(axes))
+        res = min_max_plain(v, op == "min", tuple(axes))
     out.copy_(res.reshape(-1))
 
 
@@ -407,26 +437,23 @@ def reduce_view_apply(inner: Expr, analysis: Analysis, types, leaves,
         return
     if out.device.type != "cuda":
         raise NotImplementedError(f"no reduce_view kernel for {out.device}")
-    kcount, kcoef, rcount, rcoef, r_fast, pattern = _layout(shape, axes)
-    n_out = int(np.prod(kcount, dtype=np.int64))
-    nred = int(np.prod(rcount, dtype=np.int64))
-    if n_out == 0:
-        return
     code = types[id(inner)]
-    pl = plan(n_out, nred, r_fast, dtype_of_code(code).itemsize,
-              _programs(out.device))
-    key = ("reduce_view", op, pattern, pl.ot, pl.rt,
+    sch = schedule(tuple(shape), tuple(axes), dtype_of_code(code).itemsize,
+                   _programs(out.device))
+    if sch.n_out == 0:
+        return
+    pl = sch.plan
+    key = ("reduce_view", op, sch.pattern, pl.ot, pl.rt,
            pl.unroll) + kernel_key(analysis, (out.dtype,))
 
     def factory():
         return _ReduceViewKernel(reduce_view_source(
-            inner, analysis, types, op, pattern, pl.unroll,
+            inner, analysis, types, op, sch.pattern, pl.unroll,
             code_of(out.dtype)))
 
     k = (kernel_cache.get_or_create(key, factory) if config.cache_kernels
          else factory())
-    k.launch(out, leaves, [n_out, nred, *kcount[1:], *kcoef, *rcount[1:],
-                           *rcoef], pl)
+    k.launch(out, leaves, sch)
     reduce_view_apply.launches += 1
 
 

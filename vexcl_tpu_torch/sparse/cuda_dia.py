@@ -17,7 +17,7 @@ kernel for CUDA tensors, for the plane/x type pairs (bf16, f32),
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -69,18 +69,22 @@ def dia_matvec_plain(n: int, m: int, offsets: Sequence[int],
 
 def dia_matvec(n: int, m: int, offsets: Sequence[int],
                offsets_dev: torch.Tensor, vals: torch.Tensor,
-               x: torch.Tensor) -> torch.Tensor:
+               x: torch.Tensor,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = A x for DIA planes ``vals`` (d, n) at ``offsets``; x has m
     elements.  ``offsets_dev`` is the same offsets as an int64 tensor on
-    x's device."""
+    x's device.  With ``out`` (n contiguous elements of y's type, not
+    x's memory), y is written there."""
     if x.device.type == "cpu":
-        return dia_matvec_plain(n, m, offsets, vals, x)
+        y = dia_matvec_plain(n, m, offsets, vals, x)
+        return y if out is None else out.copy_(y)
     if x.device.type != "cuda":
         raise NotImplementedError(f"no DIA kernel for {x.device}")
     d = len(offsets)
     if not d:
-        return torch.zeros(n, dtype=result_dtype(vals.dtype, x.dtype),
-                           device=x.device)
+        y = torch.zeros(n, dtype=result_dtype(vals.dtype, x.dtype),
+                        device=x.device)
+        return y if out is None else out.copy_(y)
     entry = _ENTRY.get((vals.dtype, x.dtype))
     if entry is None:
         raise NotImplementedError(
@@ -95,7 +99,14 @@ def dia_matvec(n: int, m: int, offsets: Sequence[int],
             raise ValueError("DIA operands must be contiguous on one device")
     if offsets_dev.dtype != torch.int64 or offsets_dev.shape != (d,):
         raise ValueError("offsets_dev must be a (d,) int64 tensor")
-    y = torch.empty(n, dtype=x.dtype, device=x.device)
+    if out is None:
+        y = torch.empty(n, dtype=x.dtype, device=x.device)
+    elif (out.shape != (n,) or out.dtype != x.dtype or out.device != x.device
+          or not out.is_contiguous()):
+        raise ValueError(f"DIA output: {n} contiguous {x.dtype} elements on "
+                         f"{x.device}")
+    else:
+        y = out
     if n == 0:
         return y
     lib = _lib()

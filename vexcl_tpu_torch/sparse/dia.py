@@ -70,10 +70,12 @@ class DIA:
     def result_dtype(self, x_dtype: torch.dtype) -> torch.dtype:
         return result_dtype(self.vals.dtype, x_dtype)
 
-    def apply(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A x (the DIA kernel on CUDA, its plain version on CPU)."""
+    def apply(self, x: torch.Tensor,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """y = A x (the DIA kernel on CUDA, its plain version on CPU),
+        into ``out`` where it is given (``dia_matvec``)."""
         return dia_matvec(self.n, self.m, self.offsets, self.offsets_dev,
-                          self.vals, x)
+                          self.vals, x, out)
 
 
 def try_build_dia(n: int, m: int, ptr: np.ndarray, col: np.ndarray,

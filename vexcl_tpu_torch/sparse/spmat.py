@@ -90,6 +90,18 @@ class SpMVExpr(Expr):
     _elementwise = False
     _opname = "spmv"
 
+    def direct_dtype(self) -> Optional[torch.dtype]:
+        """The product's type where ``materialize`` writes it straight
+        into an ``out`` (a DIA matrix times a vector of the product's
+        type), else None."""
+        x = self.children[0]
+        if (type(self.mat) is SpMat and isinstance(self.mat.device, DIA)
+                and isinstance(x, VectorTerminal)
+                and self.mat.device.result_dtype(x.vec.dtype)
+                == x.vec.dtype):
+            return x.vec.dtype
+        return None
+
     def __init__(self, mat, x: Any):
         self.mat = mat
         self.children = (as_expr(x),)
@@ -102,9 +114,12 @@ class SpMVExpr(Expr):
             extra = int(getattr(m.device, "tail", None) is not None)
         return f"{m.device.format}:{m.n}:{extra}"
 
-    def materialize(self, device: torch.device,
-                    n: Optional[int] = None) -> torch.Tensor:
-        """A x through the format's kernel (x evaluated first if needed)."""
+    def materialize(self, device: torch.device, n: Optional[int] = None,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A x through the format's kernel (x evaluated first if needed);
+        into ``out`` where it is given (``compile.evaluate``'s direct
+        path: a target of the product's type and length that x does not
+        read)."""
         x = self.children[0]
         if isinstance(x, VectorTerminal):
             xt = x.vec.storage
@@ -113,7 +128,8 @@ class SpMVExpr(Expr):
         if xt.device != device:
             raise ValueError(f"SpMV operand on {xt.device}, evaluation on "
                              f"{device}")
-        return self.mat._matvec(xt)
+        return (self.mat._matvec(xt) if out is None
+                else self.mat._matvec(xt, out))
 
     def emit(self, env: EmitEnv):
         return self.materialize(env.device)
@@ -171,8 +187,12 @@ class SpMat:
     def dtype(self) -> torch.dtype:
         return self.device.dtype
 
-    def _matvec(self, x: torch.Tensor) -> torch.Tensor:
-        return self.device.apply(x)
+    def _matvec(self, x: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A x; into ``out`` where it is given, which only a DIA matrix's
+        product is (``SpMVExpr.direct_dtype``)."""
+        return self.device.apply(x) if out is None else self.device.apply(
+            x, out)
 
     def __mul__(self, x):
         return _products(self, x, SpMVExpr)
