@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``vexcl_tpu_torch``) on one GPU.
 
 Drives the port's main path through its public API and holds each of its
-eleven hand-written kernels against its plain PyTorch version on the same
+hand-written kernels against its plain PyTorch version on the same
 inputs:
 
     python3 chip_smoke.py [--seed 0] [--json results.json] [--profile]
@@ -30,11 +30,16 @@ matrix (~33M entries, the default format) against the same CG in plain
 PyTorch f64 on the card; (9) the scan family at the bench's sizes
 (bench.py:474-660): ``inclusive_scan`` of 2^24 f32 (and 2^24 + 12345, in
 place, f64), running MAX and MIN with a NaN, ``inclusive_scan_by_key``
-and ``exclusive_scan_by_key`` over i32 keys in runs of 64,
-``reduce_by_key`` of 2^24 (runs of 64) and 2^25 + 7 (lognormal runs)
-values, ``sort_by_key`` of 2^24 (i32 key, f32 value) pairs, and COO ->
-CSR of the phase-6 matrix from shuffled triples (sort_by_key, then
-reduce_by_key, then exclusive_scan) against the host CSR, exactly; (10)
+and ``exclusive_scan_by_key`` over i32 keys in runs of 64 (each call one
+launch of the keyed kernel, bit for bit the route it replaced: flags by
+tensor compares, ``segscan``, the epilogue), ``reduce_by_key`` of 2^24
+(runs of 64: one launch, bit for bit the ``segscan`` + ``compact``
+route; the same call with a Python ``key_eq``, which takes that route)
+and 2^25 + 7 (lognormal runs) values, ``sort_by_key`` of 2^24 (i32 key,
+f32 value) pairs, and COO -> CSR of the phase-6 matrix from shuffled
+triples (sort_by_key, then reduce_by_key, then exclusive_scan) against
+the host CSR, exactly; the keyed kernel's two rows time it in turns with
+the route it replaced, called directly; (10)
 random numbers at the bench's 2^24 (bench.py:524): ``x[:] =
 rnd(element_index(), seed)`` for the philox, threefry and hw generators,
 uniform and normal, f32 and f64, against their plain versions, hw against
@@ -87,9 +92,11 @@ these timings' profiler session or cuSPARSE call), the device time per
 call by the profiler of the map-reduce, the compaction (one and two
 payloads, and ``x[flags]``), the irregular SpMV's SELL, CSR and
 cuSPARSE products (cuSPARSE on the SELL kernel's rows and on the whole
-matrix; f32 and f64) and the scans (``scan`` and ``torch.cumsum`` in f32
-and f64, ``segscan``; each scan call checked to be one kernel), and the
-DIA row's library call,
+matrix; f32 and f64), the scans (``scan`` and ``torch.cumsum`` in f32
+and f64, ``segscan``; each scan call checked to be one kernel) and the
+keyed kernel (``scan_by_key``, exclusive with ``init``, the
+``reduce_by_key`` launch, each checked to be one kernel, and the routes
+they replaced), and the DIA row's library call,
 cuSPARSE's CSR product of the Poisson 256^3 matrix in f32 on phase 3's
 x.  Each phase's launch counters are set to 0 just before its API
 run and read just after.  Times come from CUDA events (kernels) or the host clock
@@ -620,6 +627,12 @@ def main() -> int:
                                                         reduce_view_apply,
                                                         reduce_view_plain)
     from vexcl_tpu_torch.models import LorenzEnsemble, PoissonSolver
+    from vexcl_tpu_torch.ops.cuda_by_key import (reduce_by_key_launch,
+                                                 reduce_by_key_plain,
+                                                 scan_by_key_apply,
+                                                 scan_by_key_epilogue,
+                                                 scan_by_key_plain,
+                                                 segment_heads)
     from vexcl_tpu_torch.ops.cuda_compact import compact_apply, compact_plain
     from vexcl_tpu_torch.ops.cuda_scan import (scan_apply, scan_plain,
                                                segscan_apply, segscan_plain)
@@ -646,6 +659,8 @@ def main() -> int:
                 "stencil": stencil_apply, "sell": sell_spmv,
                 "csr": csr_spmv, "scan": scan_apply,
                 "segscan": segscan_apply, "compact": compact_apply,
+                "scan_by_key": scan_by_key_apply,
+                "reduce_by_key": reduce_by_key_launch,
                 "philox": philox_bits, "custom": vex.CustomKernel,
                 "multi": assign_multi, "reduce_multi": map_reduce_multi,
                 "indexed": assign_indexed, "reduce_view": reduce_view_apply,
@@ -1387,10 +1402,12 @@ def main() -> int:
     del x, y, ref, again
     torch.cuda.empty_cache()
 
-    # scan_by_key over i32 keys in runs of 64 (bench.py:584-591)
+    # scan_by_key over i32 keys in runs of 64 (bench.py:584-591): each
+    # call one launch of the keyed kernel
     keys = vex.vector(data=torch.arange(N_VEC, device=dev,
                                         dtype=torch.int32) // RUN,
                       context=ctx)
+    k9 = (keys.storage,)
     x = rand(N_VEC, torch.float32)
     heads = torch.zeros(N_VEC, dtype=torch.uint8, device=dev)
     heads[::RUN] = 1
@@ -1402,42 +1419,95 @@ def main() -> int:
         def by_key():
             vex.inclusive_scan_by_key(keys, x, yi, op_name=name)
             vex.exclusive_scan_by_key(keys, x, ye, op_name=name)
-        _, launches = scan_run(("segscan",), by_key)
+        _, launches = scan_run(("scan_by_key",), by_key)
         ref_i = segscan_plain(heads, x.storage, mono)
         ref_e = torch.where(heads.bool(), 0.0,
                             torch.cat([ref_i.new_zeros(1), ref_i[:-1]]))
-        rec = {"launches": launches["segscan"]}
+        # the route the kernel replaced (flags by tensor compares, the
+        # segscan kernel, the epilogue) gives the same bits
+        route_i = segscan_apply(segment_heads(k9), x.storage, mono)
+        route_e = scan_by_key_epilogue(heads.bool(), route_i, torch.add,
+                                       True, None)
+        check(torch.equal(yi.storage, route_i)
+              and torch.equal(ye.storage, route_e),
+              f"scan_by_key {mono} differs from the segscan route")
+        rec = {"launches": launches["scan_by_key"]}
         if mono == "add":
             abs_err, rel = errors(yi.storage, ref_i)
             _, rel_e = errors(ye.storage, ref_e)
             check(max(rel, rel_e) <= SCAN_TOL["f32"],
                   f"scan_by_key: rel err {rel}, {rel_e}")
-            # in turns with the plain scan of the same values, its yardstick
-            # (no PyTorch call computes a segmented scan)
+            # the segscan kernel, called directly, in turns with the plain
+            # scan of the same values, its yardstick (no PyTorch call
+            # computes a segmented scan)
             calls = {"segscan": lambda h=heads, v=x.storage, o=torch.empty_like(
                          x.storage): segscan_apply(h, v, "add", out=o),
                      "scan": lambda v=x.storage, o=torch.empty_like(
                          x.storage): scan_apply(v, "add", out=o)}
             turns = in_turns(calls)
             scan_calls["segscan"] = calls["segscan"]
-            ms = turns["segscan"]["ms"]
-            plain_ms = cuda_ms(lambda: segscan_plain(heads, x.storage,
-                                                     "add"), KERNEL_REPS)
-            api_ms = cuda_ms(lambda: vex.inclusive_scan_by_key(keys, x, yi),
-                             KERNEL_REPS)
+            seg = segscan_apply(heads, x.storage, "add")
+            seg_err, _ = errors(seg, ref_i)
             kernels["segscan"] = kernel_row(
-                abs_err, ms, plain_ms, tensor_bytes(x.storage, heads, yi.storage),
-                N_VEC, None)
+                seg_err, turns["segscan"]["ms"],
+                cuda_ms(lambda: segscan_plain(heads, x.storage, "add"),
+                        KERNEL_REPS),
+                tensor_bytes(x.storage, heads, yi.storage), N_VEC, None)
             kernels["segscan"].update(
                 ms_range=turns["segscan"]["ms_range"],
                 scan_ms=turns["scan"]["ms"],
                 scan_ms_range=turns["scan"]["ms_range"],
                 host_us=host_us(calls["segscan"]))
+            # the keyed kernel in turns with the route it replaced, called
+            # directly: inclusive, and exclusive with init
+            o_k, o_r = torch.empty_like(x.storage), torch.empty_like(x.storage)
+
+            def route(exclusive=False, init=None, o=o_r, k=k9, v=x.storage):
+                h = segment_heads(k)
+                incl = segscan_apply(h, v, "add", out=o)
+                if not exclusive:
+                    return incl
+                return scan_by_key_epilogue(h, incl, torch.add, True, init)
+            calls = {"scan_by_key": lambda k=k9, v=x.storage, o=o_k:
+                         scan_by_key_apply(k, v, "add", out=o),
+                     "route": route,
+                     "exclusive_init": lambda k=k9, v=x.storage, o=o_k:
+                         scan_by_key_apply(k, v, "add", True, 1.0, out=o),
+                     "exclusive_init_route": lambda: route(True, 1.0)}
+            turns = in_turns(calls)
+            scan_calls.update({
+                "scan_by_key": calls["scan_by_key"],
+                "scan_by_key_route": calls["route"],
+                "scan_by_key_excl_init": calls["exclusive_init"],
+                "scan_by_key_excl_init_route": calls["exclusive_init_route"]})
+            check(torch.equal(calls["exclusive_init"](),
+                              calls["exclusive_init_route"]()),
+                  "exclusive scan_by_key with init differs from the route")
+            ms = turns["scan_by_key"]["ms"]
+            plain_ms = cuda_ms(lambda: scan_by_key_plain(k9, x.storage,
+                                                         "add"), KERNEL_REPS)
+            api_ms = cuda_ms(lambda: vex.inclusive_scan_by_key(keys, x, yi),
+                             KERNEL_REPS)
+            kernels["scan_by_key"] = kernel_row(
+                abs_err, ms, plain_ms,
+                tensor_bytes(keys.storage, x.storage, yi.storage), N_VEC,
+                None)
+            kernels["scan_by_key"].update(
+                ms_range=turns["scan_by_key"]["ms_range"],
+                route_ms=turns["route"]["ms"],
+                route_ms_range=turns["route"]["ms_range"],
+                exclusive_init_ms=turns["exclusive_init"]["ms"],
+                exclusive_init_route_ms=turns["exclusive_init_route"]["ms"],
+                host_us=host_us(calls["scan_by_key"]))
             rec.update(max_abs_err=abs_err, max_rel_err=rel,
                        exclusive_max_rel_err=rel_e, ms=ms, plain_ms=plain_ms,
                        library_ms=None, api_ms=api_ms,
                        exclusive_api_ms=cuda_ms(
                            lambda: vex.exclusive_scan_by_key(keys, x, ye),
+                           KERNEL_REPS),
+                       exclusive_init_api_ms=cuda_ms(
+                           lambda: vex.exclusive_scan_by_key(keys, x, ye,
+                                                             init=1.0),
                            KERNEL_REPS),
                        scan_by_key_Gelem_s=gelem(N_VEC, api_ms))
         else:
@@ -1445,11 +1515,12 @@ def main() -> int:
                   and torch.equal(ye.storage, ref_e),
                   "scan_by_key max differs from plain")
         report(f"scan_by_key_{mono}_f32", rec)
-    del yi, ye, ref_i, ref_e
+    del yi, ye, ref_i, ref_e, route_i, route_e, seg
 
-    # reduce_by_key of 2^24 values in runs of 64 (bench.py:594-609)
+    # reduce_by_key of 2^24 values in runs of 64 (bench.py:594-609): one
+    # launch of the keyed kernel, then the count to the host
     (okeys, ovals, m), launches = scan_run(
-        ("segscan", "compact"), lambda: vex.reduce_by_key(keys, x))
+        ("reduce_by_key",), lambda: vex.reduce_by_key(keys, x))
     nruns = N_VEC // RUN
     check(m == nruns and torch.equal(
         okeys.storage, torch.arange(nruns, device=dev, dtype=torch.int32)),
@@ -1457,6 +1528,7 @@ def main() -> int:
     ref64 = x.storage.double().view(nruns, RUN).sum(1)
     _, rel = errors(ovals.storage, ref64)
     check(rel <= SCAN_TOL["f32"], f"reduce_by_key sums: rel err {rel}")
+    # the route it replaced (segscan, then compact) gives the same bits
     tails = torch.cat([heads[1:], heads.new_ones(1)])
     incl = segscan_apply(heads, x.storage, "add")
     kc, kv, kk = compact_apply(tails, incl, keys.storage)
@@ -1464,8 +1536,19 @@ def main() -> int:
     check(int(kc) == int(pc) == nruns and torch.equal(kv[:nruns], pv_[:nruns])
           and torch.equal(kk[:nruns], pk[:nruns]),
           "compaction kernel differs from plain")
+    check(torch.equal(ovals.storage, kv[:nruns])
+          and torch.equal(okeys.storage, kk[:nruns]),
+          "reduce_by_key differs from the segscan + compact route")
+    # a Python key predicate (the reference's key_eq) takes that route on
+    # the main path: the segscan and compaction kernels, the same results
+    (ek, ev, em), eq_launches = scan_run(
+        ("segscan", "compact"),
+        lambda: vex.reduce_by_key(keys, x, key_eq=lambda a, b: a == b))
+    check(em == m and torch.equal(ek.storage, okeys.storage)
+          and torch.equal(ev.storage, ovals.storage),
+          "reduce_by_key with key_eq differs from the keyed kernel")
     # the row times one payload, the function of its library call,
-    # boolean-mask indexing; reduce_by_key moves two
+    # boolean-mask indexing; the key_eq route moves two
     tails_b = tails.bool()
     kc1, kv1 = compact_apply(tails, incl)
     check(int(kc1) == nruns and torch.equal(kv1[:nruns], pv_[:nruns])
@@ -1494,15 +1577,43 @@ def main() -> int:
             tails, incl, keys.storage), KERNEL_REPS),
         two_payload_bound_ms=bound(two_bytes)[0],
         two_payload_host_us=host_us(compact_calls["compact_two"]))
-    ms = kernels["compact"]["two_payload_ms"]
-    plain_ms = kernels["compact"]["two_payload_plain_ms"]
+
+    # the keyed kernel's launch (the count left on the card) in turns with
+    # the route it replaced, called directly: flags, segscan, compact
+    def rbk_route(k=k9, v=x.storage):
+        h = segment_heads(k)
+        t_ = torch.cat([h[1:], h.new_ones(1)])
+        return compact_apply(t_, segscan_apply(h, v, "add"), *k)
+    rbk_calls = {"reduce_by_key": lambda k=k9, v=x.storage:
+                     reduce_by_key_launch(k, v),
+                 "route": rbk_route}
+    turns = in_turns(rbk_calls)
+    scan_calls["reduce_by_key"] = rbk_calls["reduce_by_key"]
+    scan_calls["reduce_by_key_route"] = rbk_route
+    pm_, pvals, _ = reduce_by_key_plain(k9, x.storage, "add")
+    check(pm_ == m, "reduce_by_key_plain counts another number of runs")
+    rbk_err, _ = errors(ovals.storage, pvals)
+    rbk_bytes = tensor_bytes(keys.storage, x.storage) + nruns * 8 + 8
     api_ms = cuda_ms(lambda: vex.reduce_by_key(keys, x), KERNEL_REPS)
+    kernels["reduce_by_key"] = kernel_row(
+        rbk_err, turns["reduce_by_key"]["ms"],
+        cuda_ms(lambda: reduce_by_key_plain(k9, x.storage, "add"),
+                KERNEL_REPS), rbk_bytes, N_VEC, None)
+    kernels["reduce_by_key"].update(
+        ms_range=turns["reduce_by_key"]["ms_range"],
+        route_ms=turns["route"]["ms"],
+        route_ms_range=turns["route"]["ms_range"],
+        host_us=host_us(rbk_calls["reduce_by_key"]),
+        api_ms=api_ms, api_host_us=host_us(lambda: vex.reduce_by_key(keys, x),
+                                           20))
     report("reduce_by_key_runs64_f32", {
         "runs": m, "max_rel_err": rel, "launches": launches,
-        "compact_ms": ms, "compact_plain_ms": plain_ms,
+        "key_eq_launches": eq_launches,
+        "ms": kernels["reduce_by_key"]["ms"],
+        "route_ms": kernels["reduce_by_key"]["route_ms"],
+        "compact_ms": kernels["compact"]["two_payload_ms"],
         "segscan_ms": kernels["segscan"]["ms"], "api_ms": api_ms,
-        "bound_ms": bound(tensor_bytes(keys.storage, x.storage)
-                          + nruns * 8)[0],
+        "bound_ms": kernels["reduce_by_key"]["bound_ms"],
         "reduce_by_key_Gelem_s": gelem(N_VEC, api_ms)})
     if args.profile:       # the calls timed above, dst given
         y = vex.vector(N_VEC, context=ctx)
@@ -1510,11 +1621,15 @@ def main() -> int:
                 ("inclusive_scan", lambda: vex.inclusive_scan(x, y)),
                 ("inclusive_scan_by_key",
                  lambda: vex.inclusive_scan_by_key(keys, x, y)),
-                ("reduce_by_key", lambda: vex.reduce_by_key(keys, x))):
+                ("exclusive_scan_by_key_init",
+                 lambda: vex.exclusive_scan_by_key(keys, x, y, init=1.0)),
+                ("reduce_by_key", lambda: vex.reduce_by_key(keys, x)),
+                ("reduce_by_key_key_eq", lambda: vex.reduce_by_key(
+                    keys, x, key_eq=lambda a, b: a == b))):
             per_kernel, busy = profile_call(fn)
             report(f"profile_{tag}_2^24", {"device_busy": busy,
                                            **per_kernel})
-    del okeys, ovals, ref64, kc, kv, kk, pc, pv_, pk, kc1, kv1
+    del okeys, ovals, ref64, kc, kv, kk, pc, pv_, pk, kc1, kv1, ek, ev, pvals
     del keys, x
     del heads
     torch.cuda.empty_cache()
@@ -1530,7 +1645,7 @@ def main() -> int:
     keys = vex.vector(data=kt, context=ctx)
     x = rand(RBK_N_LARGE, torch.float32)
     (okeys, ovals, m), launches = scan_run(
-        ("segscan", "compact"), lambda: vex.reduce_by_key(keys, x))
+        ("reduce_by_key",), lambda: vex.reduce_by_key(keys, x))
     check(m == nruns and torch.equal(
         okeys.storage, torch.arange(nruns, device=dev, dtype=torch.int32)),
         f"reduce_by_key lognormal: {m} runs of {nruns}, keys differ")
@@ -1589,8 +1704,7 @@ def main() -> int:
         return vex.exclusive_scan(vex.vector(data=cnt, context=ctx)), nr
     torch.cuda.synchronize()
     t = time.perf_counter()
-    (ptr_v, nr), launches = scan_run(("scan", "segscan", "compact"),
-                                     coo_to_csr)
+    (ptr_v, nr), launches = scan_run(("scan", "reduce_by_key"), coo_to_csr)
     e2e_s = time.perf_counter() - t
     order = np.lexsort((ch, rh))            # stable: row, then column
     check(np.array_equal(ptr_v.to_numpy(), ptr)
@@ -2535,17 +2649,30 @@ def main() -> int:
                            library_device_us=prof["cusparse_sell_part_f32"])
     kernels["csr"].update(device_us=prof["csr_spmv_f32"],
                           library_device_us=prof["cusparse_f32"])
-    # the scans: one kernel a call (cumsum is the library's own)
+    # the scans and the keyed kernel: one kernel a call (cumsum is the
+    # library's own; a route is the tensor code and kernels it replaced)
+    one_kernel = {"scan_f32": "scan_kernel", "scan_f64": "scan_kernel",
+                  "segscan": "scan_kernel", "scan_by_key": "by_key_kernel",
+                  "scan_by_key_excl_init": "by_key_kernel",
+                  "reduce_by_key": "by_key_kernel"}
     for name, fn in scan_calls.items():
         per_kernel, _ = profile_call(fn, KERNEL_REPS)
         prof[name] = sum(per_kernel.values())
-        if not name.startswith("cumsum"):
+        if name in one_kernel:
             check(len(per_kernel) == 1
-                  and any("scan_kernel" in k_ for k_ in per_kernel),
+                  and any(one_kernel[name] in k_ for k_ in per_kernel),
                   f"a {name} call is not one kernel: {per_kernel}")
     kernels["scan"].update(device_us=prof["scan_f32"],
                            library_device_us=prof["cumsum_f32"])
     kernels["segscan"].update(device_us=prof["segscan"])
+    kernels["scan_by_key"].update(
+        device_us=prof["scan_by_key"],
+        route_device_us=prof["scan_by_key_route"],
+        exclusive_init_device_us=prof["scan_by_key_excl_init"],
+        exclusive_init_route_device_us=prof["scan_by_key_excl_init_route"])
+    kernels["reduce_by_key"].update(
+        device_us=prof["reduce_by_key"],
+        route_device_us=prof["reduce_by_key_route"])
     check(all(v > 0 for v in prof.values()),
           f"the profiler saw no kernel of a call: {prof}")
     report("profile_device_us_per_call", prof)
@@ -2584,11 +2711,14 @@ def main() -> int:
          "vexcl_tpu/ops/pallas_scan.py:70, "
          "vexcl_tpu/ops/pallas_monoid_scan.py:27", "scan"),
         ("segscan", "cuda", "vexcl_tpu_torch/csrc/scan.cu",
-         "vexcl_tpu/ops/pallas_segscan.py:53, vexcl_tpu/ops/pallas_rbk.py:50",
-         "segscan"),
+         "vexcl_tpu/ops/pallas_segscan.py:53", "segscan"),
         ("compact", "cuda", "vexcl_tpu_torch/csrc/compact.cu",
-         "vexcl_tpu/ops/pallas_compact.py:72, vexcl_tpu/ops/pallas_rbk.py:50",
-         "compact"),
+         "vexcl_tpu/ops/pallas_compact.py:72", "compact"),
+        ("reduce_by_key", "cuda", "vexcl_tpu_torch/csrc/by_key.cuh",
+         "vexcl_tpu/ops/pallas_rbk.py:50", "reduce_by_key"),
+        ("scan_by_key", "cuda", "vexcl_tpu_torch/csrc/by_key.cuh",
+         "vexcl_tpu/ops/pallas_segscan.py:53, "
+         "vexcl_tpu/ops/scan_by_key.py:62-125", "scan_by_key"),
         ("philox_bits", "cuda", "vexcl_tpu_torch/csrc/philox.cu",
          "vexcl_tpu/ops/random.py:141", "philox"),
         ("custom_kernel", "cuda", "vexcl_tpu_torch/backend.py",

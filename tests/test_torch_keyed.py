@@ -9,8 +9,11 @@ its public API (tuple keys, ``key_eq``, ``init``, max/min, a custom op);
 and ``reduce_by_key`` against its fused path (``_reduce_by_key_fused``)
 and its compact path (``_reduce_by_key_compact``), both in interpret
 mode, on the key patterns of tests/test_algorithms.py, and against its
-public API for max/min, ``key_eq`` (each run reports its first key) and
-passed containers.
+public API for max/min, ``key_eq`` (each run reports its first key),
+passed containers, tuples of keys of mixed widths, f32/f64 keys with
+-0.0/+0.0 and NaN (each run reports its tail's key) and f64, i64 and
+bf16 values.  On the CPU the port's keyed calls with a standard monoid
+run the plain versions of ops/cuda_by_key.py.
 
 Tolerances: keys, counts, MAX/MIN and integer results exactly; f32 sums
 2e-5 relative (reduce_by_key, as tests/test_algorithms.py) or 1e-5
@@ -147,26 +150,47 @@ def _keys(rng, n):
     return k1, k2
 
 
+def _key_set(name, rng, n):
+    """The key vectors of a case: one i32 vector, an (i32, i64) tuple, a
+    tuple of 1-, 2-, 4- and 8-byte keys (bool among them), or f32 and f64
+    keys with runs of mixed -0.0/+0.0 (one [-0.0, +0.0] run at 10) and NaN
+    keys (each a run of its own)."""
+    k1, k2 = _keys(rng, n)
+    if name == "one":
+        return [k1]
+    if name == "tuple":
+        return [k1, k2]
+    if name == "mixed_widths":
+        return [(k1 // 3).astype(np.int16), k2.astype(bool),
+                (k1 % 5).astype(np.int8), k1.astype(np.int64)]
+    f = (k1 // 50).astype(np.float32) - 1
+    f[f == 0] *= np.where(rng.random(int((f == 0).sum())) < 0.5, -1, 1)
+    f[[8, 9, 10, 11, 12]] = [5.0, 6.0, -0.0, 0.0, 7.0]
+    f[rng.random(n) < 0.01] = np.nan
+    g = np.where(rng.random(n) < 0.5, -0.0, 0.0)
+    return [f, g]
+
+
 @pytest.mark.parametrize("init", [None, 2.5])
 @pytest.mark.parametrize("exclusive", [False, True])
 @pytest.mark.parametrize("mono", ["add", "max", "min"])
-@pytest.mark.parametrize("tuple_keys", [False, True])
-def test_scan_by_key_matches_jax(ctx1, tctx, tuple_keys, mono, exclusive,
-                                 init):
+@pytest.mark.parametrize("keys", ["one", "tuple", "mixed_widths",
+                                  "signed_zero"])
+def test_scan_by_key_matches_jax(ctx1, tctx, keys, mono, exclusive, init):
     rng = np.random.default_rng(73)
     n = 20011
-    k1, k2 = _keys(rng, n)
+    hk = _key_set(keys, rng, n)
     x = rng.standard_normal(n)
-    jk = [vex.vector(data=k, context=ctx1) for k in (k1, k2)]
-    tk = [vt.vector(data=k, context=tctx) for k in (k1, k2)]
+    jk = [vex.vector(data=k, context=ctx1) for k in hk]
+    tk = [vt.vector(data=k, context=tctx) for k in hk]
     jx = vex.vector(data=x, context=ctx1)
     tx = vt.vector(data=x, context=tctx)
     name = None if mono == "add" else mono
     jfn = vex.exclusive_scan_by_key if exclusive else vex.inclusive_scan_by_key
     tfn = vt.exclusive_scan_by_key if exclusive else vt.inclusive_scan_by_key
-    want = jfn(tuple(jk) if tuple_keys else jk[0], jx, init=init,
+    want = jfn(tuple(jk) if keys != "one" else jk[0], jx, init=init,
                op_name=name)
-    got = tfn(tuple(tk) if tuple_keys else tk[0], tx, init=init,
+    got = tfn(tuple(tk) if keys != "one" else tk[0], tx, init=init,
               op_name=name)
     assert got.dtype == torch.float64
     _close(got, want, TOL[np.float64], exact=mono != "add")
@@ -249,25 +273,39 @@ def test_reduce_by_key_max_min_match_jax_fused(ctx1, tctx, mono, pattern):
     _close(tv, wv, 0, exact=True)
 
 
-@pytest.mark.parametrize("dt", [np.float32, np.float64, np.int32])
-def test_reduce_by_key_tuple_keys_and_containers(ctx1, tctx, dt):
+@pytest.mark.parametrize("dt", [np.float32, np.float64, np.int32, np.int64,
+                                "bfloat16"])
+@pytest.mark.parametrize("keys", ["tuple", "mixed_widths", "signed_zero"])
+def test_reduce_by_key_tuple_keys_and_containers(ctx1, tctx, keys, dt):
+    """Tuples of keys of one or mixed widths, float keys with -0.0/+0.0 and
+    NaN, values of every type the kernel takes, into passed containers:
+    each run's key is its tail's, bit for bit.  bf16 sums: the JAX path
+    adds in bf16, the port in f32 (2e-2 of the largest magnitude)."""
+    import ml_dtypes
+
     rng = np.random.default_rng(77)
     n = 30001
-    k1, k2 = _keys(rng, n)
-    x = rng.integers(-50, 50, n).astype(dt)
-    jk = tuple(vex.vector(data=k, context=ctx1) for k in (k1, k2))
-    tk = tuple(vt.vector(data=k, context=tctx) for k in (k1, k2))
+    hk = _key_set(keys, rng, n)
+    x = rng.integers(-50, 50, n).astype(
+        ml_dtypes.bfloat16 if dt == "bfloat16" else dt)
+    jk = tuple(vex.vector(data=k, context=ctx1) for k in hk)
+    tk = tuple(vt.vector(data=k, context=tctx) for k in hk)
     wk, wv, wm = vex.reduce_by_key(jk, vex.vector(data=x, context=ctx1))
-    ok = (vt.vector(5, dtype=np.int32, context=tctx),
-          vt.vector(5, dtype=np.int64, context=tctx))
-    ov = vt.vector(5, dtype=dt, context=tctx)
+    ok = tuple(vt.vector(5, dtype=k.dtype, context=tctx) for k in hk)
+    ov = vt.vector(5, dtype=x.dtype, context=tctx)
     gk, gv, gm = vt.reduce_by_key(tk, vt.vector(data=x, context=tctx),
                                   okeys=ok, ovals=ov)
     assert gm == wm and gv is ov and all(a is b for a, b in zip(gk, ok))
-    assert ov.size == gm and ov.dtype == vt.dtype_of(dt)
+    assert ov.size == gm and ov.dtype == vt.dtype_of(x.dtype)
     for g, w in zip(gk, wk):
-        _close(g, w, 0, exact=True)
-    _close(gv, wv, 0, exact=True)             # integer-valued sums
+        g, w = _np(g), np.asarray(w)
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g.view(np.uint8), w.view(np.uint8))
+    if dt == "bfloat16":
+        _close(gv.to_numpy().astype(np.float32),
+               np.asarray(wv).astype(np.float32), 2e-2)
+    else:
+        _close(gv, wv, 0, exact=True)         # integer-valued sums
 
 
 def test_reduce_by_key_key_eq_reports_first_key(ctx1, tctx):

@@ -51,7 +51,10 @@ LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "vexcl_dia": ("dia_spmv.cu",),
     "vexcl_sell": ("spmv_sell.cu",),
     "vexcl_stencil": ("stencil.cu",),
-    "vexcl_scan": ("scan.cu",),
+    "vexcl_scan": ("scan.cu", "scan_common.cuh"),
+    "vexcl_by_key": ("by_key.cu", "by_key.cuh", "scan_common.cuh"),
+    "vexcl_by_key_wide": ("by_key_wide.cu", "by_key.cuh", "scan_common.cuh"),
+    "vexcl_by_key_bf16": ("by_key_bf16.cu", "by_key.cuh", "scan_common.cuh"),
     "vexcl_compact": ("compact.cu",),
     "vexcl_philox": ("philox.cu",),
 }

@@ -3,15 +3,20 @@
 Port of ``vexcl_tpu/ops/scan_by_key.py`` (vexcl/scan_by_key.hpp:67-757).
 A segment is a run of equal keys: one key vector or a tuple of them (the
 reference's fusion-tuple keys), or runs under a custom ``key_eq(*left,
-*right)`` predicate over neighbouring key values.  The head flags come
-from one plain tensor comparison (``segment_flags``), as the JAX package
-derives them in XLA; then the three standard monoids run the segmented
-scan kernel of ``cuda_scan.py`` and a custom ``op`` runs the pair monoid
+*right)`` predicate over neighbouring key values.  The three standard
+monoids without ``key_eq`` are one launch of the keyed kernel of
+``cuda_by_key.py``, which computes the head flags from the keys and
+folds the exclusive shift and ``init`` in itself (on the CPU, its plain
+version).  A Python ``key_eq`` or a custom ``op`` cannot enter a CUDA
+kernel: there the head flags come from one plain tensor comparison
+(``segment_flags``), as the JAX package derives them in XLA, a standard
+monoid runs the segmented scan kernel of ``cuda_scan.py`` and a custom
+``op`` the pair monoid
 
     (f1, v1) . (f2, v2) = (f1 | f2, f2 ? v2 : op(v1, v2))
 
-through ``associative_scan``, on every device.  Exclusive scans give
-each head ``init`` (0 without one) and every other position
+through ``associative_scan``, and the epilogue is tensor code.  Exclusive
+scans give each head ``init`` (0 without one) and every other position
 ``op(init, previous inclusive value)``, as the JAX package's generic
 path does.  The mesh-distributed scan waits for multi-device contexts.
 """
@@ -23,6 +28,8 @@ from typing import Any, Callable, Optional, Sequence, Tuple, Union
 import torch
 
 from ..vector import host_tensor, vector
+from .cuda_by_key import (scan_by_key_apply, scan_by_key_epilogue,
+                          segment_heads)
 from .cuda_scan import associative_scan, segscan_apply
 from .monoid import monoid_of
 
@@ -40,14 +47,11 @@ def segment_flags(keys, key_eq: Optional[Callable] = None):
     """(flags, key tensors): flags[i] is True where element i starts a
     new segment."""
     ks = _key_tensors(keys)
+    if key_eq is None:
+        return segment_heads(ks), ks
     n = ks[0].shape[0]
-    if key_eq is not None:
-        eq = torch.as_tensor(key_eq(*[k[:-1] for k in ks],
-                                    *[k[1:] for k in ks]), dtype=torch.bool)
-    else:
-        eq = torch.ones(max(n - 1, 0), dtype=torch.bool, device=ks[0].device)
-        for k in ks:
-            eq = eq & (k[:-1] == k[1:])
+    eq = torch.as_tensor(key_eq(*[k[:-1] for k in ks], *[k[1:] for k in ks]),
+                         dtype=torch.bool)
     head = torch.ones(min(n, 1), dtype=torch.bool, device=ks[0].device)
     return torch.cat([head, ~eq.to(head.device)]), ks
 
@@ -69,24 +73,31 @@ def seg_scan(flags: torch.Tensor, x: torch.Tensor, mono: Optional[str],
 def _run(keys, src: vector, dst: Optional[vector], op, op_name, key_eq,
          exclusive: bool, init) -> vector:
     mono, op = monoid_of(op, op_name)
-    fn = op or torch.add
+    x = src.storage
+    if mono is not None and key_eq is None:
+        ks = _key_tensors(keys)
+        # into dst's storage where it is like x and no key (x itself may
+        # be it); else into a new tensor, which dst adopts or copies
+        direct = (dst is not None and dst.dtype == x.dtype
+                  and dst.size == src.size and not any(
+                      k.untyped_storage().data_ptr()
+                      == dst.storage.untyped_storage().data_ptr()
+                      for k in ks))
+        out = scan_by_key_apply(ks, x, mono, exclusive, init,
+                                out=dst.storage if direct else None)
+        if dst is None:
+            return vector._adopt(out, src.context)
+        if not direct:
+            dst._set_storage(out)
+        return dst
     flags, _ = segment_flags(keys, key_eq)
     if dst is None:
         dst = vector(src.size, dtype=src.dtype, context=src.context)
-    x = src.storage
     if x.shape[0] == 0:
         return dst
     incl = seg_scan(flags, x, mono, op)
-    iv = torch.tensor(0 if init is None else init, dtype=x.dtype,
-                      device=x.device)
-    if not exclusive:
-        out = incl if init is None else fn(iv.expand(incl.shape), incl)
-    else:
-        shifted = torch.cat([incl.new_zeros(1), incl[:-1]])
-        rest = shifted if init is None else fn(iv.expand(shifted.shape),
-                                               shifted)
-        out = torch.where(flags, iv.to(rest.dtype), rest)
-    dst._set_storage(out)
+    dst._set_storage(scan_by_key_epilogue(flags, incl, op or torch.add,
+                                          exclusive, init))
     return dst
 
 
