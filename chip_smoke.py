@@ -82,10 +82,15 @@ split across programs) and column maxima with a NaN in f32 and f64 (V2,
 the same bits over two calls, in turns with ``sum`` and ``amax``), a
 ``multi_array`` of 256^3 f64 with slabs written through
 ``indices[i][_][_]`` (the view-assignment kernel, V3) and summed over its
-last axis (V2), a scatter through a permutation (V3, in turns with
+last axis (V2), a scatter through a permutation in f32 and f64 (form A of
+the scatter kernels, ``csrc/scatter.cu``, in turns with
 ``index_copy_``), the histogram ``eval(atomic_add(permutation(k)(h),
-1))`` of 2^24 i32 keys into 2^16 bins (in turns with ``bincount``) and an
-f32 atomic add of values, ``any_of``/``all_of`` (the map-reduce), and
+1))`` of 2^24 i32 keys into 2^16 bins (form B, in turns with
+``bincount``) and an f32 atomic add of values (form B, in turns with
+``index_add_``), each API call launching its form and neither V3's
+Triton kernel nor K1, and V3's Triton kernel on the same scatter and
+histogram with the route turned off, ``any_of``/``all_of`` (the
+map-reduce), and
 ``tensordot`` of two 4096^2 f32 views.  Last, after
 every solver phase (so that no solver follows
 these timings' profiler session or cuSPARSE call), the device time per
@@ -619,10 +624,14 @@ def main() -> int:
     from vexcl_tpu_torch.expr.triton_emit import (assign, assign_indexed,
                                                   assign_multi,
                                                   assign_multi_plain,
-                                                  assign_plain,
-                                                  assign_to_view_plain)
+                                                  assign_plain)
     from vexcl_tpu_torch.expr.triton_emit import (
         assign_to_view as assign_to_view_kernel)
+    from vexcl_tpu_torch.expr.triton_emit import _scatter_operands
+    from vexcl_tpu_torch.ops import cuda_scatter
+    from vexcl_tpu_torch.ops.cuda_scatter import (scatter_plain,
+                                                  scatter_privatized,
+                                                  scatter_ranges)
     from vexcl_tpu_torch.ops.triton_reduce_view import (prepare_reduce_view,
                                                         reduce_view_apply,
                                                         reduce_view_plain)
@@ -664,7 +673,9 @@ def main() -> int:
                 "philox": philox_bits, "custom": vex.CustomKernel,
                 "multi": assign_multi, "reduce_multi": map_reduce_multi,
                 "indexed": assign_indexed, "reduce_view": reduce_view_apply,
-                "to_view": assign_to_view_kernel}
+                "to_view": assign_to_view_kernel,
+                "scatter_ranges": scatter_ranges,
+                "scatter_privatized": scatter_privatized}
     main_launches = {}
 
     def counted(keys, fn):
@@ -2333,8 +2344,10 @@ def main() -> int:
                 out["ms"] = cuda_ms(fn, KERNEL_REPS)
                 out["library_ms"] = None
             per_kernel, _ = profile_call(fn, KERNEL_REPS)
+            names = (kernel_name,) if isinstance(kernel_name, str) \
+                else kernel_name
             out["device_us"] = sum(v for name, v in per_kernel.items()
-                                   if kernel_name in name)
+                                   if any(k_ in name for k_ in names))
             check(out["device_us"] > 0, f"{tag}: the profiler saw no "
                   f"{kernel_name}: {per_kernel}")
             if library is not None:
@@ -2519,53 +2532,126 @@ def main() -> int:
                                                               "colmax",
                                                               "multi_array"))})
 
-        # V3: a scatter through a permutation, a histogram, an f32 atomic add
-        y = vex.vector(nv, context=ctx)
-        api(("to_view",), lambda: vex.permutation(pv)(y).assign(x), 1)
-        vargs = prepare_view_assign(vex.permutation(pv)(y), x)
-        k = torch.zeros(nv, device=dev)
-        p = torch.zeros(nv, device=dev)
-        vargs_k = vargs[:5] + (k,) + vargs[6:]
-        assign_to_view_kernel(*vargs_k)
-        assign_to_view_plain(*vargs[:5], p, *vargs[6:])
+        # V3: the scatter through a permutation (f32, f64: form A of
+        # csrc/scatter.cu), the histogram and the f32 atomic add of values
+        # (form B), each an API call that launches its form alone, then
+        # the form against its plain version and in turns with its
+        # PyTorch call; V3's Triton kernel timed on the same scatter and
+        # histogram with the route turned off (it writes the slabs above)
+        route_names = {"scatter_ranges": ("count_kernel", "rowscan_kernel",
+                                          "distribute_kernel", "build_kernel"),
+                       "scatter_privatized": ("privatized_kernel",)}
+
+        def routed(key, fn):
+            """The API call launches form ``key`` once, V3's Triton kernel
+            and K1 never."""
+            api((key,), fn, 1)
+            check(counters["to_view"].launches == 0
+                  and counters["multi"].launches == 0,
+                  f"{key}: the API call launched V3's Triton kernel or K1")
+
+        def operands(key, vargs):
+            form, idx_, val_, scalar_ = _scatter_operands(*vargs)
+            check(form == key.split("_")[1], f"route sent {form}, not {key}")
+            return idx_, val_, scalar_
+
+        def triton_forced(fn):
+            routed_ = cuda_scatter.route
+            cuda_scatter.route = lambda *a_, **k_: None
+            try:
+                return fn()
+            finally:
+                cuda_scatter.route = routed_
+
         perm64 = perm.long()
-        lib = torch.zeros(nv, device=dev).index_copy_(0, perm64, x.storage)
-        check(bitwise(k, p) and bitwise(k, y.storage) and bitwise(k, lib),
-              "scatter through a permutation differs from its plain version")
-        rec["scatter_f32"] = view_timing(
-            "view_scatter_f32", lambda: assign_to_view_kernel(*vargs_k),
-            lambda: assign_to_view_plain(*vargs[:5], p, *vargs[6:]),
-            3 * 4 * nv, lambda: lib.index_copy_(0, perm64, x.storage),
-            "assign_view_kernel")
+        for dname, dt in (("f32", torch.float32), ("f64", torch.float64)):
+            xs = x if dt == torch.float32 else rand(nv, dt)
+            yt = vex.vector(nv, dtype=dt, context=ctx)
+            routed("scatter_ranges",
+                   lambda: vex.permutation(pv)(yt).assign(xs))
+            vargs = prepare_view_assign(vex.permutation(pv)(yt), xs)
+            idx_, val_, _ = operands("scatter_ranges", vargs)
+            k = torch.zeros(nv, dtype=dt, device=dev)
+            p = torch.zeros_like(k)
+            lib = torch.zeros_like(k).index_copy_(0, perm64, xs.storage)
+            scatter_ranges(k, idx_, val_, "store")
+            scatter_plain(p, idx_, val_, "store")
+            check(bitwise(k, p) and bitwise(k, yt.storage)
+                  and bitwise(k, lib), f"scatter {dname} through a "
+                  "permutation differs from its plain version")
+            rec[f"scatter_{dname}"] = view_timing(
+                f"view_scatter_{dname}",
+                lambda: scatter_ranges(k, idx_, val_, "store"),
+                lambda: scatter_plain(p, idx_, val_, "store"),
+                3 * dt.itemsize * nv,
+                lambda: lib.index_copy_(0, perm64, xs.storage),
+                route_names["scatter_ranges"])
+            if dt == torch.float32:
+                vargs_k = vargs[:5] + (k,) + vargs[6:]
+                k.zero_()
+                triton_forced(lambda: assign_to_view_kernel(*vargs_k))
+                check(bitwise(k, p) and bitwise(k, lib),
+                      "V3's Triton scatter differs")
+                rec["scatter_f32_triton"] = view_timing(
+                    "view_scatter_f32_triton",
+                    lambda: triton_forced(
+                        lambda: assign_to_view_kernel(*vargs_k)),
+                    lambda: scatter_plain(p, idx_, val_, "store"),
+                    3 * 4 * nv, None, "assign_view_kernel")
+            del xs, yt, vargs, idx_, val_, k, p, lib
         keys = torch.randint(0, HIST_BINS, (nv,), generator=gen, device=dev,
                              dtype=torch.int32)
         kv = vex.vector._adopt(keys, ctx)
         hist = vex.vector(HIST_BINS, dtype=np.int32, context=ctx)
-        api(("to_view",), lambda: vex.eval(vex.atomic_add(
-            vex.permutation(kv)(hist), 1)), 1)
+        routed("scatter_privatized", lambda: vex.eval(vex.atomic_add(
+            vex.permutation(kv)(hist), 1)))
         lib = torch.bincount(keys, minlength=HIST_BINS)
         hargs = prepare_view_assign(vex.permutation(kv)(hist), 1, atomic="add")
-        hp = torch.zeros(HIST_BINS, dtype=torch.int32, device=dev)
-        assign_to_view_plain(*hargs[:5], hp, *hargs[6:])
+        hidx, _, hscalar = operands("scatter_privatized", hargs)
+        hk = torch.zeros(HIST_BINS, dtype=torch.int32, device=dev)
+        hp = torch.zeros_like(hk)
+        scatter_privatized(hk, hidx, None, "add", hscalar)
+        scatter_plain(hp, hidx, None, "add", hscalar)
         check(torch.equal(hist.storage.long(), lib)
-              and torch.equal(hp.long(), lib), "histogram differs")
-        hk = torch.zeros_like(hp)
-        hargs_k = hargs[:5] + (hk,) + hargs[6:]
+              and torch.equal(hk.long(), lib) and torch.equal(hp.long(), lib),
+              "histogram differs from bincount")
         rec["histogram_i32"] = view_timing(
-            "view_histogram_i32", lambda: assign_to_view_kernel(*hargs_k),
-            lambda: assign_to_view_plain(*hargs[:5], hp, *hargs[6:]),
+            "view_histogram_i32",
+            lambda: scatter_privatized(hk, hidx, None, "add", hscalar),
+            lambda: scatter_plain(hp, hidx, None, "add", hscalar),
             4 * nv + 4 * HIST_BINS,
             lambda: torch.bincount(keys, minlength=HIST_BINS),
-            "assign_view_kernel")
+            route_names["scatter_privatized"])
+        hargs_k = hargs[:5] + (hk,) + hargs[6:]
+        hk.zero_()
+        triton_forced(lambda: assign_to_view_kernel(*hargs_k))
+        check(torch.equal(hk.long(), lib), "V3's Triton histogram differs")
+        rec["histogram_i32_triton"] = view_timing(
+            "view_histogram_i32_triton",
+            lambda: triton_forced(lambda: assign_to_view_kernel(*hargs_k)),
+            lambda: scatter_plain(hp, hidx, None, "add", hscalar),
+            4 * nv + 4 * HIST_BINS, None, "assign_view_kernel")
         hf = vex.vector(HIST_BINS, context=ctx)
-        api(("to_view",), lambda: vex.eval(vex.atomic_add(
-            vex.permutation(kv)(hf), x)), 1)
-        want = torch.zeros(HIST_BINS, device=dev).index_add_(0, keys.long(),
-                                                             x.storage)
+        routed("scatter_privatized", lambda: vex.eval(vex.atomic_add(
+            vex.permutation(kv)(hf), x)))
+        fargs = prepare_view_assign(vex.permutation(kv)(hf), x, atomic="add")
+        fidx, fval, _ = operands("scatter_privatized", fargs)
+        want = torch.zeros(HIST_BINS, device=dev)
+        scatter_plain(want, fidx, fval, "add")
         _, rel = errors(hf.storage, want)
         check(rel <= 1e-5, f"f32 atomic add of values: rel err {rel}")
-        rec["atomic_add_f32_rel_err"] = rel
-        kernels["to_view"] = dict(
+        fk = torch.zeros(HIST_BINS, device=dev)
+        rec["atomic_add_f32"] = view_timing(
+            "view_atomic_add_f32",
+            lambda: scatter_privatized(fk, fidx, fval, "add"),
+            lambda: scatter_plain(want, fidx, fval, "add"),
+            8 * nv + 4 * HIST_BINS,
+            lambda: torch.zeros(HIST_BINS, device=dev).index_add_(
+                0, fidx, fval), route_names["scatter_privatized"])
+        rec["atomic_add_f32"]["max_rel_err"] = rel
+        keep = ("ms", "library_ms", "device_us", "library_device_us",
+                "host_us", "plain_ms", "bound_ms")
+        kernels["scatter_ranges"] = dict(
             kernel_row(0.0, rec["scatter_f32"]["ms"],
                        rec["scatter_f32"]["plain_ms"],
                        rec["scatter_f32"]["bytes"], 0,
@@ -2574,11 +2660,34 @@ def main() -> int:
             **{k: rec["scatter_f32"][k] for k in (
                 "ms_range", "library_ms_range", "device_us", "host_us",
                 "library_device_us")},
-            others={"histogram_i32": {kk: rec["histogram_i32"][kk] for kk in (
-                "ms", "library_ms", "device_us", "library_device_us",
-                "host_us", "plain_ms", "bound_ms")}})
-        del vargs, vargs_k, k, p, lib, hargs, hargs_k, hk, hp, want, hf, hist
-        del keys, kv, perm64
+            others={"scatter_f64": {kk: rec["scatter_f64"][kk]
+                                    for kk in keep}})
+        kernels["scatter_privatized"] = dict(
+            kernel_row(0.0, rec["histogram_i32"]["ms"],
+                       rec["histogram_i32"]["plain_ms"],
+                       rec["histogram_i32"]["bytes"], 0,
+                       rec["histogram_i32"]["library_ms"]),
+            workload="eval(atomic_add(permutation(k)(h), 1)), 2^24 i32 keys "
+                     "into 2^16 i32 bins",
+            **{k: rec["histogram_i32"][k] for k in (
+                "ms_range", "library_ms_range", "device_us", "host_us",
+                "library_device_us")},
+            others={"atomic_add_f32": {kk: rec["atomic_add_f32"][kk]
+                                       for kk in keep + ("max_rel_err",)}})
+        kernels["to_view"] = dict(
+            kernel_row(0.0, rec["scatter_f32_triton"]["ms"],
+                       rec["scatter_f32_triton"]["plain_ms"],
+                       rec["scatter_f32_triton"]["bytes"], 0,
+                       rec["scatter_f32"]["library_ms"]),
+            workload="permutation(p)(y).assign(x), 2^24 f32, the route off "
+                     "(on the main path: the multi_array slab writes)",
+            **{k: rec["scatter_f32_triton"][k] for k in ("device_us",
+                                                         "host_us")},
+            others={"histogram_i32": {kk: rec["histogram_i32_triton"][kk]
+                                      for kk in keep if kk in
+                                      rec["histogram_i32_triton"]}})
+        del hargs, hargs_k, hk, hp, want, hf, hist, fargs, fidx, fval, fk
+        del keys, kv, perm64, lib, hidx
         # any_of / all_of: one map-reduce launch each
         t_ = 0.5
         xs_ = x.storage
@@ -2735,6 +2844,11 @@ def main() -> int:
         ("assign_to_view", "triton", "vexcl_tpu_torch/expr/triton_emit.py",
          "vexcl_tpu/expr/view.py:66-100, vexcl_tpu/ops/atomic.py:57-124",
          "to_view"),
+        ("scatter_ranges", "cuda", "vexcl_tpu_torch/csrc/scatter.cu",
+         "vexcl_tpu/expr/view.py:66-100, vexcl_tpu/ops/atomic.py:57-124",
+         "scatter_ranges"),
+        ("scatter_privatized", "cuda", "vexcl_tpu_torch/csrc/scatter.cu",
+         "vexcl_tpu/ops/atomic.py:57-124", "scatter_privatized"),
     ]
     check("jax" not in sys.modules and "vexcl_tpu" not in sys.modules,
           "the port imported jax or vexcl_tpu")

@@ -2623,3 +2623,294 @@ def test_spmv_into_its_target_on_the_card(gpu):
     _bitwise(Ap.storage, want)
     p[:] = A * p
     _bitwise(p.storage, want)
+
+
+# -- the scatter kernels (ops/cuda_scatter.py, csrc/scatter.cu) --------------
+#
+# Each form against its plain version on the card (``scatter_plain``):
+# stores, integer add, min and max bitwise; float min and max bitwise to
+# ``scatter_reduce_`` (NaN and +-0.0 included); float add 1e-5 (f32) and
+# 1e-12 (f64) relative to the largest magnitude (atomics sum in no fixed
+# order).  Duplicate indices only under add, min and max.
+
+_SCATTER_TYPES = [torch.float32, torch.float64, torch.int32, torch.int64]
+
+
+def _scatter_data(n, dt, seed, lo=-1000, hi=1000):
+    rng = np.random.default_rng(seed)
+    if dt.is_floating_point:
+        return torch.from_numpy(rng.standard_normal(n) * 100).to(dt)
+    return torch.from_numpy(rng.integers(lo, hi, n)).to(dt)
+
+
+def _scatter_index(target, n, mode, seed, idt=torch.int32, spill=0):
+    """A permutation prefix (unique) for stores, repeated indices else;
+    ``spill`` of them out of range or negative."""
+    rng = np.random.default_rng(seed)
+    if mode == "store":
+        h = rng.permutation(target)[:n] if n <= target else \
+            rng.permutation(n) % target
+        if n > target:
+            h = h[:target]
+    else:
+        h = rng.integers(0, target, n)
+    if spill:
+        at = rng.choice(len(h), spill, replace=False)
+        h[at] = rng.choice([-1, -target, target, target + 7, -target - 3],
+                           spill)
+        if mode == "store":   # a wrapped negative must not meet its twin
+            keep = np.ones(len(h), bool)
+            wrapped = np.where(h < 0, h + target, h)
+            _, first = np.unique(wrapped, return_index=True)
+            keep[:] = False
+            keep[first] = True
+            h = h[keep]
+    return torch.from_numpy(h.astype(np.int64)).to(idt)
+
+
+def _scatter_check(k, p, mode, dt):
+    k, p = k.cpu(), p.cpu()
+    if mode == "add" and dt.is_floating_point:
+        _close(k, p, 1e-5 if dt == torch.float32 else 1e-12)
+    else:
+        _bitwise(k, p)
+
+
+@pytest.mark.parametrize("case", [(1000, 1000), (4096 * 3 + 5, 700),
+                                  ((1 << 20) - 1, 1 << 16),
+                                  ((1 << 21) + 3, (1 << 21) + 3),
+                                  (1 << 20, 1 << 22)])
+@pytest.mark.parametrize("mode", ["store", "add", "min", "max"])
+@pytest.mark.parametrize("dt", _SCATTER_TYPES)
+def test_scatter_ranges_matches_plain(gpu, dt, mode, case):
+    """Form A at sizes below and above the route's thresholds, one
+    partial range, a ragged last range and tile, n below, at and above
+    the target length, i32 and i64 indices with some out of range."""
+    from vexcl_tpu_torch.ops.cuda_scatter import scatter_plain, scatter_ranges
+
+    target, n = case
+    if mode == "store" and n > target:
+        pytest.skip("unique indices: n at most the target")
+    for idt, scalar in ((torch.int32, None), (torch.int64, 3)):
+        idx = _scatter_index(target, n, mode, 1, idt, spill=17).to(
+            gpu.device)
+        y = _scatter_data(target, dt, 2).to(gpu.device)
+        v = None if scalar is not None else \
+            _scatter_data(idx.numel(), dt, 3).to(gpu.device)
+        s = None if v is not None else torch.tensor(scalar, dtype=dt)
+        k, p = y.clone(), y.clone()
+        before = scatter_ranges.launches
+        scatter_ranges(k, idx, v, mode, s)
+        scatter_plain(p, idx, v, mode, s)
+        torch.cuda.synchronize()
+        assert scatter_ranges.launches == before + 1
+        _scatter_check(k, p, mode, dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.int64])
+def test_scatter_ranges_pairs_match_mirror(gpu, dt):
+    """Form A's scratch on the card against its CPU mirror's: the ranges'
+    totals and first pairs and each tile's offsets bit for bit, and each
+    (tile, range) run of pairs the same pairs (the kernel places a run's
+    pairs in the order of its shared-memory atomics, the mirror in the
+    index's); the target bit for bit, for stores."""
+    from vexcl_tpu_torch.ops.cuda_scatter import (_ranges_launch, range_plan,
+                                                  ranges_mirror)
+
+    target, n = (1 << 21) + 3, (1 << 21) - 11
+    idx = _scatter_index(target, n, "store", 4, spill=9)
+    y = _scatter_data(target, dt, 5)
+    v = _scatter_data(idx.numel(), dt, 6)
+    plan = range_plan(target, idx.numel(), y.element_size())
+    k = y.to(gpu.device)
+    got = _ranges_launch(k, idx.to(gpu.device), v.to(gpu.device), "store",
+                         plan=plan, keep=True)
+    m = y.clone()
+    want = ranges_mirror(m, idx, v, "store", plan=plan)
+    torch.cuda.synchronize()
+    cnt = int(want["totals"].sum())
+    assert torch.equal(got["totals"].cpu().long(), want["totals"])
+    assert torch.equal(got["bases"].cpu().long(), want["bases"])
+    assert torch.equal(got["counts"].cpu().long().view(plan.tiles,
+                                                        plan.ranges).t(),
+                       want["offsets"] - want["bases"][:, None])
+    run = torch.repeat_interleave(torch.arange(plan.ranges * plan.tiles),
+                                  want["counts"].t().reshape(-1))
+    gp = got["ppos"][:cnt].cpu().long() & 0xFFFF
+    gv = got["pval"][:cnt].cpu()
+    go = torch.argsort(run * 65536 + gp)
+    wo = torch.argsort(run * 65536 + want["ppos"])
+    assert torch.equal(gp[go], want["ppos"][wo])
+    _bitwise(gv[go], want["pval"][wo])
+    _bitwise(k, m)
+
+
+@pytest.mark.parametrize("case", [(97, 1 << 16), ((1 << 15) + 1, 1 << 20),
+                                  (1 << 16, 1 << 22),
+                                  ((1 << 17) + 5, 1 << 21)])
+@pytest.mark.parametrize("mode", ["add", "min", "max"])
+@pytest.mark.parametrize("dt", _SCATTER_TYPES)
+def test_scatter_privatized_matches_plain(gpu, dt, mode, case):
+    """Form B: a tiny target, one window and a ragged second, two and
+    five windows of f32 (f64's window holds half as many), values and a
+    scalar, i32 and i64 indices with some out of range."""
+    from vexcl_tpu_torch.ops.cuda_scatter import (scatter_plain,
+                                                  scatter_privatized)
+
+    target, n = case
+    for idt, scalar in ((torch.int32, None), (torch.int64, -2)):
+        idx = _scatter_index(target, n, mode, 7, idt, spill=33).to(
+            gpu.device)
+        y = _scatter_data(target, dt, 8).to(gpu.device)
+        v = None if scalar is not None else \
+            _scatter_data(n, dt, 9).to(gpu.device)
+        s = None if v is not None else torch.tensor(scalar, dtype=dt)
+        k, p = y.clone(), y.clone()
+        before = scatter_privatized.launches
+        scatter_privatized(k, idx, v, mode, s)
+        scatter_plain(p, idx, v, mode, s)
+        torch.cuda.synchronize()
+        assert scatter_privatized.launches == before + 1
+        _scatter_check(k, p, mode, dt)
+
+
+@pytest.mark.parametrize("form", ["ranges", "privatized"])
+@pytest.mark.parametrize("mode", ["min", "max"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_scatter_nan_and_signed_zeros(gpu, dt, mode, form):
+    """Float min and max bitwise to ``scatter_reduce_`` on the card with
+    NaN and +-0.0 in the target and in the values (unique indices: with
+    repeated ones the order of +-0.0 is the atomics')."""
+    from vexcl_tpu_torch.ops.cuda_scatter import FORMS, scatter_plain
+
+    target = (1 << 20) + 9 if form == "ranges" else (1 << 15) + 9
+    rng = np.random.default_rng(11)
+    special = np.array([np.nan, 0.0, -0.0, 1.0, -1.0, np.inf, -np.inf])
+    y = torch.from_numpy(rng.choice(special, target)).to(dt)
+    v = torch.from_numpy(rng.choice(special, target)).to(dt)
+    idx = torch.from_numpy(rng.permutation(target)).to(torch.int32)
+    k, p = (t.to(gpu.device) for t in (y, y))
+    FORMS[form](k, idx.to(gpu.device), v.to(gpu.device), mode)
+    scatter_plain(p, idx.to(gpu.device), v.to(gpu.device), mode)
+    torch.cuda.synchronize()
+    _bitwise(k, p)
+
+
+def test_scatter_on_two_streams(gpu):
+    """Both forms enqueued on two streams at once: each result its plain
+    version's."""
+    from vexcl_tpu_torch.ops.cuda_scatter import (scatter_plain,
+                                                  scatter_privatized,
+                                                  scatter_ranges)
+
+    dev = gpu.device
+    target = 1 << 21
+    idx = _scatter_index(target, target, "store", 12).to(dev)
+    keys = torch.randint(0, 1 << 16, (1 << 22,), device=dev,
+                         dtype=torch.int32)
+    vals = _scatter_data(target, torch.float32, 13).to(dev)
+    want_s = torch.zeros(target, device=dev)
+    scatter_plain(want_s, idx, vals, "store")
+    want_h = torch.bincount(keys.long(), minlength=1 << 16).int()
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    outs = []
+    torch.cuda.synchronize()
+    for s in streams:
+        with torch.cuda.stream(s):
+            y = torch.zeros(target, device=dev)
+            h = torch.zeros(1 << 16, dtype=torch.int32, device=dev)
+            for _ in range(3):
+                scatter_ranges(y, idx, vals, "store")
+                h.zero_()
+                scatter_privatized(h, keys, None, "add",
+                                   torch.tensor(1, dtype=torch.int32))
+            outs.append((y, h))
+    torch.cuda.synchronize()
+    for y, h in outs:
+        _bitwise(y, want_s)
+        assert torch.equal(h, want_h)
+
+
+def test_scatter_route_launches(gpu, cpu):
+    """Through the API: the forms ``route`` picks launch their kernels and
+    no ``assign_view_kernel``; the profiler sees only theirs; the other V3
+    forms (slices, ``*=``, small scatters) launch the Triton kernel once
+    an assignment; an expression index and value take one K1 launch
+    first.  Each result equals the CPU's."""
+    from vexcl_tpu_torch.expr.triton_emit import assign_multi, assign_to_view
+    from vexcl_tpu_torch.ops.cuda_scatter import (route, scatter_privatized,
+                                                  scatter_ranges)
+
+    big = 1 << 23
+    assert route("store", torch.float32, big, big) == "ranges"
+    assert route("add", torch.int32, 1 << 16, 1 << 23) == "privatized"
+    assert route("mul", torch.float32, big, big) is None
+    assert route("store", torch.float32, 4096, 4096) is None
+    hp = _scatter_index(big, big, "store", 14)
+    hx = _scatter_data(big, torch.float32, 15)
+    hk = torch.from_numpy(np.random.default_rng(16).integers(
+        0, 1 << 16, 1 << 23)).to(torch.int32)
+    counters = {"ranges": scatter_ranges, "privatized": scatter_privatized,
+                "triton": assign_to_view, "k1": assign_multi}
+    cases = [
+        ("ranges", 0, lambda y, p, x, k, h: vex.permutation(p)(y).assign(x)),
+        ("privatized", 0, lambda y, p, x, k, h: vex.eval(vex.atomic_add(
+            vex.permutation(k)(h), 1))),
+        ("triton", 0, lambda y, p, x, k, h: vex.permutation(p)(y).assign(
+            x, "*=")),
+        ("triton", 0, lambda y, p, x, k, h: y[3:3003:3].assign(x[0:1000])),
+        ("triton", 0, lambda y, p, x, k, h: vex.permutation(p[0:4096])(
+            h).assign(k[0:4096])),
+        ("ranges", 1, lambda y, p, x, k, h: vex.permutation(p * 1)(y).assign(
+            x * 2)),
+    ]
+    for form, k1, case in cases:
+        def run(y, p, x, k, h):
+            case(y, p, x, k, h)
+        vs = [vex.vector(data=a, context=gpu)
+              for a in (hx * 0, hp, hx, hk, torch.zeros(1 << 16,
+                                                        dtype=torch.int32))]
+        before = {key: c.launches for key, c in counters.items()}
+        run(*vs)
+        torch.cuda.synchronize()
+        got = {key: c.launches - before[key] for key, c in counters.items()}
+        want = {key: int(key == form) for key in counters}
+        want["k1"] = k1
+        assert got == want, (form, got)
+        cv = [vex.vector(data=a, context=cpu)
+              for a in (hx * 0, hp, hx, hk, torch.zeros(1 << 16,
+                                                        dtype=torch.int32))]
+        run(*cv)
+        for a, b in zip(vs, cv):
+            _bitwise(a.storage, b.storage)
+        if form != "triton" and not k1:
+            names = [name for name, _ in _kernels_launched(
+                lambda: run(*vs), reps=2)]
+            assert not any("assign_view_kernel" in name for name in names)
+            assert any(("build_kernel" if form == "ranges"
+                        else "privatized_kernel") in name for name in names), \
+                names
+
+
+def test_scatter_truncates_i64_indices(gpu):
+    """i64 indices above 2^31 are truncated to i32 first (then wrapped
+    and dropped), as the reference does."""
+    from vexcl_tpu_torch.ops.cuda_scatter import (scatter_plain,
+                                                  scatter_privatized,
+                                                  scatter_ranges)
+
+    target = 1 << 20
+    base = _scatter_index(target, target, "store", 17, torch.int64)
+    shift = torch.from_numpy(np.random.default_rng(18).integers(
+        -3, 4, target)) << 32
+    idx = (base + shift).to(gpu.device)
+    assert idx.abs().max().item() > 1 << 31
+    v = _scatter_data(target, torch.float32, 19).to(gpu.device)
+    for fn, mode in ((scatter_ranges, "store"), (scatter_ranges, "max"),
+                     (scatter_privatized, "add")):
+        k = torch.zeros(target, device=gpu.device)
+        p = torch.zeros_like(k)
+        fn(k, idx, v, mode)
+        scatter_plain(p, idx, v, mode)
+        torch.cuda.synchronize()
+        _scatter_check(k, p, mode, torch.float32)

@@ -57,6 +57,7 @@ LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "vexcl_by_key_bf16": ("by_key_bf16.cu", "by_key.cuh", "scan_common.cuh"),
     "vexcl_compact": ("compact.cu",),
     "vexcl_philox": ("philox.cu",),
+    "vexcl_scatter": ("scatter.cu",),
 }
 
 #: nvcc flags of a user kernel (``backend.cuda_kernel``): a cubin, which

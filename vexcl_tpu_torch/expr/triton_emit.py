@@ -68,13 +68,17 @@ from __future__ import annotations
 import struct
 from typing import Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .._build import Pointer
 from ..cache import kernel_cache
 from ..config import config
+from ..ops import cuda_scatter
 from ..types import code_of, dtype_of_code, scalar_code
-from .node import Analysis, EmitEnv, Expr
+from .node import (Analysis, ArrayTerminal, BinOp, CastExpr,
+                   ConstantTerminal, EmitEnv, Expr, ScalarTerminal, UnOp,
+                   VectorTerminal)
 
 __all__ = ["Emitter", "assign_source", "assign_multi_source", "assign",
            "assign_plain", "assign_multi", "assign_multi_plain",
@@ -881,11 +885,100 @@ def assign_to_view_plain(value: Expr, view: Expr, analysis: Analysis, types,
                                           "mul": "prod"}[mode])
 
 
+_HOST_SCALAR_NODES = (ScalarTerminal, ConstantTerminal, CastExpr, UnOp,
+                      BinOp)
+
+
+def _host_scalar(value: Expr, analysis: Analysis, types, leaves,
+                 dtype: torch.dtype):
+    """``value`` as a numpy scalar of ``dtype`` where it is computed from
+    host numbers alone (scalars, constants, casts and arithmetic), as its
+    plain version computes it; else None.  A cast of one Python or numpy
+    number is cast by numpy (as ``Tensor.to`` casts), the rest evaluated
+    by the plain version on the CPU."""
+    np_type = cuda_scatter.NP_TYPES.get(dtype)
+    if np_type is None:
+        return None
+    if isinstance(value, CastExpr) and value.dtype == dtype \
+            and isinstance(value.children[0], ScalarTerminal):
+        v = leaves[analysis.slot_of[id(value.children[0])]]
+        if isinstance(v, (int, float, np.integer, np.floating)) \
+                and not isinstance(v, bool):
+            return np.asarray(v).astype(np_type)[()]
+    stack = [value]
+    while stack:
+        e = stack.pop()
+        if not isinstance(e, _HOST_SCALAR_NODES) or (
+                isinstance(e, ScalarTerminal) and isinstance(
+                    leaves[analysis.slot_of[id(e)]], torch.Tensor)):
+            return None
+        stack.extend(e.children)
+    env = EmitEnv({nid: leaves[s] for nid, s in analysis.slot_of.items()},
+                  types, 1, torch.device("cpu"))
+    return torch.as_tensor(value.emit_cached(env)).to(dtype).numpy()[()]
+
+
+def _leaf_tensor(node: Expr, analysis: Analysis, leaves, n: int, dtypes,
+                 device: torch.device):
+    """The tensor of a vector or array leaf of n elements of one of
+    ``dtypes`` on ``device``, or None."""
+    if not isinstance(node, (VectorTerminal, ArrayTerminal)):
+        return None
+    t = leaves[analysis.slot_of[id(node)]]
+    if isinstance(t, torch.Tensor) and t.ndim == 1 and t.shape[0] == n \
+            and t.dtype in dtypes and t.device == device \
+            and t.is_contiguous():
+        return t
+    return None
+
+
+def _scatter_operands(value: Expr, view: Expr, analysis: Analysis, types,
+                      leaves, out: torch.Tensor, mode: str, n: int):
+    """(form, index, values or None, scalar or None) where
+    ``cuda_scatter.route`` sends the assignment to a CUDA kernel, else
+    None.  A leaf index of i32 or i64 and a leaf value of the target's
+    type are read as they are; otherwise one K1 launch evaluates the i32
+    index and the cast value into temporaries.  An index that shares the
+    target's memory is copied first (the kernels write the target while
+    other blocks still read the index)."""
+    from .view import PermutationView
+
+    if not isinstance(view, PermutationView):
+        return None
+    scalar = _host_scalar(value, analysis, types, leaves, out.dtype) \
+        if mode in cuda_scatter.ROUTE_MODES else None
+    form = cuda_scatter.route(mode, out.dtype, out.numel(), n)
+    if form is None:
+        return None
+    inner = view.children[1]
+    idx = _leaf_tensor(inner, analysis, leaves, n,
+                       (torch.int32, torch.int64), out.device)
+    val = None
+    if scalar is None and isinstance(value, CastExpr) \
+            and value.dtype == out.dtype:
+        val = _leaf_tensor(value.children[0], analysis, leaves, n,
+                           (out.dtype,), out.device)
+    need = ([CastExpr(torch.int32, inner)] if idx is None else []) + (
+        [value] if scalar is None and val is None else [])
+    if need:
+        from .compile import evaluate_multi
+
+        got = list(evaluate_multi(need, n=n, device=out.device))
+        idx = got.pop(0) if idx is None else idx
+        val = got.pop(0) if scalar is None and val is None else val
+    if idx.untyped_storage().data_ptr() == out.untyped_storage().data_ptr():
+        idx = idx.clone()
+    return form, idx, val, scalar
+
+
 def assign_to_view(value: Expr, view: Expr, analysis: Analysis, types,
                    leaves, out: torch.Tensor, mode: str, n: int) -> None:
     """Write the elementwise ``value`` over n elements through ``view``
     into ``out``, the storage of the vector it views, by ``mode``
-    (``TARGET_MODES``), in one launch."""
+    (``TARGET_MODES``): where ``cuda_scatter.route`` sends the assignment
+    to a CUDA kernel (a permutation target), through it (its inputs read
+    as they are, or evaluated by one K1 launch first), else in one launch
+    of the view-assignment kernel."""
     if mode not in TARGET_MODES:
         raise ValueError(f"unknown view-assignment mode {mode!r}")
     if out.device.type == "cpu":
@@ -896,6 +989,12 @@ def assign_to_view(value: Expr, view: Expr, analysis: Analysis, types,
         raise NotImplementedError(f"no view-assignment kernel for "
                                   f"{out.device}")
     if n == 0 or out.numel() == 0:
+        return
+    ops = _scatter_operands(value, view, analysis, types, leaves, out, mode,
+                            n)
+    if ops is not None:
+        form, idx, val, scalar = ops
+        cuda_scatter.FORMS[form](out, idx, val, mode, scalar)
         return
     # the view's structure: its index children are roots of the analysis,
     # the view itself is not
@@ -913,5 +1012,6 @@ def assign_to_view(value: Expr, view: Expr, analysis: Analysis, types,
     assign_to_view.launches += 1
 
 
-#: launches of the view-assignment kernel (V3; not of its plain version)
+#: launches of the view-assignment kernel (V3's Triton kernel; not of its
+#: plain version, nor of the CUDA scatter kernels)
 assign_to_view.launches = 0
