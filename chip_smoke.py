@@ -76,7 +76,12 @@ slc[r(1, n-1), r(1, n-1)](x)`` in f32 and f64, a transpose through
 a ``raw_pointer`` gather at 2^24 f32 (the assignment kernel's indexed
 loads, V1, each bitwise against its plain version and over two calls,
 in one launch, timed in turns with ``torch.mul``, ``.t().contiguous()``,
-``permute(...).contiguous()`` and ``index_select``), ``reduce_view``
+``permute(...).contiguous()`` and ``index_select``; the permutation
+with the gather's route turned off), the gather through the permutation
+in f32 and f64 (the gather form, ``csrc/gather.cu``: one call of its
+three kernels an API call and no V1 launch, bitwise against its plain
+version and ``index_select``, in turns with ``index_select``, with the
+device µs of each kernel), ``reduce_view``
 row sums in f32 and f64, column sums in f32 and f64 (the reduced range
 split across programs) and column maxima with a NaN in f32 and f64 (V2,
 the same bits over two calls, in turns with ``sum`` and ``amax``), a
@@ -627,8 +632,10 @@ def main() -> int:
                                                   assign_plain)
     from vexcl_tpu_torch.expr.triton_emit import (
         assign_to_view as assign_to_view_kernel)
-    from vexcl_tpu_torch.expr.triton_emit import _scatter_operands
-    from vexcl_tpu_torch.ops import cuda_scatter
+    from vexcl_tpu_torch.expr.triton_emit import (_gather_operands,
+                                                  _scatter_operands)
+    from vexcl_tpu_torch.ops import cuda_gather, cuda_scatter
+    from vexcl_tpu_torch.ops.cuda_gather import gather_plain, gather_ranges
     from vexcl_tpu_torch.ops.cuda_scatter import (scatter_plain,
                                                   scatter_privatized,
                                                   scatter_ranges)
@@ -675,7 +682,8 @@ def main() -> int:
                 "indexed": assign_indexed, "reduce_view": reduce_view_apply,
                 "to_view": assign_to_view_kernel,
                 "scatter_ranges": scatter_ranges,
-                "scatter_privatized": scatter_privatized}
+                "scatter_privatized": scatter_privatized,
+                "gather_ranges": gather_ranges}
     main_launches = {}
 
     def counted(keys, fn):
@@ -2348,6 +2356,10 @@ def main() -> int:
                 else kernel_name
             out["device_us"] = sum(v for name, v in per_kernel.items()
                                    if any(k_ in name for k_ in names))
+            if len(names) > 1:
+                out["device_us_by_kernel"] = {
+                    k_: sum(v for name, v in per_kernel.items() if k_ in name)
+                    for k_ in names}
             check(out["device_us"] > 0, f"{tag}: the profiler saw no "
                   f"{kernel_name}: {per_kernel}")
             if library is not None:
@@ -2418,10 +2430,45 @@ def main() -> int:
         perm = torch.randperm(nv, generator=gen, device=dev).to(torch.int32)
         pv = vex.vector._adopt(perm, ctx)
         y = vex.vector(nv, context=ctx)
-        rec["permutation_f32"] = v1(
-            "view_permutation_f32", vex.permutation(pv)(x), y,
-            lambda: torch.index_select(x.storage, 0, perm), 3 * 4 * nv,
-            lambda: torch.index_select(x.storage, 0, perm))
+        # the gather through the permutation: the form of csrc/gather.cu
+        # (f32, f64) on the main path, V1's single pass with the route off
+        gather_names = ("partition_kernel", "gather_kernel",
+                        "restore_kernel")
+        for dname, dt in (("f32", torch.float32), ("f64", torch.float64)):
+            xg = x if dt == torch.float32 else rand(nv, dt)
+            yg = y if dt == torch.float32 else vex.vector(nv, dtype=dt,
+                                                          context=ctx)
+            api(("gather_ranges",),
+                lambda: yg.assign(vex.permutation(pv)(xg)), 1)
+            check(counters["indexed"].launches == 0,
+                  f"gather {dname}: the API call launched V1")
+            gops = _gather_operands(*prepare(vex.permutation(pv)(xg), nv,
+                                             dev), yg.storage)
+            check(gops is not None, f"gather {dname}: the route left it")
+            lib = torch.index_select(xg.storage, 0, perm)
+            k = torch.empty_like(lib)
+            p = torch.empty_like(lib)
+            gather_ranges(k, *gops)
+            gather_plain(p, *gops)
+            check(bitwise(k, p) and bitwise(k, lib)
+                  and bitwise(k, yg.storage), f"gather {dname} through a "
+                  "permutation differs from its plain version or "
+                  "index_select")
+            rec[f"gather_{dname}"] = view_timing(
+                f"view_gather_{dname}", lambda: gather_ranges(k, *gops),
+                lambda: gather_plain(p, *gops), 3 * dt.itemsize * nv,
+                lambda: torch.index_select(xg.storage, 0, perm),
+                gather_names)
+            del xg, yg, gops, lib, k, p
+        routed_ = cuda_gather.route
+        cuda_gather.route = lambda *a_, **k_: False
+        try:
+            rec["permutation_f32"] = v1(
+                "view_permutation_f32", vex.permutation(pv)(x), y,
+                lambda: torch.index_select(x.storage, 0, perm), 3 * 4 * nv,
+                lambda: torch.index_select(x.storage, 0, perm))
+        finally:
+            cuda_gather.route = routed_
         i = vex.element_index(0, nv)
         rec["pointer_f32"] = v1(
             "view_pointer_f32", vex.raw_pointer(x)[(i * 7 + 3) % nv] + x, y,
@@ -2438,7 +2485,8 @@ def main() -> int:
             others={k: {kk: v[kk] for kk in (
                 "ms", "library_ms", "device_us", "library_device_us",
                 "host_us", "plain_ms", "bound_ms") if kk in v}
-                for k, v in rec.items() if k != "interior_f32"})
+                for k, v in rec.items()
+                if k != "interior_f32" and not k.startswith("gather_")})
 
         def v2(tag, node, library, nbytes, dname, exact):
             """A V2 reduction: one launch through the API, the same bits
@@ -2651,6 +2699,19 @@ def main() -> int:
         rec["atomic_add_f32"]["max_rel_err"] = rel
         keep = ("ms", "library_ms", "device_us", "library_device_us",
                 "host_us", "plain_ms", "bound_ms")
+        kernels["gather_ranges"] = dict(
+            kernel_row(0.0, rec["gather_f32"]["ms"],
+                       rec["gather_f32"]["plain_ms"],
+                       rec["gather_f32"]["bytes"], 0,
+                       rec["gather_f32"]["library_ms"]),
+            workload="y[:] = permutation(p)(x), 2^24 f32",
+            **{k: rec["gather_f32"][k] for k in (
+                "ms_range", "library_ms_range", "device_us", "host_us",
+                "library_device_us", "device_us_by_kernel")},
+            others={"gather_f64": {kk: rec["gather_f64"][kk] for kk in keep
+                                   + ("device_us_by_kernel",)},
+                    "v1_route_off_f32": {
+                        kk: rec["permutation_f32"][kk] for kk in keep}})
         kernels["scatter_ranges"] = dict(
             kernel_row(0.0, rec["scatter_f32"]["ms"],
                        rec["scatter_f32"]["plain_ms"],
@@ -2849,6 +2910,8 @@ def main() -> int:
          "scatter_ranges"),
         ("scatter_privatized", "cuda", "vexcl_tpu_torch/csrc/scatter.cu",
          "vexcl_tpu/ops/atomic.py:57-124", "scatter_privatized"),
+        ("gather_ranges", "cuda", "vexcl_tpu_torch/csrc/gather.cu",
+         "vexcl_tpu/expr/view.py:283-286", "gather_ranges"),
     ]
     check("jax" not in sys.modules and "vexcl_tpu" not in sys.modules,
           "the port imported jax or vexcl_tpu")

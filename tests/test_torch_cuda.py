@@ -2072,8 +2072,10 @@ def _on_both(gpu, cpu, fn, *arrays):
                                 torch.int64, torch.bfloat16])
 def test_indexed_loads_match_plain(gpu, n, dt):
     """V1: every view kind and a nested one, out-of-range indices
-    included, bitwise; one launch per assignment."""
+    included, bitwise; one launch per assignment (of the gather form,
+    ``ops/cuda_gather.py``, where its route takes the permutation)."""
     from vexcl_tpu_torch.expr.triton_emit import assign_indexed
+    from vexcl_tpu_torch.ops import cuda_gather
 
     big = n > (1 << 20)
     if big and dt not in (torch.float32, torch.int32):
@@ -2097,10 +2099,13 @@ def test_indexed_loads_match_plain(gpu, n, dt):
     for e in exprs:
         _bitwise(*_both(e, n, dt, gpu.device))
     y = vex.vector(n, dtype=dt, context=gpu)
-    before = assign_indexed.launches
+    before = assign_indexed.launches, cuda_gather.gather_ranges.launches
     y[:] = vex.permutation(pv)(x)
     torch.cuda.synchronize()
-    assert assign_indexed.launches == before + 1
+    routed = cuda_gather.route(dt, L, n, torch.int32)
+    assert (assign_indexed.launches - before[0],
+            cuda_gather.gather_ranges.launches - before[1]) == (
+                (0, 1) if routed else (1, 0))
 
 
 def test_one_compile_for_a_loop_over_indices(gpu):
@@ -2914,3 +2919,242 @@ def test_scatter_truncates_i64_indices(gpu):
         scatter_plain(p, idx, v, mode)
         torch.cuda.synchronize()
         _scatter_check(k, p, mode, torch.float32)
+
+
+# -- the gather through a permutation (ops/cuda_gather.py, csrc/gather.cu) ---
+#
+# The form against its plain version (``gather_plain``) and
+# ``index_select`` on the card, bitwise (a gather moves bits; the fill of
+# an index out of range is the plain version's NaN or least integer).
+
+_GATHER_TYPES = [torch.float32, torch.float64, torch.int32, torch.int64]
+
+
+def _gather_index(src_len, n, seed, idt=torch.int32, spill=0):
+    """A permutation's prefix where n is at most the source, uniform
+    indices otherwise; ``spill`` of them negative (wrapping) or out of
+    range."""
+    rng = np.random.default_rng(seed)
+    h = rng.permutation(src_len)[:n] if n <= src_len else \
+        rng.integers(0, src_len, n)
+    if spill:
+        at = rng.choice(n, spill, replace=False)
+        h[at] = rng.choice([-1, -src_len, src_len, src_len + 7,
+                            -src_len - 3, 1 << 30], spill)
+    return torch.from_numpy(h.astype(np.int64)).to(idt)
+
+
+def _gather_valid(idx, src_len):
+    j = idx.long().cpu()
+    j = torch.where(j < 0, j + src_len, j)
+    return (j >= 0) & (j < src_len), j
+
+
+@pytest.mark.parametrize("case", [(1000, 1000), (4096 * 3 + 5, 700),
+                                  ((1 << 16) - 1, (1 << 16) + 8),
+                                  ((1 << 16) + 1, (1 << 14) * 3 + 1),
+                                  ((1 << 20) + 3, 1 << 20),
+                                  (1 << 18, (1 << 22) + 5)])
+@pytest.mark.parametrize("idt", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dt", _GATHER_TYPES)
+def test_gather_ranges_matches_plain(gpu, dt, idt, case, monkeypatch):
+    """The form at sources of one and many ranges (ranges of 2^10
+    elements here: up to 1025 of them), ragged last ranges and tiles, n
+    below, at and above the source length, some indices negative or out
+    of range: bitwise its plain version, and ``index_select`` at the
+    valid indices; one launch."""
+    from vexcl_tpu_torch.ops import cuda_gather as cg
+
+    monkeypatch.setattr(cg, "RANGE_ELEMENTS", 1 << 10)
+    src_len, n = case
+    idx = _gather_index(src_len, n, 21, idt, spill=min(n // 4, 97))
+    src = _scatter_data(src_len, dt, 22).to(gpu.device)
+    idx_d = idx.to(gpu.device)
+    k = torch.empty(n, dtype=dt, device=gpu.device)
+    p = torch.empty_like(k)
+    before = cg.gather_ranges.launches
+    cg.gather_ranges(k, idx_d, src)
+    cg.gather_plain(p, idx_d, src)
+    torch.cuda.synchronize()
+    assert cg.gather_ranges.launches == before + 1
+    _bitwise(k, p)
+    valid, j = _gather_valid(idx, src_len)
+    _bitwise(k.cpu()[valid], torch.index_select(src.cpu(), 0, j[valid]))
+
+
+@pytest.mark.parametrize("cut", [(1 << 12, 8), (1 << 14, 40),
+                                 (1 << 17, 1 << 14), (1 << 16, 24576)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.int64])
+def test_gather_plan_matches_mirror(gpu, dt, cut):
+    """The form's scratch against its CPU mirror's at four cuts (range
+    bytes, tile): the tiles' bucket starts bit for bit, each (tile, bucket)
+    run the same (index within the range, offset, value) entries (the
+    kernel orders a run by its atomics), every offset of a tile once (the
+    restore inverts the partition); the output bit for bit."""
+    from vexcl_tpu_torch.ops import cuda_gather as cg
+
+    src_len, n = (1 << 20) + 3, (1 << 20) - 11
+    idx = _gather_index(src_len, n, 23, spill=50)
+    src = _scatter_data(src_len, dt, 24)
+    plan = cg.gather_plan(src_len, n, src.element_size(), *cut)
+    k = torch.empty(n, dtype=dt, device=gpu.device)
+    got = cg._launch(k, idx.to(gpu.device), src.to(gpu.device), plan,
+                     keep=True)
+    m = torch.empty(n, dtype=dt)
+    want = cg.ranges_mirror(m, idx, src, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got["starts"].cpu().long(), want["starts"])
+    run = torch.repeat_interleave(
+        torch.arange(plan.tiles * (plan.ranges + 1)),
+        torch.diff(want["starts"], dim=0).t().reshape(-1))
+    gs = got["sidx"][:n].cpu().long() & 0xFFFF
+    go_ = got["soff"].cpu().long() & 0xFFFF
+    gv = got["sval"].cpu()
+    go = torch.argsort(run * 65536 + go_)
+    wo = torch.argsort(run * 65536 + want["soff"])
+    assert torch.equal(go_[go], want["soff"][wo])
+    assert torch.equal(gs[go], want["sidx"][wo])
+    _bitwise(gv[go], want["sval"][wo])
+    tile_of = torch.arange(n) // plan.tile
+    assert torch.equal(torch.sort(tile_of * plan.tile + go_).values,
+                       torch.arange(n))
+    _bitwise(k, m)
+
+
+@pytest.mark.parametrize("order", ["sorted", "one_range", "one_index",
+                                   "reversed"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_gather_clustered_indices(gpu, dt, order):
+    """Indices that crowd few ranges: sorted (each tile's entries in one
+    or two ranges), all in one range, one index repeated, reversed; each
+    warp's entries in one range take one atomic, and one long run is
+    shared by the gather block's warps: bitwise ``index_select``."""
+    from vexcl_tpu_torch.ops import cuda_gather as cg
+
+    src_len = (1 << 22) + 5
+    rng = np.random.default_rng(33)
+    h = {"sorted": np.sort(rng.integers(0, src_len, src_len)),
+         "one_range": rng.integers(5000, 5000 + 3000, src_len),
+         "one_index": np.full(src_len, 77),
+         "reversed": np.arange(src_len)[::-1].copy()}[order]
+    idx = torch.from_numpy(h).to(torch.int32).to(gpu.device)
+    src = _scatter_data(src_len, dt, 34).to(gpu.device)
+    k = torch.empty(src_len, dtype=dt, device=gpu.device)
+    cg.gather_ranges(k, idx, src)
+    torch.cuda.synchronize()
+    _bitwise(k, torch.index_select(src, 0, idx))
+
+
+def test_gather_truncates_i64_indices(gpu):
+    """i64 indices above 2^31 are truncated to i32 first (then wrapped or
+    read as the fill), as ``astype(int32)``."""
+    from vexcl_tpu_torch.ops import cuda_gather as cg
+
+    src_len = 1 << 20
+    base = _gather_index(src_len, src_len, 25, torch.int64)
+    shift = torch.from_numpy(np.random.default_rng(26).integers(
+        -3, 4, src_len)) << 32
+    idx = (base + shift).to(gpu.device)
+    assert idx.abs().max().item() > 1 << 31
+    src = _scatter_data(src_len, torch.float32, 27).to(gpu.device)
+    k, p = (torch.empty(src_len, device=gpu.device) for _ in range(2))
+    cg.gather_ranges(k, idx, src)
+    cg.gather_plain(p, idx, src)
+    torch.cuda.synchronize()
+    _bitwise(k, p)
+
+
+def test_gather_on_two_streams(gpu):
+    """The form enqueued on two streams at once, three calls each: each
+    result ``index_select``'s."""
+    from vexcl_tpu_torch.ops import cuda_gather as cg
+
+    dev = gpu.device
+    src_len = (1 << 22) + 1
+    idx = _gather_index(src_len, src_len, 28).to(dev)
+    src = _scatter_data(src_len, torch.float32, 29).to(dev)
+    want = torch.index_select(src, 0, idx)
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    outs = []
+    torch.cuda.synchronize()
+    for s in streams:
+        with torch.cuda.stream(s):
+            y = torch.zeros(src_len, device=dev)
+            for _ in range(3):
+                cg.gather_ranges(y, idx, src)
+            outs.append(y)
+    torch.cuda.synchronize()
+    for y in outs:
+        _bitwise(y, want)
+
+
+def test_gather_route_launches(gpu, cpu):
+    """Through the API: a gather the route takes (2^24 f32 and f64
+    sources, i32 and i64 indices, ``vex.gather``, an index or a source
+    that shares the output's memory) is one call of the form, no V1
+    launch, and the profiler sees its three kernels and no
+    ``assign_kernel``; what the route leaves (a small source, an
+    expression index, a tree around the view) is one V1 launch.
+    Each result equals the CPU's."""
+    from vexcl_tpu_torch.expr.triton_emit import assign, assign_indexed
+    from vexcl_tpu_torch.ops import cuda_gather as cg
+
+    big = 1 << 24
+    assert cg.route(torch.float32, big, big, torch.int32)
+    assert not cg.route(torch.float32, 4096, 4096, torch.int32)
+    assert not cg.route(torch.bfloat16, big, big, torch.int32)
+    hp = _gather_index(big, big, 30, spill=1000)
+    hx = _scatter_data(big, torch.float32, 31)
+    small = torch.from_numpy(np.random.default_rng(32).integers(
+        -5, 4101, big)).to(torch.int32)
+    hs = hx[:4096].clone()
+    counters = {"form": cg.gather_ranges, "v1": assign_indexed,
+                "expr": assign}
+    cases = [
+        ("form", lambda y, p, x, s, xs: y.assign(vex.permutation(p)(x))),
+        ("form", lambda y, p, x, s, xs: p.assign(vex.permutation(p)(s))),
+        ("form", lambda y, p, x, s, xs: x.assign(vex.permutation(p)(x))),
+        ("v1", lambda y, p, x, s, xs: y.assign(vex.permutation(s)(xs))),
+        ("v1", lambda y, p, x, s, xs: y.assign(vex.permutation(p * 1)(x))),
+        ("v1", lambda y, p, x, s, xs: y.assign(vex.permutation(p)(x) + 1)),
+    ]
+    for i, (form, case) in enumerate(cases):
+        def make(ctx):
+            return [vex.vector(data=a, context=ctx)
+                    for a in (hx * 0, hp, hx, small, hs)]
+        vs = make(gpu)
+        before = {key: c.launches for key, c in counters.items()}
+        case(*vs)
+        torch.cuda.synchronize()
+        got = {key: c.launches - before[key] for key, c in counters.items()}
+        cv = make(cpu)
+        case(*cv)
+        for a, b in zip(vs, cv):
+            # V1's NaN + 1 keeps another payload than the CPU's
+            (_bitwise if form == "form" else _same)(a.storage, b.storage)
+        if form == "v1":
+            assert got["form"] == 0 and got["v1"] == 1, (i, got)
+            continue
+        assert got["form"] >= 1 and got["v1"] == 0, (i, got)
+        if i == 0:
+            assert got == {"form": 1, "v1": 0, "expr": 0}, got
+            names = [name for name, _ in _kernels_launched(
+                lambda: case(*vs), reps=2)]
+            assert not any("assign_kernel" in name for name in names), names
+            for kern in ("partition_kernel", "gather_kernel",
+                         "restore_kernel"):
+                assert any(kern in name for name in names), names
+    # f64 and an i64 index, and vex.gather (i64 indices of the host)
+    x64 = vex.vector(data=hx.double(), context=gpu)
+    p64 = vex.vector(data=hp.long(), context=gpu)
+    y64 = vex.vector(big, dtype=torch.float64, context=gpu)
+    before = cg.gather_ranges.launches, assign_indexed.launches
+    y64.assign(vex.permutation(p64)(x64))
+    got = vex.gather(x64, hp.numpy())
+    torch.cuda.synchronize()
+    assert (cg.gather_ranges.launches - before[0],
+            assign_indexed.launches - before[1]) == (2, 0)
+    want = torch.empty(big, dtype=torch.float64)
+    cg.gather_plain(want, hp, hx.double())
+    _bitwise(y64.storage, want)
+    _bitwise(torch.from_numpy(got), want)

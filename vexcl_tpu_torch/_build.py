@@ -57,7 +57,8 @@ LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "vexcl_by_key_bf16": ("by_key_bf16.cu", "by_key.cuh", "scan_common.cuh"),
     "vexcl_compact": ("compact.cu",),
     "vexcl_philox": ("philox.cu",),
-    "vexcl_scatter": ("scatter.cu",),
+    "vexcl_scatter": ("scatter.cu", "ranges_common.cuh"),
+    "vexcl_gather": ("gather.cu", "ranges_common.cuh"),
 }
 
 #: nvcc flags of a user kernel (``backend.cuda_kernel``): a cubin, which

@@ -74,7 +74,7 @@ import torch
 from .._build import Pointer
 from ..cache import kernel_cache
 from ..config import config
-from ..ops import cuda_scatter
+from ..ops import cuda_gather, cuda_scatter
 from ..types import code_of, dtype_of_code, scalar_code
 from .node import (Analysis, ArrayTerminal, BinOp, CastExpr,
                    ConstantTerminal, EmitEnv, Expr, ScalarTerminal, UnOp,
@@ -751,15 +751,45 @@ def _launch(exprs: Sequence[Expr], analysis: Analysis, types, leaves,
              tiled_programs(tile) if tile is not None else 0)
 
 
+def _gather_operands(expr: Expr, analysis: Analysis, types, leaves,
+                     out: torch.Tensor):
+    """(index, source) where ``expr`` is exactly a gather through a
+    permutation that ``cuda_gather.route`` sends to the CUDA form: a leaf
+    index of i32 or i64 and a contiguous 1-D leaf source of ``out``'s type
+    (f32, f64, i32, i64); else None.  The form reads the index and the
+    source before it writes ``out``, so either may share out's memory."""
+    from .view import PermutationView
+
+    if not isinstance(expr, PermutationView) \
+            or dtype_of_code(types[id(expr)]) != out.dtype:
+        return None
+    n = out.numel()
+    idx = _leaf_tensor(expr.children[1], analysis, leaves, n,
+                       (torch.int32, torch.int64), out.device)
+    if idx is None or not cuda_gather.route(out.dtype, expr.extent, n,
+                                            idx.dtype):
+        return None
+    src = _leaf_tensor(expr.children[0], analysis, leaves, expr.extent,
+                       (out.dtype,), out.device)
+    return None if src is None else (idx, src)
+
+
 def assign(expr: Expr, analysis: Analysis, types, leaves,
            out: torch.Tensor) -> None:
-    """Write the elementwise ``expr`` into ``out`` (1-D, contiguous)."""
+    """Write the elementwise ``expr`` into ``out`` (1-D, contiguous): a
+    gather through a permutation that ``cuda_gather.route`` takes in one
+    call of the CUDA form (``_gather_operands``), else in one launch of
+    the generated kernel."""
     if out.device.type == "cpu":
         assign_plain(expr, analysis, types, leaves, out)
         return
     if out.device.type != "cuda":
         raise NotImplementedError(f"no expression kernel for {out.device}")
     if out.numel() == 0:
+        return
+    ops = _gather_operands(expr, analysis, types, leaves, out)
+    if ops is not None:
+        cuda_gather.gather_ranges(out, *ops)
         return
     _launch([expr], analysis, types, leaves, [out])
     if analysis.indexed:
