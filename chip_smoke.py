@@ -96,7 +96,20 @@ the scatter kernels, ``csrc/scatter.cu``, in turns with
 Triton kernel nor K1, and V3's Triton kernel on the same scatter and
 histogram with the route turned off, ``any_of``/``all_of`` (the
 map-reduce), and
-``tensordot`` of two 4096^2 f32 views.  Last, after
+``tensordot`` of two 4096^2 f32 views; (14) the FFT at the bench's
+sizes (``FFT_CASES``: 1-D c64 at 2^10, 2^16, 2^20 and 2^24, 2-D 1024^2,
+4096 x 2^10 batched over ``dims=(1,)``, the prime 999983, f64 at 2^20)
+through the API (cuFFT, straight into the target) against
+``torch.fft.fftn`` in c128 on the same input and back through the
+inverse, timed in turns with a raw ``torch.fft.fftn`` call (GFLOP/s as
+5 N log2 N under the bench's names), the ``"ct"`` engine at 2^20 and
+2^24; ``p[:] = fx * conj(fx)`` and ``Reductor(SUM)(fx)`` at 2^24 c64 and
+c128 (one generated launch each by the counters and the profiler,
+against their plain forms, in turns with ``torch.mul(fx, fx.conj())``
+and ``torch.sum``); and MBA (bench.py's fit: 4096 samples, grid 8 x 8,
+6 levels, a 259^2 lattice) at 2^24 f32 points in the lattice and the
+patch form (one launch each, against the plain form and the f64 host
+evaluation, in turns with each other: ``mba_Mpts_s``).  Last, after
 every solver phase (so that no solver follows
 these timings' profiler session or cuSPARSE call), the device time per
 call by the profiler of the map-reduce, the compaction (one and two
@@ -163,7 +176,12 @@ gathers and stores with unique indices bitwise against their plain
 versions, integer atomics exact, the f32 atomic add of values 1e-5
 (another order), ``reduce_view`` sums 1e-5 (f32) and 1e-12 (f64), min
 and max exact with the NaN, ``tensordot`` 1e-4 against the f64 product.
-Each view assignment is one launch by its counter.
+Each view assignment is one launch by its counter.  Phase 14: each FFT
+within a relative L2 error of 1e-5 (c64) or 1e-12 (c128) of the c128
+transform, the round trip within twice that; complex products 1e-6 (c64)
+and 1e-13 (c128) of the largest magnitude (FMA contraction; no division
+on the path), complex sums as the real sums; MBA 1e-5 of its plain form
+and 1e-4 absolute of the f64 host evaluation on 4096 points.
 
 Any failed check raises, and the script exits non-zero without the
 result line; it also fails when no CUDA device is visible and when the
@@ -241,6 +259,17 @@ LORENZ_N = 1 << 22            # the bench's ensemble (bench.py:721)
 LORENZ_STEPS = 100
 LORENZ_TOL = {"f32": (1e-5, 1e-4), "f64": (1e-12, 1e-10)}  # 1, 100 steps
 MULTI_N = 1 << 24
+#: phase 14's transforms at the bench's sizes (bench.py:793-875): name,
+#: shape, transformed axes (None: all), type; the ct engine runs on FFT_CT
+FFT_CASES = [("fft_2^10", (1 << 10,), None, "c64"),
+             ("fft_2^16", (1 << 16,), None, "c64"),
+             ("fft_2^20", (1 << 20,), None, "c64"),
+             ("fft_2^24", (1 << 24,), None, "c64"),
+             ("fft2d_1024", (1024, 1024), None, "c64"),
+             ("fft_batched_2^10", (4096, 1 << 10), (1,), "c64"),
+             ("fft_bluestein_999983", (999983,), None, "c64"),
+             ("fft_2^20_f64", (1 << 20,), None, "c128")]
+FFT_CT = ("fft_2^20", "fft_2^24")
 #: phase 12's numbers before the launch records and the per-binding
 #: analysis, as PERF.md records them (H100 80GB HBM3, 700.00 W), printed
 #: beside this run's
@@ -559,8 +588,10 @@ def profile_call(fn, reps: int = 10):
     ~14 s in one run, all 100 of a loop in another): so each trace first
     launches ``lead`` spin kernels (``torch.cuda._sleep``, not counted),
     which take the loss.  A trace in which none of them is left may have
-    lost the loop's records too, and is taken again with four times as
-    many, up to PROFILE_TRIES traces; then the run fails."""
+    lost the loop's records too, and one that kept no record of the loop
+    did (a trace can keep spin records and lose all of the loop's):
+    either is taken again with four times as many, up to PROFILE_TRIES
+    traces; then the run fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -583,12 +614,14 @@ def profile_call(fn, reps: int = 10):
                 and e.self_device_time_total > 0]
         spins = sum(e.count for e in seen if SPIN_KERNEL in e.key)
         PROFILE_LOST.append(lead - spins)
-        if spins:
+        # a trace that kept none of the calls' records lost them too
+        if spins and any(SPIN_KERNEL not in e.key for e in seen):
             break
         lead *= 4
     else:
         raise SmokeFailure(f"the profiler lost every one of {lead // 4} "
-                           "lead-in records in each of its traces")
+                           "lead-in records, or every record of the "
+                           "calls, in each of its traces")
     kernels = {e.key[:60]: e.self_device_time_total / reps for e in seen
                if SPIN_KERNEL not in e.key}
     busy = sum(kernels.values()) * reps * 1e-6 / wall
@@ -668,6 +701,10 @@ def main() -> int:
     from vexcl_tpu_torch.models import estimate_pi, gbm_terminal_mean
     from vexcl_tpu_torch.ops.cuda_philox import philox_bits, philox_bits_plain
     from vexcl_tpu_torch.ops.random import generator_rounds
+    from vexcl_tpu_torch.expr.triton_emit import assign_complex
+    from vexcl_tpu_torch.ops.mba import _eval_level_host as mba_host
+    from vexcl_tpu_torch.ops.mba import mba_device_eval
+    from vexcl_tpu_torch.ops.triton_reduce import map_reduce_complex
 
     results = {"seed": args.seed}
     start_s = time.perf_counter()
@@ -683,7 +720,10 @@ def main() -> int:
                 "to_view": assign_to_view_kernel,
                 "scatter_ranges": scatter_ranges,
                 "scatter_privatized": scatter_privatized,
-                "gather_ranges": gather_ranges}
+                "gather_ranges": gather_ranges,
+                "complex": assign_complex,
+                "reduce_complex": map_reduce_complex,
+                "mba": assign_indexed}
     main_launches = {}
 
     def counted(keys, fn):
@@ -2781,6 +2821,241 @@ def main() -> int:
                                  if isinstance(v, dict)}
     views_phase()
 
+    # -- phase 14: FFT, complex expressions (K1/V1 and K2 on (re, im)
+    # pairs) and MBA --------------------------------------------------------
+    def fft_mba_phase():
+        """Phase 14, in a scope of its own."""
+        t14 = time.perf_counter()
+        rec, rows = {}, {}
+
+        def rel_l2(a, b):
+            a, b = a.to(torch.complex128), b.to(torch.complex128)
+            return ((a - b).norm() / b.norm()).item()
+
+        def crand(n, dt):
+            re = torch.rand(n, generator=gen, device=dev, dtype=dt.to_real())
+            im = torch.rand(n, generator=gen, device=dev, dtype=dt.to_real())
+            return torch.complex(re - 0.5, im - 0.5)
+
+        # the FFT at the bench's sizes (bench.py:793-875): the API (cuFFT
+        # through vex.FFT, straight into its target) against torch.fft in
+        # c128 on the same input, the round trip, and the API in turns with
+        # a raw torch.fft.fftn call
+        ctypes_ = {"c64": torch.complex64, "c128": torch.complex128}
+        fft_tol = {torch.complex64: 1e-5, torch.complex128: 1e-12}
+        for name, shape, dims, dname in FFT_CASES:
+            dt = ctypes_[dname]
+            n = int(np.prod(shape))
+            axes = dims if dims is not None else tuple(range(len(shape)))
+            npts = int(np.prod([shape[a] for a in axes]))
+            flops = 5 * n * np.log2(npts)
+            x = vex.vector._adopt(crand(n, dt), ctx)
+            y = vex.vector(n, dtype=dt, context=ctx)
+            z = vex.vector(n, dtype=dt, context=ctx)
+            f = vex.FFT(shape, dims=dims, dtype=dt)
+            fi = vex.FFT(shape, dims=dims, dtype=dt, inverse=True)
+            y[:] = f(x)
+            ref = torch.fft.fftn(x.storage.to(torch.complex128).view(shape),
+                                 dim=dims).reshape(-1)
+            err = rel_l2(y.storage, ref)
+            check(err <= fft_tol[dt], f"{name}: rel L2 err {err}")
+            z[:] = fi(y)
+            back = rel_l2(z.storage, x.storage)
+            check(back <= 2 * fft_tol[dt], f"{name}: round trip {back}")
+            xv = x.storage.view(shape)
+            turns = in_turns({"api": lambda: y.assign(f(x)),
+                              "raw": lambda: torch.fft.fftn(xv, dim=dims)})
+            r = {"rel_l2_err_vs_c128": err, "roundtrip_rel_l2": back,
+                 "api_ms": turns["api"]["ms"],
+                 "api_ms_range": turns["api"]["ms_range"],
+                 "raw_ms": turns["raw"]["ms"],
+                 "raw_ms_range": turns["raw"]["ms_range"],
+                 "api_overhead_ms": turns["api"]["ms"] - turns["raw"]["ms"],
+                 f"{name}_GFLOPs": flops / (turns["api"]["ms"] * 1e-3) / 1e9,
+                 "raw_GFLOPs": flops / (turns["raw"]["ms"] * 1e-3) / 1e9,
+                 "bound_ms": bound(2 * n * dt.itemsize, flops)[0],
+                 "bound_by": bound(2 * n * dt.itemsize, flops)[1]}
+            if name in FFT_CT:
+                # the ported Cooley-Tukey engine (planar torch.matmul
+                # codelets at full f32 precision)
+                fc = vex.FFT(shape, dtype=dt, impl="ct")
+                y[:] = fc(x)
+                r["ct_rel_l2_err_vs_c128"] = rel_l2(y.storage, ref)
+                check(r["ct_rel_l2_err_vs_c128"] <= fft_tol[dt],
+                      f"{name} ct: rel L2 err {r['ct_rel_l2_err_vs_c128']}")
+                r["ct_ms"] = cuda_ms(lambda: y.assign(fc(x)))
+                r[f"{name}_ct_planner_GFLOPs"] = flops / (r["ct_ms"]
+                                                          * 1e-3) / 1e9
+            report(name, r)
+            rec[name] = r
+            del x, y, z, ref, xv
+            torch.cuda.empty_cache()
+
+        # complex expressions at 2^24: p[:] = fx * conj(fx) and
+        # Reductor(SUM)(fx), c64 and c128, each one generated launch by
+        # its counter and the profiler, against its plain form, in turns
+        # with its PyTorch call
+        ctol = {torch.complex64: 1e-6, torch.complex128: 1e-13}
+        for dname, dt in (("c64", torch.complex64),
+                          ("c128", torch.complex128)):
+            fx = vex.vector._adopt(crand(N_VEC, dt), ctx)
+            p = vex.vector(N_VEC, dtype=dt, context=ctx)
+            expr = fx * vex.conj(fx)
+            _, got = counted(("complex",), lambda: p.assign(expr))
+            check(got["complex"] == 1, f"{dname} fx*conj(fx): {got}")
+            add_launches(got)
+            e, an, ty, lv = prepare(expr, N_VEC, dev)
+            k = torch.empty_like(p.storage)
+            pl = torch.empty_like(k)
+            assign(e, an, ty, lv, k)
+            assign_plain(e, an, ty, lv, pl)
+            lib = torch.mul(fx.storage, fx.storage.conj())
+            err_k = errors(torch.view_as_real(k), torch.view_as_real(pl))
+            err_l = errors(torch.view_as_real(p.storage),
+                           torch.view_as_real(lib))
+            check(err_k[1] <= ctol[dt] and err_l[1] <= ctol[dt],
+                  f"{dname} fx*conj(fx): rel err {err_k}, vs torch {err_l}")
+            per_kernel, _ = profile_call(lambda: p.assign(expr), KERNEL_REPS)
+            check(len(per_kernel) == 1 and "assign_kernel" in next(
+                iter(per_kernel)), f"{dname} fx*conj(fx) is not one "
+                f"generated kernel: {per_kernel}")
+            turns = in_turns({"kernel": lambda: assign(e, an, ty, lv, k),
+                              "library": lambda: torch.mul(
+                                  fx.storage, fx.storage.conj())})
+            lib_prof, _ = profile_call(lambda: torch.mul(
+                fx.storage, fx.storage.conj()), KERNEL_REPS)
+            ra = dict(kernel_row(err_k[0], turns["kernel"]["ms"],
+                                 cuda_ms(lambda: assign_plain(e, an, ty, lv,
+                                                              pl)),
+                                 2 * N_VEC * dt.itemsize, 4 * N_VEC,
+                                 turns["library"]["ms"]),
+                      ms_range=turns["kernel"]["ms_range"],
+                      library_ms_range=turns["library"]["ms_range"],
+                      device_us=sum(per_kernel.values()),
+                      library_device_us=sum(lib_prof.values()),
+                      host_us=host_us(lambda: p.assign(expr)),
+                      api_ms=cuda_ms(lambda: p.assign(expr), KERNEL_REPS),
+                      max_rel_err=err_k[1], torch_rel_err=err_l[1])
+            report(f"complex_assign_{dname}", ra)
+            # Reductor(SUM): the API call, then the kernel beside torch.sum
+            api_sum, got = counted(("reduce_complex",),
+                                   lambda: vex.Reductor(vex.SUM)(fx))
+            check(got["reduce_complex"] == 1, f"{dname} SUM: {got}")
+            add_launches(got)
+            e, an, ty, lv = prepare(fx, N_VEC, dev)
+            ks = map_reduce(e, an, ty, lv, N_VEC, "SUM", dev)
+            ps = map_reduce_plain(e, an, ty, lv, N_VEC, "SUM", dev)
+            ls = torch.sum(fx.storage)
+            stol = SUM_TOL["f32" if dt == torch.complex64 else "f64"]
+            scale = max(1.0, abs(ps.item()))
+            serr = abs(ks.item() - ps.item())
+            check(serr <= stol * scale and abs(api_sum - ks.item())
+                  <= stol * scale and abs(ls.item() - ps.item())
+                  <= stol * scale, f"{dname} SUM: kernel {ks.item()}, "
+                  f"plain {ps.item()}, API {api_sum}, torch {ls.item()}")
+            per_kernel, _ = profile_call(
+                lambda: map_reduce(e, an, ty, lv, N_VEC, "SUM", dev),
+                KERNEL_REPS)
+            check(len(per_kernel) == 1 and "reduce_kernel" in next(
+                iter(per_kernel)), f"{dname} SUM is not one generated "
+                f"kernel: {per_kernel}")
+            turns = in_turns({
+                "kernel": lambda: map_reduce(e, an, ty, lv, N_VEC, "SUM",
+                                             dev),
+                "library": lambda: torch.sum(fx.storage)})
+            lib_prof, _ = profile_call(lambda: torch.sum(fx.storage),
+                                       KERNEL_REPS)
+            rs = dict(kernel_row(serr, turns["kernel"]["ms"],
+                                 cuda_ms(lambda: map_reduce_plain(
+                                     e, an, ty, lv, N_VEC, "SUM", dev)),
+                                 N_VEC * dt.itemsize, 2 * N_VEC,
+                                 turns["library"]["ms"]),
+                      ms_range=turns["kernel"]["ms_range"],
+                      library_ms_range=turns["library"]["ms_range"],
+                      device_us=sum(per_kernel.values()),
+                      library_device_us=sum(lib_prof.values()),
+                      host_us=host_us(lambda: map_reduce(
+                          e, an, ty, lv, N_VEC, "SUM", dev)),
+                      api_host_us=host_us(lambda: vex.Reductor(vex.SUM)(fx),
+                                          20))
+            report(f"complex_sum_{dname}", rs)
+            rows[dname] = (ra, rs)
+            del fx, p, k, pl, lib, e, lv
+            torch.cuda.empty_cache()
+        kernels["complex"] = dict(rows["c64"][0], others={"c128": rows[
+            "c128"][0]}, workload="p[:] = fx * conj(fx), 2^24 c64")
+        kernels["reduce_complex"] = dict(rows["c64"][1], others={
+            "c128": rows["c128"][1]}, workload="Reductor(SUM)(fx), 2^24 c64")
+
+        # MBA: bench.py's fit (bench.py:683-716), z[:] = interp(X, Y) at
+        # 2^24 f32 points in the lattice and the patch form
+        rng_l = np.random.default_rng(7)
+        sx, sy = rng_l.random(4096), rng_l.random(4096)
+        surf = vex.mba(lo=(-0.01, -0.01), hi=(1.01, 1.01), coords=(sx, sy),
+                       values=np.sin(7 * sx) * np.cos(5 * sy), grid=(8, 8),
+                       levels=6)
+        check(surf.lattice.shape == (259, 259) and surf.patch is not None,
+              f"mba: lattice {surf.lattice.shape}")
+        X, Y = rand(N_VEC, torch.float32), rand(N_VEC, torch.float32)
+        z = vex.vector(N_VEC, context=ctx)
+        hq = [X.storage[:4096].double().cpu().numpy(),
+              Y.storage[:4096].double().cpu().numpy()]
+        host = torch.from_numpy(mba_host(surf.lo, surf.hi, surf.grids[0],
+                                         surf.lattice, hq))
+        forms, calls = {}, {}
+        patch = surf.tables(torch.float32, dev)[1]
+        for form in ("lattice", "patch"):
+            # the API's form, and the patch form beside it
+            expr = surf(X, Y) if form == "lattice" else mba_device_eval(
+                surf.lo, surf.hi, surf.grids, None, [X, Y], patch=patch)
+            _, got = counted(("mba",), lambda: z.assign(expr))
+            check(got["mba"] == 1, f"mba {form}: {got}")
+            add_launches(got)
+            e, an, ty, lv = prepare(expr, N_VEC, dev)
+            k = torch.empty_like(z.storage)
+            pl = torch.empty_like(k)
+            assign(e, an, ty, lv, k)
+            assign_plain(e, an, ty, lv, pl)
+            abs_err, rel = errors(k, pl)
+            herr = (z.storage[:4096].double().cpu() - host).abs().max().item()
+            check(rel <= 1e-5 and herr <= 1e-4 and torch.equal(k, z.storage),
+                  f"mba {form}: rel err {rel} to its plain form, {herr} to "
+                  "the f64 host evaluation")
+            per_kernel, _ = profile_call(lambda: z.assign(expr), KERNEL_REPS)
+            check(len(per_kernel) == 1 and "assign_kernel" in next(
+                iter(per_kernel)), f"mba {form} is not one generated "
+                f"kernel: {per_kernel}")
+            forms[form] = dict(kernel_row(
+                abs_err, None, cuda_ms(lambda: assign_plain(e, an, ty, lv,
+                                                            pl), 3),
+                3 * 4 * N_VEC, 0, None),
+                device_us=sum(per_kernel.values()),
+                host_us=host_us(lambda: z.assign(expr)),
+                max_rel_err=rel, host_f64_abs_err=herr,
+                taps_l2_bytes=N_VEC * 16 * 4)
+            calls[form] = (lambda e=e, an=an, ty=ty, lv=lv, k=k:
+                           assign(e, an, ty, lv, k))
+            del pl
+        turns = in_turns(calls)
+        for form in forms:
+            forms[form].update(ms=turns[form]["ms"],
+                               ms_range=turns[form]["ms_range"],
+                               mba_Mpts_s=N_VEC / (turns[form]["ms"] * 1e-3)
+                               / 1e6)
+            report(f"mba_{form}_2^24_f32", forms[form])
+        rec["mba_Mpts_s"] = forms["lattice"]["mba_Mpts_s"]
+        rec["mba_patch_Mpts_s"] = forms["patch"]["mba_Mpts_s"]
+        kernels["mba"] = dict(forms["lattice"],
+                              others={"patch": forms["patch"]},
+                              workload="z[:] = interp(X, Y), 2^24 f32, "
+                              "259^2 lattice")
+        del X, Y, z, calls, surf, patch
+        torch.cuda.empty_cache()
+        rec["phase_s"] = time.perf_counter() - t14
+        report("fft_complex_mba", {k_: v for k_, v in rec.items()
+                                   if not isinstance(v, dict)})
+    fft_mba_phase()
+
     # last, after every solver phase, so that no solver's ms per iteration
     # (compared between versions of this script) follows these timings'
     # profiler session or cuSPARSE call: the
@@ -2912,6 +3187,14 @@ def main() -> int:
          "vexcl_tpu/ops/atomic.py:57-124", "scatter_privatized"),
         ("gather_ranges", "cuda", "vexcl_tpu_torch/csrc/gather.cu",
          "vexcl_tpu/expr/view.py:283-286", "gather_ranges"),
+        ("assign_complex", "triton", "vexcl_tpu_torch/expr/triton_emit.py",
+         "vexcl_tpu/expr/compile.py:244, vexcl_tpu/expr/compile.py:519",
+         "complex"),
+        ("map_reduce_complex", "triton",
+         "vexcl_tpu_torch/ops/triton_reduce.py",
+         "vexcl_tpu/ops/reductor.py:69-97", "reduce_complex"),
+        ("mba_tap_gather", "triton", "vexcl_tpu_torch/expr/triton_emit.py",
+         "vexcl_tpu/ops/mba.py:164-208", "mba"),
     ]
     check("jax" not in sys.modules and "vexcl_tpu" not in sys.modules,
           "the port imported jax or vexcl_tpu")

@@ -2495,13 +2495,15 @@ def test_launch_classes_match_tritons_binder(gpu):
     """For the assignment kernel, arguments that ``arg_classes`` puts in
     one class are ones Triton's own binder specialises alike: pointers at
     every offset, integer scalars of every width, f64 scalars as bits,
-    element counts of every class."""
+    element counts of every class; a complex leaf (a pointer to its real
+    type) at every 8-byte offset and a complex scalar."""
     from triton import knobs
 
     from vexcl_tpu_torch._build import arg_classes
     from vexcl_tpu_torch.cache import kernel_cache
     from vexcl_tpu_torch.expr.node import as_expr
-    from vexcl_tpu_torch.expr.triton_emit import launch_args, launch_key
+    from vexcl_tpu_torch.expr.triton_emit import (launch_args, launch_key,
+                                                  tensor_arg)
 
     dev = gpu.device
     buf = torch.zeros(4096 + 64, device=dev)
@@ -2523,6 +2525,25 @@ def test_launch_classes_match_tritons_binder(gpu):
                 spec = str(binder(*args, **kw)[1])
                 assert seen.setdefault(cls, spec) == spec, (off, n, s, i)
     assert len(seen) >= 8
+    # a complex leaf: a pointer to its real type at every 8-byte offset,
+    # and a complex scalar as two numbers
+    cbuf = torch.zeros(4096 + 64, dtype=torch.complex64, device=dev)
+    e, an, ty, lv = prepare(as_expr(cbuf[:4096]) * (2.5 + 1j) + 3, 4096, dev)
+    kc = torch.empty(4096, dtype=torch.complex64, device=dev)
+    assign(e, an, ty, lv, kc)
+    key, _ = launch_key([e], an, [torch.complex64])
+    launcher = kernel_cache.get(key).launcher
+    binder = launcher.fn.device_caches[dev.index][4]
+    seen = {}
+    for off in range(5):
+        for n in (1, 16, 17):
+            for s in ((2.5 + 1j), (0.0 + 0j), (-1e300 + 1e-300j)):
+                args = [*map(tensor_arg, [kc]),
+                        *launch_args([cbuf[off:off + 4096], s, 3]), n]
+                cls = arg_classes(args, launcher.specialized)
+                spec = str(binder(*args, **kw)[1])
+                assert seen.setdefault(cls, spec) == spec, (off, n, s)
+    assert len(seen) >= 4
 
 
 def test_launches_on_two_streams(gpu, cpu):
@@ -3158,3 +3179,226 @@ def test_gather_route_launches(gpu, cpu):
     cg.gather_plain(want, hp, hx.double())
     _bitwise(y64.storage, want)
     _bitwise(torch.from_numpy(got), want)
+
+
+# -- complex values, the FFT and MBA -------------------------------------
+
+CTOL = {torch.complex64: 2e-6, torch.complex128: 1e-12}
+
+
+def _cclose(k, p, rtol):
+    """Complex results as (re, im) pairs, within rtol of the largest
+    magnitude (complex products may contract to an FMA; division is
+    Smith's in both forms, rounded in another order)."""
+    if k.dtype.is_complex:
+        k, p = torch.view_as_real(k), torch.view_as_real(p)
+    _close(k, p, rtol)
+
+
+def _cvec(ctx, n, dt, seed):
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    return vex.vector(data=torch.from_numpy(h).to(dt), context=ctx)
+
+
+def _counted(counter, fn):
+    torch.cuda.synchronize()
+    before = counter.launches
+    out = fn()
+    torch.cuda.synchronize()
+    return out, counter.launches - before
+
+
+@pytest.mark.parametrize("n", [1, 1023, 1024, 1025, N])
+@pytest.mark.parametrize("dt", [torch.complex64, torch.complex128])
+def test_complex_assign_kernel_matches_plain(gpu, dt, n):
+    """The assignment kernel on (re, im) pairs: + - * /, conj, abs, real,
+    imag, casts, where, ==, a weak complex scalar, a numpy complex scalar,
+    a 0-d complex tensor on the card and a real leaf; one launch, counted
+    as a complex one."""
+    from vexcl_tpu_torch.expr.triton_emit import assign_complex
+
+    a, b = _cvec(gpu, n, dt, 1), _cvec(gpu, n, dt, 2)
+    r = _vec(gpu, np.linspace(-2, 2, n).astype(
+        np.float32 if dt == torch.complex64 else np.float64))
+    z0 = torch.tensor(0.5 - 0.25j, dtype=dt, device=gpu.device)
+    npc = np.complex64(1 - 2j) if dt == torch.complex64 else \
+        np.complex128(1 - 2j)
+    exprs = [
+        a * vex.conj(b) + (2 - 1j) * r - a / (b + (3 + 1j)),
+        vex.if_else(r > 0, a, -b) * npc + z0,
+        vex.cast(dt, vex.abs(a) + vex.real(b) - vex.imag(a) * r),
+        vex.if_else(a == a, a, b) - vex.if_else(a != b, b * 1j, a),
+    ]
+    for expr in exprs:
+        (k, p), launched = _counted(assign_complex,
+                                    lambda: _both(expr, n, dt, gpu.device))
+        assert launched == 1
+        _cclose(k, p, 8 * CTOL[dt])
+    rdt = torch.float32 if dt == torch.complex64 else torch.float64
+    k, p = _both(vex.abs(a * b) - vex.real(a), n, rdt, gpu.device)
+    _close(k, p, 8 * RTOL[rdt])
+    k, p = _both(a == vex.conj(vex.conj(a)), n, torch.bool, gpu.device)
+    assert torch.equal(k, p) and bool(k.all())
+
+
+@pytest.mark.parametrize("dt", [torch.complex64, torch.complex128])
+def test_complex_unaligned_views_and_permutations(gpu, dt):
+    """Complex leaves at every 8-byte offset (pointers lose their 16-byte
+    alignment), slices and a permutation of a complex vector (V1), and a
+    target read under its own permutation (through a temporary)."""
+    from vexcl_tpu_torch.expr.triton_emit import assign_complex
+
+    n = 4099
+    base = _cvec(gpu, n + 8, dt, 3).storage
+    for off in range(4):
+        leaf = base[off:off + n]
+        k, p = _both(vex.as_expr(leaf) * (1 + 1j) + 2, n, dt, gpu.device)
+        assert torch.equal(k, p)
+    x = vex.vector(data=base, context=gpu)
+    k, p = _both(x[3:n + 3] - x[1:n + 1] * 0.5j, n, dt, gpu.device)
+    _cclose(k, p, 4 * CTOL[dt])
+    perm = torch.randperm(n + 8, device=gpu.device).to(torch.int32)
+    pv = vex.vector(data=perm, context=gpu)
+    k, p = _both(vex.permutation(pv)(x) * 2, n + 8, dt, gpu.device)
+    assert torch.equal(k, p)
+    want = x.storage[perm.long()] * (1 - 1j)
+    _, launched = _counted(
+        assign_complex, lambda: x.assign(vex.permutation(pv)(x) * (1 - 1j)))
+    assert launched == 1
+    _cclose(x.storage, want, 4 * CTOL[dt])
+
+
+@pytest.mark.parametrize("dt", [torch.complex64, torch.complex128])
+def test_complex_tie_k1_matches_plain(gpu, cpu, dt):
+    """K1 with complex targets: ``tie`` of complex vectors, the swap, and
+    a real and a complex target in one launch; counted as complex."""
+    from vexcl_tpu_torch.expr.triton_emit import assign_complex, assign_multi
+
+    n = 5003
+    rdt = torch.float32 if dt == torch.complex64 else torch.float64
+
+    def run(ctx):
+        x, y = _cvec(ctx, n, dt, 4), _cvec(ctx, n, dt, 5)
+        m = vex.vector(n, dtype=rdt, context=ctx)
+        vex.tie(x, y)[:] = (y, x)
+        vex.tie(x, y, m)[:] = (x * y + 1j, x - vex.conj(y), vex.abs(x))
+        return x, y, m
+
+    before = assign_complex.launches, assign_multi.launches
+    got = run(gpu)
+    torch.cuda.synchronize()
+    assert (assign_complex.launches - before[0],
+            assign_multi.launches - before[1]) == (2, 0)
+    for k, p in zip(got, run(cpu)):
+        _cclose(k.storage.cpu(), p.storage, 8 * CTOL[dt])
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, N, (1 << 20) + 7])
+@pytest.mark.parametrize("dt", [torch.complex64, torch.complex128])
+def test_complex_sum_kernel_matches_plain(gpu, dt, n):
+    """K2's complex SUM, (re, im) accumulators, alone and beside a real
+    MAX and a c128 sum in one launch; each counted as complex."""
+    from vexcl_tpu_torch.expr.compile import prepare_multi
+    from vexcl_tpu_torch.ops.triton_reduce import (map_reduce_complex,
+                                                   map_reduce_multi,
+                                                   map_reduce_multi_plain)
+
+    a = _cvec(gpu, n, dt, 6)
+    r = _vec(gpu, np.random.default_rng(7).random(n))
+    e, an, ty, lv = prepare(a * vex.conj(a) * 0.5 + a, n, gpu.device)
+    k, launched = _counted(map_reduce_complex, lambda: map_reduce(
+        e, an, ty, lv, n, "SUM", gpu.device))
+    assert launched == 1 and k.dtype == dt
+    p = map_reduce_plain(e, an, ty, lv, n, "SUM", gpu.device)
+    tol = (1e-5 if dt == torch.complex64 else 1e-10) * max(1.0, n ** 0.5)
+    assert abs(k.item() - p.item()) <= tol * max(1.0, abs(p.item()))
+    assert abs(vex.Reductor(vex.SUM)(a) - a.storage.sum().item()) <= \
+        tol * max(1.0, abs(a.storage.sum().item()))
+    bodies, an, ty, lv = prepare_multi(
+        [a * 2, r, vex.cast(torch.complex128, a) * r], n, gpu.device)
+    pairs = [(bodies[0], "SUM"), (bodies[1], "MAX"), (bodies[2], "SUM")]
+    ks, launched = _counted(map_reduce_complex, lambda: map_reduce_multi(
+        pairs, an, ty, lv, n, gpu.device))
+    assert launched == 1
+    ps = map_reduce_multi_plain(pairs, an, ty, lv, n, gpu.device)
+    assert [x.dtype for x in ks] == [dt, torch.float64, torch.complex128]
+    for kk, pp in zip(ks, ps):
+        assert abs(kk.item() - pp.item()) <= tol * max(1.0, abs(pp.item()))
+
+
+def test_complex_uncovered_raise_on_card(gpu):
+    """A transcendental or an order of complex values, complex MIN and
+    MAX, and a complex value through a view's store raise on the card."""
+    a = _cvec(gpu, 100, torch.complex64, 8)
+    y = vex.vector(100, dtype=torch.complex64, context=gpu)
+    for expr in (vex.exp(a), vex.sqrt(a) + 1, a ** 2):
+        with pytest.raises(NotImplementedError):
+            y[:] = expr
+    with pytest.raises(NotImplementedError):
+        vex.Reductor(vex.MIN)(a)
+    with pytest.raises(NotImplementedError):
+        vex.permutation(vex.element_index(0, 100))(y).assign(a * 2)
+
+
+@pytest.mark.parametrize("form", [False, True])
+@pytest.mark.parametrize("d", [2, 3])
+def test_mba_kernel_matches_plain(gpu, cpu, d, form):
+    """The MBA tap sum in the assignment kernel (V1's indexed loads), the
+    lattice and the patch form, f32 and f64 queries, corners included:
+    one launch, against its plain version on the card and the f64 host
+    evaluation."""
+    from vexcl_tpu_torch.expr.triton_emit import assign_indexed
+    from vexcl_tpu_torch.ops.mba import _eval_level_host, mba_device_eval
+
+    rng = np.random.default_rng(d)
+    sc = [rng.random(2000) for _ in range(d)]
+    ip = vex.mba((-0.01,) * d, (1.01,) * d, sc,
+                 sum(np.sin(3 * c) for c in sc), grid=(4,) * d, levels=3)
+    assert ip.patch is not None
+    n = 70001
+    q = [rng.random(n) for _ in range(d)]
+    for c in q:
+        c[:4] = [-0.01, 1.01, 0.0, 1.0]
+    want = _eval_level_host(ip.lo, ip.hi, ip.grids[0], ip.lattice, q)
+    for npdt, tdt, tol in ((np.float32, torch.float32, 1e-5),
+                           (np.float64, torch.float64, 1e-12)):
+        qs = [_vec(gpu, c.astype(npdt)) for c in q]
+        expr = (mba_device_eval(ip.lo, ip.hi, ip.grids, None, qs,
+                                patch=ip.tables(tdt, gpu.device)[1])
+                if form else ip(*qs))
+        (k, p), launched = _counted(assign_indexed,
+                                    lambda: _both(expr, n, tdt, gpu.device))
+        assert launched == 1
+        _close(k, p, 4 * RTOL[tdt])
+        assert (k.double().cpu() - torch.from_numpy(want)).abs().max() <= tol
+
+
+def test_fft_api_matches_torch_fft_c128(gpu):
+    """The FFT API (cuFFT, and the ct engine's planar products) against
+    ``torch.fft`` in c128 on the same input: c64 within 1e-5 relative L2,
+    c128 within 1e-12; the round trip; 1-D, a prime, 2-D, batched."""
+    rng = np.random.default_rng(9)
+    cases = [((1 << 12,), None), ((1 << 16,), None), ((3 * 5 * 7 * 64,), None),
+             ((1009,), None), ((128, 96), None), ((64, 256), (1,))]
+    for shape, dims in cases:
+        n = int(np.prod(shape))
+        h = torch.from_numpy(rng.standard_normal(n)
+                             + 1j * rng.standard_normal(n))
+        for dt, tol in ((torch.complex64, 1e-5), (torch.complex128, 1e-12)):
+            for impl in ("xla", "ct"):
+                x = vex.vector(data=h.to(dt), context=gpu)
+                y = vex.vector(n, dtype=dt, context=gpu)
+                y[:] = vex.FFT(shape, dims=dims, dtype=dt, impl=impl)(x)
+                ref = torch.fft.fftn(
+                    x.storage.to(torch.complex128).view(shape),
+                    dim=dims).reshape(-1)
+                err = ((y.storage.to(torch.complex128) - ref).norm()
+                       / ref.norm()).item()
+                assert err <= tol, (shape, dt, impl, err)
+                z = vex.vector(n, dtype=dt, context=gpu)
+                z[:] = vex.FFT(shape, dims=dims, dtype=dt, inverse=True,
+                               impl=impl)(y)
+                back = ((z.storage - x.storage).norm()
+                        / x.storage.norm()).item()
+                assert back <= 2 * tol, (shape, dt, impl, back)

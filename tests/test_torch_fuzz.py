@@ -1,7 +1,7 @@
 """Seeded fuzz parity of the PyTorch port with vexcl_tpu, on the CPU.
 
 Small, seeded versions of ``exp/fuzz_expressions.py`` and
-``exp/fuzz_algorithms.py`` (FFT left out: the port has none yet): each
+``exp/fuzz_algorithms.py``: each
 seed draws a few dozen recipes with numpy, and every recipe is built and
 evaluated through both packages' public APIs.
 
@@ -22,7 +22,9 @@ evaluated through both packages' public APIs.
   size one compile of the JAX package's kernels: the file stays near
   15 s); keys and
   counts exact, sums within 2e-5 of the magnitude (f32, two summation
-  orders).
+  orders); ``vex.fft`` of c64 inputs at the same sizes within 5e-6 of the
+  largest magnitude of numpy's c128 transform (the fuzzer's bound) and of
+  the JAX package's.
 """
 
 import numpy as np
@@ -340,3 +342,21 @@ def test_algorithm_fuzz(seed, ctx1, tctx):
         assert t["rbk"][0] == j["rbk"][0], (n, mode)
         np.testing.assert_array_equal(t["rbk"][1], j["rbk"][1])
         _close(t["rbk"][2], j["rbk"][2])
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fft_fuzz(seed, ctx1, tctx):
+    """``fft`` of c64 vectors at the fuzzer's sizes (a prime and odd
+    lengths) through both packages against numpy's c128 transform."""
+    rng = np.random.default_rng(400 + seed)
+    for n in SIZES:
+        x = (rng.random(n) + 1j * rng.random(n)).astype(np.complex64)
+        ref = np.fft.fft(x.astype(np.complex128))
+        scale = max(1e-30, np.abs(ref).max())
+        out = vt.vector(n, dtype=np.complex64, context=tctx)
+        out[:] = vt.fft(vt.vector(data=x, context=tctx))
+        got = out.to_numpy()
+        jout = vex.vector(n, dtype=np.complex64, context=ctx1)
+        jout[:] = vex.fft(vex.vector(data=x, context=ctx1))
+        assert np.abs(got - ref).max() / scale < 5e-6, (n, "fft")
+        assert np.abs(got - jout.to_numpy()).max() / scale < 5e-6, n

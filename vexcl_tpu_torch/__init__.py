@@ -22,7 +22,11 @@ and the views (``slicer``, ``permutation``, ``reshape``, ``raw_pointer``,
 ``multi_array``; slices and index arrays of a vector) as indexed loads and
 stores of the generated kernels, ``reduce_view`` on a generated
 reduction kernel, atomic updates through a permutation, ``tensordot``,
-``gather``/``scatter`` and ``any_of``/``all_of``.
+``gather``/``scatter`` and ``any_of``/``all_of``; complex vectors in
+the generated kernels ((re, im) pairs: ``conj``, ``real``, ``imag``,
+``abs``), ``FFT``/``fft``/``ifft`` (cuFFT, or the ported Cooley-Tukey
+engine) and ``mba`` (a host fit, its evaluation fused into the
+assignment kernel).
 On CPU tensors every kernel's plain PyTorch version runs instead.  The default context
 is a CUDA device: the CPU runs where it is asked for (``Filter.CPU``,
 ``device="cpu"`` or ``VEXTPU_PLATFORM=cpu``).  This package imports neither ``jax`` nor ``vexcl_tpu``::
@@ -59,6 +63,8 @@ from .ops.scan_by_key import exclusive_scan_by_key, inclusive_scan_by_key
 from .ops.reduce_by_key import reduce_by_key
 from .ops.sort import sort, sort_by_key
 from .ops.random import Random, RandomNormal
+from .ops.fft import FFT, fft, ifft
+from .ops.mba import mba
 from .expr.view import (MultiSliceView, PermutationView, ReducedView,
                         ReshapeView, SliceTerminal, _, permutation, r,
                         range_, reduce_view, reshape, slicer)

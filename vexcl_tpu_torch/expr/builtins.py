@@ -8,7 +8,8 @@ kernel form)``:
   to: ``"inexact"`` (promote, then make floating: ``sin`` of i32 is f32),
   ``"join"`` (promote only: ``fmin``, ``floor``, ``fabs`` keep an integer
   type), ``"numeric"`` (``fmod``: booleans computed as i32), ``"bool"``
-  (classification);
+  (classification), ``"real"`` (promote; a complex value gives the type
+  of its parts: ``abs``, ``real`` and ``imag`` of c64 are f32);
 * the PyTorch form gets its operands already cast to the compute type
   and serves CPU tensors;
 * the kernel form is the spelling in the generated Triton source, with
@@ -18,6 +19,10 @@ kernel form)``:
   approximate PTX instructions in f32 on the installed Triton, so the
   kernel spells the correctly rounded libdevice functions.
 
+On complex values the kernel covers ``real``, ``imag``, ``conj`` and
+``abs`` (the magnitude, ``libdevice.hypot``) as (re, im) pairs
+(``triton_emit.Emitter.complex_op``); every other builtin of a complex
+value raises ``NotImplementedError`` on CUDA and computes on the CPU.
 A builtin whose kernel form is ``None`` computes on CPU tensors and raises
 ``NotImplementedError`` (with its name) on CUDA tensors.  Entries of the
 JAX catalog that are not in this table are listed in ROADMAP.md.
@@ -91,6 +96,15 @@ def _tgamma(x):
         math.pi / (torch.sin(math.pi * x) * torch.exp(torch.lgamma(1.0 - x))))
 
 
+def _imag(x):
+    # jnp.imag of a real value: zeros of its type
+    return x.imag if x.is_complex() else torch.zeros_like(x)
+
+
+def _conj(x):
+    return torch.conj_physical(x) if x.is_complex() else x
+
+
 def _rootn(x, n):
     return torch.sign(x) * torch.abs(x) ** (1.0 / n)
 
@@ -154,8 +168,8 @@ _CATALOG = {
     "rint": ("inexact", torch.round, _ld("rint")),
     "nearbyint": ("inexact", torch.round, _ld("rint")),
     # abs / sign / remainder
-    "fabs": ("join", torch.abs, "tl.abs({0})"),
-    "abs": ("join", torch.abs, "tl.abs({0})"),
+    "fabs": ("real", torch.abs, "tl.abs({0})"),
+    "abs": ("real", torch.abs, "tl.abs({0})"),
     "sign": ("join", torch.sign, None),
     "fmod": ("numeric", torch.fmod, "fmod"),
     "remainder": ("inexact", lambda x, y: x - torch.round(x / y) * y, None),
@@ -207,6 +221,11 @@ _CATALOG = {
     "select": ("join", lambda a, b, c: torch.where(c != 0, b, a), None),
     "bitselect": ("join", lambda a, b, c: (a & ~c) | (b & c),
                   "(({0} & ~{2}) | ({1} & {2}))"),
+    # complex parts (jnp.real, jnp.imag, jnp.conj; a real value is its own
+    # real part and conjugate, its imaginary part zeros of its type)
+    "real": ("real", torch.real, "real"),
+    "imag": ("real", _imag, "imag"),
+    "conj": ("join", _conj, "conj"),
     # integer helpers
     "hadd": ("join", lambda a, b: (a & b) + ((a ^ b) >> 1),
              "(({0} & {1}) + (({0} ^ {1}) >> 1))"),

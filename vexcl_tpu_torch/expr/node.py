@@ -17,7 +17,8 @@ Every node implements:
 * ``emit(env)``     — the plain PyTorch value, used for CPU tensors,
 * ``emit_src(em)``  — the emitter hook: appends this node's lines to the
   Triton kernel source being generated (``triton_emit.py``) and returns
-  the name of the variable that holds its value.
+  the name of the variable that holds its value (a complex value: the
+  pair of names of its real and imaginary parts).
 
 What the JAX package needed only for XLA and the TPU is gone: no tracing,
 no padded sharded storage, no placement or donation flags on the emit
@@ -32,8 +33,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..types import (code_of, dtype_of, dtype_of_code, join, scalar_code,
-                     to_inexact)
+from ..types import (COMPLEX_CODES, code_of, dtype_of, dtype_of_code, join,
+                     real_code, scalar_code, to_inexact)
 
 __all__ = [
     "Expr", "BinOp", "UnOp", "FuncCall", "Where", "VectorTerminal",
@@ -396,8 +397,10 @@ class Expr:
 # "numeric" = the same, with booleans computed as i32 (jnp's
 # ``promote_args_numeric``: ``b // b``, ``b % b``, ``b << b`` are i32),
 # "inexact" = promoted and then made floating (i32 / i32 -> f32),
-# "bool" = comparisons.  The PyTorch and kernel forms receive operands
-# already cast to the compute type (the promoted operand type).
+# "bool" = comparisons, "real" = promoted, the result the type of a complex
+# value's parts (``jnp.abs``, ``jnp.real``: c64 -> f32).  The PyTorch and
+# kernel forms receive operands already cast to the compute type (the
+# promoted operand type).
 # ---------------------------------------------------------------------------
 
 
@@ -459,7 +462,7 @@ _BINOPS: Dict[str, Tuple[str, Any, Optional[str]]] = {
 
 _UNOPS: Dict[str, Tuple[str, Any, Optional[str]]] = {
     "neg": ("same", torch.neg, "(-{0})"),
-    "abs": ("same", torch.abs, "tl.abs({0})"),
+    "abs": ("real", torch.abs, "tl.abs({0})"),
     "bitnot": ("same", torch.bitwise_not, "(~{0})"),
     "logical_not": ("bool", torch.logical_not, "({0} == 0)"),
 }
@@ -475,6 +478,8 @@ def _result_code(rule: str, codes: List[str]) -> Tuple[str, str]:
         return c, c
     if rule == "bool":
         return c, "b1"
+    if rule == "real":
+        return c, real_code(c)
     if rule == "numeric" and c == "b1":
         return "i32", "i32"
     return c, c
@@ -608,6 +613,11 @@ class _Op(Expr):
         if cc == "b1" and self.op in ("abs", "fabs"):
             return em.value(self.children[0])     # jnp.abs of booleans
         form = self._entry()[2]
+        if cc in COMPLEX_CODES:
+            # (re, im) pairs: the emitter's complex forms, or it raises
+            args = [em.cast(em.value(c), em.types[id(c)], cc)
+                    for c in self.children]
+            return em.complex_op(self.op, args, cc)
         if form is None:
             raise NotImplementedError(
                 f"{self._kind} {self.op!r} is not covered by the CUDA "
@@ -644,7 +654,9 @@ class UnOp(_Op):
 
     def _infer(self, child_codes):
         rule = self._entry()[0]
-        return "b1" if rule == "bool" else child_codes[0]
+        if rule == "bool":
+            return "b1"
+        return real_code(child_codes[0]) if rule == "real" else child_codes[0]
 
     def _compute_code(self, types) -> str:
         return types[id(self.children[0])]
@@ -696,7 +708,7 @@ class Where(Expr):
         cv = em.cast(em.value(c), em.types[id(c)], "b1")
         av = em.cast(em.value(a), em.types[id(a)], code)
         bv = em.cast(em.value(b), em.types[id(b)], code)
-        return em.define(f"tl.where({cv}, {av}, {bv})")
+        return em.where(cv, av, bv)
 
 
 class CastExpr(Expr):
@@ -720,7 +732,7 @@ class CastExpr(Expr):
     def emit_src(self, em) -> str:
         c = self.children[0]
         code = code_of(self.dtype)
-        return em.define(em.cast(em.value(c), em.types[id(c)], code))
+        return em.bind(em.cast(em.value(c), em.types[id(c)], code))
 
 
 # ---------------------------------------------------------------------------

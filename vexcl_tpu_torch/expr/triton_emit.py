@@ -47,6 +47,18 @@ produces
   element stored once; a permutation's stores land at random, one
   32-byte sector each.
 
+Complex values (c64, c128) are (re, im) pairs of f32 or f64 variables:
+a complex leaf crosses as a pointer to its real type (the memory of
+``torch.view_as_real``), is loaded as a (BLOCK, 2) tile, so that a lane
+moves its element's 8 or 16 contiguous bytes, and split (``tl.split``); a
+complex target is stored through ``tl.join``; a complex scalar crosses as
+two numbers.  The kernel covers ``+ - * /``, unary ``-``, ``== !=``, casts
+between real and complex, ``where``, ``real``, ``imag``, ``conj`` and
+``abs`` of complex values (``Emitter.complex_op``); division is Smith's
+(XLA's form), so results agree with the plain form within rounding, not
+bit for bit.  Every other operation on a complex value raises
+``NotImplementedError`` on CUDA.
+
 Every node is cast to the type the port inferred for it (``types.py``
 follows the JAX package's promotion, not Triton's), scalar leaves are
 passed in their own type (a Python float is passed as its 64 bits, since
@@ -75,14 +87,16 @@ from .._build import Pointer
 from ..cache import kernel_cache
 from ..config import config
 from ..ops import cuda_gather, cuda_scatter
-from ..types import code_of, dtype_of_code, scalar_code
+from ..types import (COMPLEX_CODES, code_of, dtype_of_code, real_code,
+                     scalar_code)
 from .node import (Analysis, ArrayTerminal, BinOp, CastExpr,
                    ConstantTerminal, EmitEnv, Expr, ScalarTerminal, UnOp,
                    VectorTerminal)
 
 __all__ = ["Emitter", "assign_source", "assign_multi_source", "assign",
            "assign_plain", "assign_multi", "assign_multi_plain",
-           "assign_indexed", "assign_to_view", "assign_to_view_plain",
+           "assign_indexed", "assign_complex", "assign_to_view",
+           "assign_to_view_plain",
            "assign_to_view_source", "plain_value", "plain_values",
            "kernel_key", "launch_key", "leaf_codes", "launch_args",
            "assign_tiled_source", "tiled_view",
@@ -127,15 +141,18 @@ def _is_signed(code: str) -> bool:
 
 def _scalar_kind(value) -> str:
     """How a scalar leaf crosses into the kernel: f64 values as their 64
-    bits (``bits``), other floats as f32 (``float``), the rest as ints."""
+    bits (``bits``), other floats as f32 (``float``), the rest as ints; a
+    complex value as two of them, its real and imaginary parts (``cbits``
+    for c128 and weak complex numbers, ``cfloat`` for c64)."""
     code = scalar_code(value)
     if code in ("f*", "f64"):
         return "bits"
     if code in ("f32", "f16", "bf16"):
         return "float"
-    if code in ("c*", "c64", "c128"):
-        raise NotImplementedError("complex scalars are not covered by the "
-                                  "CUDA expression kernel")
+    if code in ("c*", "c128"):
+        return "cbits"
+    if code == "c64":
+        return "cfloat"
     return "int"
 
 
@@ -143,25 +160,45 @@ _F64 = struct.Struct("<d")
 _I64 = struct.Struct("<q")
 
 
+def _bits(value: float) -> int:
+    return _I64.unpack(_F64.pack(value))[0]
+
+
+def tensor_arg(t: torch.Tensor):
+    """A tensor as a kernel argument: as it is, except a 0-d one (a
+    ``_build.Pointer``: Triton would take it for a number) and a complex
+    one (a pointer to its real type, the memory of
+    ``torch.view_as_real``)."""
+    if t.dtype.is_complex:
+        return Pointer(t, t.dtype.to_real())
+    return t if t.ndim else Pointer(t)
+
+
 def launch_args(leaves: Sequence) -> List:
-    """Kernel arguments for the leaves, in slot order: a tensor as it is
-    (a 0-d one as a ``_build.Pointer``: Triton would take it for a
-    number), a scalar as ``_scalar_kind`` says."""
+    """Kernel arguments for the leaves, in slot order: a tensor as
+    ``tensor_arg`` gives it, a scalar as ``_scalar_kind`` says (a complex
+    one as two arguments)."""
     out = []
     for leaf in leaves:
         t = type(leaf)
         if t is float:                  # a weak Python float: its bits
-            out.append(_I64.unpack(_F64.pack(leaf))[0])
+            out.append(_bits(leaf))
         elif t is int:
             out.append(leaf)
         elif isinstance(leaf, torch.Tensor):
-            out.append(leaf if leaf.ndim else Pointer(leaf))
+            out.append(tensor_arg(leaf))
         else:
             kind = _scalar_kind(leaf)
             if kind == "bits":
-                out.append(_I64.unpack(_F64.pack(float(leaf)))[0])
+                out.append(_bits(float(leaf)))
             elif kind == "float":
                 out.append(float(leaf))
+            elif kind == "cbits":
+                v = complex(leaf)
+                out += [_bits(v.real), _bits(v.imag)]
+            elif kind == "cfloat":
+                v = complex(leaf)
+                out += [v.real, v.imag]
             else:
                 out.append(int(leaf))
     return out
@@ -246,9 +283,14 @@ class Emitter:
         if self.tile is None or self.tile[0] is not view or self.at != BASE:
             return None
         v = self.value(view, self.tile[1])
+        boolean = self.types[id(view)] == "b1"
+        if isinstance(v, tuple):
+            return tuple(self._transposed(p, False) for p in v)
+        return self._transposed(v, boolean)
+
+    def _transposed(self, v: str, boolean: bool) -> str:
         # tl.where broadcasts a leafless (scalar-only) value to the block
         v = self.define(f"tl.where({self.tile[1][1]}, {v}, {v})")
-        boolean = self.types[id(view)] == "b1"
         if boolean:
             v = self.define(f"{v}.to(tl.int8)")
         v = self.define(f"tl.reshape(tl.trans(tl.reshape({v}, (TL, TU))), "
@@ -261,12 +303,51 @@ class Emitter:
         self.lines.append(f"{name} = {src}")
         return name
 
-    def cast(self, var: str, frm: str, to: str) -> str:
+    def bind(self, value):
+        """``value`` (an expression text, or a complex pair of variables)
+        as a variable or a pair of them."""
+        return value if isinstance(value, tuple) else self.define(value)
+
+    def cast(self, var, frm: str, to: str):
+        """``var`` of type ``frm`` in type ``to``: an expression text, or
+        for a complex ``to`` a pair of variables.  A complex value cast to
+        a real type is its real part (as ``astype``), to bool whether
+        either part is not 0; a real value cast to a complex type has 0
+        as its imaginary part."""
+        if frm in COMPLEX_CODES or to in COMPLEX_CODES:
+            return self._cast_complex(var, frm, to)
         if dtype_of_code(frm) == dtype_of_code(to):
             return var
         if to == "b1":
             return f"({var} != 0)"
         return f"{var}.to({tl_type(to)})"
+
+    def _cast_complex(self, var, frm: str, to: str):
+        rf, rt = real_code(frm), real_code(to)
+        if frm in COMPLEX_CODES and to in COMPLEX_CODES:
+            if dtype_of_code(rf) == dtype_of_code(rt):
+                return var
+            return tuple(self.define(self.cast(p, rf, rt)) for p in var)
+        if frm in COMPLEX_CODES:
+            re, im = var
+            if to == "b1":
+                return f"(({re} != 0) | ({im} != 0))"
+            return self.cast(re, rf, to)
+        return self.bind(self.cast(var, frm, rt)), self.zero(rt)
+
+    def zero(self, code: str) -> str:
+        """A block of zeros of a real float type, defined once a kernel."""
+        key = ("zero", code)
+        if key not in self.temps:
+            self.temps[key] = self.constant(0.0, code)
+        return self.temps[key]
+
+    def where(self, cond: str, a, b):
+        """``tl.where`` of two values, pairs part by part."""
+        if isinstance(a, tuple):
+            return tuple(self.define(f"tl.where({cond}, {x}, {y})")
+                         for x, y in zip(a, b))
+        return self.define(f"tl.where({cond}, {a}, {b})")
 
     # -- indices ----------------------------------------------------------
     def index(self) -> str:
@@ -312,6 +393,10 @@ class Emitter:
         dt = dtype_of_code(code)
         if dt.is_floating_point:
             return self.constant(float("nan"), code)
+        if dt.is_complex:
+            # jnp.take's fill of a complex array: NaN + 0j
+            return (self.constant(float("nan"), real_code(code)),
+                    self.zero(real_code(code)))
         if dt == torch.bool:
             return self.constant(True, code)
         info = torch.iinfo(dt)
@@ -321,11 +406,14 @@ class Emitter:
         return self.constant(info.min if dt.is_signed else info.max, code)
 
     # -- leaves -----------------------------------------------------------
-    def load(self, node: Expr) -> str:
+    def load(self, node: Expr):
         slot = self.analysis.slot_of[id(node)]
         leaf = self.analysis.leaves[slot]
         if not isinstance(leaf, torch.Tensor):
             return self.scalar(node)    # a 0-d CPU tensor, crossed as scalar
+        code = self.types[id(node)]
+        if code in COMPLEX_CODES:
+            return self._load_complex(slot, leaf)
         if leaf.ndim == 0:
             # a 0-d tensor on the card: one load, broadcast like a scalar
             if slot not in self._slots:
@@ -343,13 +431,50 @@ class Emitter:
             self._slots[key] = var
         return self._slots[key]
 
-    def scalar(self, node: Expr) -> str:
+    def _load_complex(self, slot: int, leaf: torch.Tensor):
+        """A complex leaf, a pointer to its real type: (re, im) variables.
+        A 0-d one is loaded once; a 1-D one as a (BLOCK, 2) tile at the
+        context's index (i64: twice an i32 index may overflow), split into
+        its parts."""
+        key = ("load", slot, self.at) if leaf.ndim else slot
+        if key not in self._slots:
+            var = f"x{slot}" if self.at == BASE or not leaf.ndim \
+                else f"x{slot}_{self._n}"
+            self._n += 1
+            if leaf.ndim == 0:
+                self.lines += [f"{var}_re = tl.load(p{slot})",
+                               f"{var}_im = tl.load(p{slot} + 1)"]
+            else:
+                idx, mask = self.at
+                if idx != BASE[0]:
+                    idx = f"{idx}.to(tl.int64)"
+                self.lines += [
+                    f"{var}_ri = tl.load(p{slot} + ({idx} * 2)[:, None] "
+                    f"+ tl.arange(0, 2)[None, :], mask={mask}[:, None])",
+                    f"{var}_re, {var}_im = tl.split({var}_ri)"]
+            self._slots[key] = (f"{var}_re", f"{var}_im")
+        return self._slots[key]
+
+    def scalar(self, node: Expr):
         slot = self.analysis.slot_of[id(node)]
         if slot not in self._slots:
             value = self.analysis.leaves[slot]
             code = self.types[id(node)]
             kind = _scalar_kind(value)
             var = f"v{slot}"
+            if kind in ("cbits", "cfloat"):
+                rt = tl_type(real_code(code))
+                parts = []
+                for part in ("r", "i"):
+                    src = (f"s{slot}{part}.to(tl.int64).to(tl.float64, "
+                           "bitcast=True)" if kind == "cbits"
+                           else f"s{slot}{part}")
+                    if kind == "cfloat" or rt != "tl.float64":
+                        src += f".to({rt})"
+                    self.lines.append(f"{var}{part} = {src}")
+                    parts.append(f"{var}{part}")
+                self._slots[slot] = tuple(parts)
+                return self._slots[slot]
             if kind == "bits":
                 src = f"s{slot}.to(tl.int64).to(tl.float64, bitcast=True)"
             else:
@@ -358,7 +483,11 @@ class Emitter:
             self._slots[slot] = var
         return self._slots[slot]
 
-    def constant(self, value, code: str) -> str:
+    def constant(self, value, code: str):
+        if isinstance(value, complex):
+            rc = real_code(code)
+            return (self.constant(value.real, rc),
+                    self.constant(value.imag, rc))
         if isinstance(value, bool):
             lit = "1" if value else "0"
         elif isinstance(value, int) and code == "u32":
@@ -387,6 +516,10 @@ class Emitter:
     # -- operators --------------------------------------------------------
     def apply(self, form: str, args: List[str], cc: str, op: str) -> str:
         """Expression text of ``form`` over ``args`` in compute type cc."""
+        if any(isinstance(a, tuple) for a in args):
+            raise NotImplementedError(
+                f"{op!r} on a complex value is not covered by the CUDA "
+                "expression kernel")
         if cc == "b1" and op in _ARITH:
             raise NotImplementedError(
                 f"{op!r} on booleans is not covered by the CUDA expression "
@@ -405,6 +538,56 @@ class Emitter:
                 f"{op!r} on {dtype_of_code(cc)} is not covered by the CUDA "
                 "expression kernel")
         return form.format(*args)
+
+    def complex_op(self, op: str, args: List[tuple], cc: str):
+        """``op`` over complex pairs ``args`` in compute type cc: a pair,
+        or a variable for ``abs``, ``real``, ``imag``, ``==`` and ``!=``.
+        Division is Smith's algorithm, the scaled form XLA uses, with
+        correctly rounded divides; a product may contract to an FMA."""
+        d = self.define
+        if op in ("add", "sub"):
+            (ar, ai), (br, bi) = args
+            s = "+" if op == "add" else "-"
+            return d(f"{ar} {s} {br}"), d(f"{ai} {s} {bi}")
+        if op == "mul":
+            (ar, ai), (br, bi) = args
+            return (d(f"{ar} * {br} - {ai} * {bi}"),
+                    d(f"{ar} * {bi} + {ai} * {br}"))
+        if op == "div":
+            (ar, ai), (br, bi) = args
+            big = d(f"tl.abs({br}) >= tl.abs({bi})")
+            # |br| >= |bi|: r = bi / br, den = br + bi r,
+            # (ar + ai r, ai - ar r) / den; else r = br / bi, den = bi + br r,
+            # (ar r + ai, ai r - ar) / den
+            r = d(f"libdevice.div_rn(tl.where({big}, {bi}, {br}), "
+                  f"tl.where({big}, {br}, {bi}))")
+            den = d(f"tl.where({big}, {br} + {bi} * {r}, {bi} + {br} * {r})")
+            re = d(f"tl.where({big}, {ar} + {ai} * {r}, {ar} * {r} + {ai})")
+            im = d(f"tl.where({big}, {ai} - {ar} * {r}, {ai} * {r} - {ar})")
+            return d(f"libdevice.div_rn({re}, {den})"), \
+                d(f"libdevice.div_rn({im}, {den})")
+        if op == "neg":
+            (ar, ai), = args
+            return d(f"-{ar}"), d(f"-{ai}")
+        if op == "eq":
+            (ar, ai), (br, bi) = args
+            return d(f"({ar} == {br}) & ({ai} == {bi})")
+        if op == "ne":
+            (ar, ai), (br, bi) = args
+            return d(f"({ar} != {br}) | ({ai} != {bi})")
+        if op == "real":
+            return args[0][0]
+        if op == "imag":
+            return args[0][1]
+        if op == "conj":
+            (ar, ai), = args
+            return ar, d(f"-{ai}")
+        if op in ("abs", "fabs"):
+            (ar, ai), = args
+            return d(f"libdevice.hypot({ar}, {ai})")
+        raise NotImplementedError(
+            f"{op!r} on {dtype_of_code(cc)} is not covered by the CUDA "
+            "expression kernel")
 
 
 _ARITH = ("add", "sub", "mul", "div", "floordiv", "mod", "pow", "neg")
@@ -475,7 +658,15 @@ def _rounding(fn: str):
     return form
 
 
+def _zeros(em: Emitter, args, cc) -> str:
+    # jnp.imag of a real value
+    return (em.zero(cc) if _is_float(cc)
+            else f"tl.zeros_like({args[0]})")
+
+
 _NAMED = {
+    "real": lambda em, args, cc: args[0],
+    "conj": lambda em, args, cc: args[0], "imag": _zeros,
     "floordiv": _floordiv, "mod": _mod, "pow": _pow, "fmod": _fmod,
     "min": _minmax("minimum"), "max": _minmax("maximum"), "max0": _max0,
     "clamp": _clamp, "floor": _rounding("floor"), "ceil": _rounding("ceil"),
@@ -485,9 +676,17 @@ _NAMED = {
 
 def params(analysis: Analysis) -> List[str]:
     """Kernel parameters for the leaves: ``p<slot>`` pointers and
-    ``s<slot>`` scalars, in slot order."""
-    return [f"p{i}" if isinstance(l, torch.Tensor) else f"s{i}"
-            for i, l in enumerate(analysis.leaves)]
+    ``s<slot>`` scalars (``s<slot>r``, ``s<slot>i``: a complex one's
+    parts), in slot order."""
+    out = []
+    for i, l in enumerate(analysis.leaves):
+        if isinstance(l, torch.Tensor):
+            out.append(f"p{i}")
+        elif _scalar_kind(l) in ("cbits", "cfloat"):
+            out += [f"s{i}r", f"s{i}i"]
+        else:
+            out.append(f"s{i}")
+    return out
 
 
 def jit_header(name: str, analysis: Analysis, first: Sequence[str],
@@ -512,6 +711,19 @@ def body(exprs: Sequence[Expr], analysis: Analysis, types: Dict[int, str],
     return em.lines, res
 
 
+def store_line(o: str, r) -> str:
+    """The store of the value ``r`` (a variable, or a complex pair) into
+    output ``o`` at ``offs`` (i64), lanes ``mask``; ``tl.where`` broadcasts
+    a leafless (scalar-only) value to the block.  A complex output is a
+    pointer to its real type: the parts are joined into a (BLOCK, 2) tile,
+    each lane storing its element's contiguous bytes."""
+    if isinstance(r, tuple):
+        re, im = (f"tl.where(mask, {p}, {p})" for p in r)
+        return (f"tl.store({o} + (offs * 2)[:, None] + tl.arange(0, 2)"
+                f"[None, :], tl.join({re}, {im}), mask=mask[:, None])")
+    return f"tl.store({o} + offs, tl.where(mask, {r}, {r}), mask=mask)"
+
+
 def assign_multi_source(exprs: Sequence[Expr], analysis: Analysis,
                         types: Dict[int, str],
                         out_codes: Sequence[str]) -> str:
@@ -526,9 +738,7 @@ def assign_multi_source(exprs: Sequence[Expr], analysis: Analysis,
            "+ tl.arange(0, BLOCK)\n",
            "    mask = offs < n\n"]
     src += [f"    {line}\n" for line in lines]
-    # tl.where broadcasts a leafless (scalar-only) value to the block
-    src += [f"    tl.store({o} + offs, tl.where(mask, {r}, {r}), mask=mask)\n"
-            for o, r in zip(outs, res)]
+    src += [f"    {store_line(o, r)}\n" for o, r in zip(outs, res)]
     return "".join(src)
 
 
@@ -646,8 +856,7 @@ def assign_tiled_source(exprs: Sequence[Expr], analysis: Analysis,
                       ["n", "TU: tl.constexpr", "TL: tl.constexpr",
                        "BLOCK: tl.constexpr"])]
     src += [f"    {line}\n" for line in em.lines]
-    src += [f"    tl.store({o} + offs, tl.where(mask, {r}, {r}), mask=mask)\n"
-            for o, r in zip(outs, res)]
+    src += [f"    {store_line(o, r)}\n" for o, r in zip(outs, res)]
     return "".join(src)
 
 
@@ -660,12 +869,15 @@ class _AssignKernel:
     constexpr values, so a call costs its arguments and one launch."""
 
     def __init__(self, src: str, name: str = "assign_kernel",
-                 tiled: bool = False):
+                 tiled: bool = False, complex_: bool = False):
         from .._build import TritonLauncher, triton_module
 
         if config.show_kernels:
             print(src)
         self.tiled = tiled
+        #: the kernel carries a complex value (its launches count on
+        #: ``assign_complex``)
+        self.complex = complex_
         if tiled:
             tu, tl_, warps = ASSIGN_TILE
             self.consts = (tu, tl_, tu * tl_)       # TU, TL, BLOCK
@@ -677,8 +889,8 @@ class _AssignKernel:
     def launch(self, outs: Sequence[torch.Tensor], leaves: Sequence,
                n: int, programs: int = 0) -> None:
         grid = (programs,) if self.tiled else (-(-n // ASSIGN_BLOCK),)
-        self.launcher(grid, [*outs, *launch_args(leaves)], (n,), self.consts,
-                      outs[0].device)
+        self.launcher(grid, [*map(tensor_arg, outs), *launch_args(leaves)],
+                      (n,), self.consts, outs[0].device)
 
 
 def plain_values(exprs: Sequence[Expr], analysis: Analysis, types, leaves,
@@ -739,16 +951,21 @@ def _launch(exprs: Sequence[Expr], analysis: Analysis, types, leaves,
     def factory():
         codes = [code_of(o.dtype) for o in outs]
         if tile is None:
-            return _AssignKernel(assign_multi_source(exprs, analysis, types,
-                                                     codes))
-        return _AssignKernel(assign_tiled_source(exprs, analysis, types,
-                                                 codes, tile),
-                             "assign_tiled_kernel", tiled=True)
+            src = assign_multi_source(exprs, analysis, types, codes)
+        else:
+            src = assign_tiled_source(exprs, analysis, types, codes, tile)
+        # the emitter has typed every node of the trees by now
+        cplx = any(c in COMPLEX_CODES for c in [*codes, *types.values()])
+        if tile is None:
+            return _AssignKernel(src, complex_=cplx)
+        return _AssignKernel(src, "assign_tiled_kernel", tiled=True,
+                             complex_=cplx)
 
     k = (kernel_cache.get_or_create(key, factory) if config.cache_kernels
          else factory())
     k.launch(outs, leaves, outs[0].numel(),
              tiled_programs(tile) if tile is not None else 0)
+    return k
 
 
 def _gather_operands(expr: Expr, analysis: Analysis, types, leaves,
@@ -791,15 +1008,16 @@ def assign(expr: Expr, analysis: Analysis, types, leaves,
     if ops is not None:
         cuda_gather.gather_ranges(out, *ops)
         return
-    _launch([expr], analysis, types, leaves, [out])
-    if analysis.indexed:
+    if _launch([expr], analysis, types, leaves, [out]).complex:
+        assign_complex.launches += 1
+    elif analysis.indexed:
         assign_indexed.launches += 1
     else:
         assign.launches += 1
 
 
 #: launches of the generated expression kernel whose tree reads through no
-#: view (not of its plain version)
+#: view and carries no complex value (not of its plain version)
 assign.launches = 0
 
 
@@ -810,8 +1028,13 @@ class _Launches:
 
 
 #: launches of ``assign`` whose tree reads through a view (V1: loads at
-#: computed indices; not of its plain version)
+#: computed indices) and carries no complex value (not of its plain
+#: version)
 assign_indexed = _Launches()
+
+#: launches of ``assign`` and ``assign_multi`` whose kernel carries a
+#: complex value, (re, im) pairs (not of their plain versions)
+assign_complex = _Launches()
 
 
 def assign_multi(exprs: Sequence[Expr], analysis: Analysis, types, leaves,
@@ -827,11 +1050,14 @@ def assign_multi(exprs: Sequence[Expr], analysis: Analysis, types, leaves,
         raise NotImplementedError(f"no expression kernel for {device}")
     if outs[0].numel() == 0:
         return
-    _launch(exprs, analysis, types, leaves, outs, keyed)
-    assign_multi.launches += 1
+    if _launch(exprs, analysis, types, leaves, outs, keyed).complex:
+        assign_complex.launches += 1
+    else:
+        assign_multi.launches += 1
 
 
-#: launches of the k-output kernel (not of its plain version)
+#: launches of the k-output kernel that carry no complex value (not of its
+#: plain version)
 assign_multi.launches = 0
 
 
@@ -855,6 +1081,12 @@ def assign_to_view_source(value: Expr, view: Expr, analysis: Analysis,
     """The kernel writing ``value`` (evaluated at the element's index,
     over the view's length) into output ``o0`` at the index ``view``
     computes into the vector it views, lanes the view drops masked."""
+    if out_code in COMPLEX_CODES or any(
+            isinstance(l, torch.Tensor) and l.dtype.is_complex
+            for l in analysis.leaves):
+        raise NotImplementedError(
+            "complex values are not covered by the CUDA view-assignment "
+            "kernel")
     if mode != "store" and out_code not in _ATOMIC_CODES:
         raise NotImplementedError(
             f"atomic {mode} into {dtype_of_code(out_code)} is not covered by "

@@ -117,6 +117,8 @@ def fill_value(dtype: torch.dtype):
     """What ``jnp.take`` reads at an index out of range."""
     if dtype.is_floating_point:
         return float("nan")
+    if dtype.is_complex:
+        return complex(float("nan"), 0.0)
     if dtype == torch.bool:
         return True
     info = torch.iinfo(dtype)
@@ -176,8 +178,7 @@ class _View(Expr):
         v = em.value(self.children[0], (j, mask))
         if valid is None:
             return v
-        return em.define(f"tl.where({valid}, {v}, "
-                         f"{em.fill(em.types[id(self)])})")
+        return em.where(valid, v, em.fill(em.types[id(self)]))
 
     def assign(self, value: Any, op: str = "=") -> "_View":
         """Write through the view into the vector it views (V3):

@@ -78,7 +78,7 @@ from ..expr.node import Analysis, Expr
 from ..expr.triton_emit import (_HEADER, _NAN_ALL, Emitter, jit_header,
                                 kernel_key, launch_args, plain_value,
                                 tl_type)
-from ..types import code_of, dtype_of_code
+from ..types import COMPLEX_CODES, code_of, dtype_of_code
 from .triton_reduce import _programs, min_max_plain
 
 __all__ = ["reduce_view_apply", "reduce_view_plain", "reduce_view_source",
@@ -258,6 +258,9 @@ def reduce_view_source(inner: Expr, analysis: Analysis,
     em = Emitter(analysis, types)
     ity = em.ity
     acc = _acc_code(op, types[id(inner)])
+    if any(c in COMPLEX_CODES for c in types.values()):
+        raise NotImplementedError("complex values are not covered by the "
+                                  "CUDA reduce_view kernel")
     tl_acc, idv = tl_type(acc), _identity(op, acc)
     nk, nr = pattern.count("k"), pattern.count("r")
     kc = [f"kc{e}" for e in range(1, nk)]

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 __all__ = ["dtype_of", "type_name", "promote", "is_floating", "is_integral",
-           "is_complex", "scalar_of"]
+           "is_complex", "scalar_of", "COMPLEX_CODES", "real_code"]
 
 _CODE_TO_DTYPE = {
     "b1": torch.bool,
@@ -55,6 +55,11 @@ _LATTICE = {
 _TO_INEXACT = {"b1": "f32", "i8": "f32", "i16": "f32", "i32": "f32",
                "u8": "f32", "u16": "f32", "u32": "f32", "i64": "f64",
                "u64": "f64", "i*": "f*"}
+
+#: the complex codes and the code of their real and imaginary parts
+#: (``jnp.real``, ``jnp.abs``: c64 -> f32, c128 -> f64, weak -> weak)
+_REAL_OF = {"c64": "f32", "c128": "f64", "c*": "f*"}
+COMPLEX_CODES = frozenset(_REAL_OF)
 
 # Canonical name -> dtype table (types.hpp type_name specializations).
 _NAMED_TYPES = {
@@ -88,6 +93,11 @@ def join(a: str, b: str) -> str:
 
 def to_inexact(code: str) -> str:
     return _TO_INEXACT.get(code, code)
+
+
+def real_code(code: str) -> str:
+    """The code of a complex code's parts; a real code as it is."""
+    return _REAL_OF.get(code, code)
 
 
 def code_of(dtype: torch.dtype) -> str:
