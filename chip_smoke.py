@@ -106,10 +106,14 @@ inverse, timed in turns with a raw ``torch.fft.fftn`` call (GFLOP/s as
 2^24; ``p[:] = fx * conj(fx)`` and ``Reductor(SUM)(fx)`` at 2^24 c64 and
 c128 (one generated launch each by the counters and the profiler,
 against their plain forms, in turns with ``torch.mul(fx, fx.conj())``
-and ``torch.sum``); and MBA (bench.py's fit: 4096 samples, grid 8 x 8,
-6 levels, a 259^2 lattice) at 2^24 f32 points in the lattice and the
-patch form (one launch each, against the plain form and the f64 host
-evaluation, in turns with each other: ``mba_Mpts_s``).  Last, after
+and ``torch.sum``); the FFT API's host µs a call beside the raw call's,
+and at 2^24 its device µs with no copy after cuFFT (the profiler); and
+MBA (bench.py's fit: 4096 samples, grid 8 x 8, 6 levels, a 259^2
+lattice) at 2^24 f32 and f64 points: ``z[:] = interp(X, Y)`` one launch
+of the CUDA kernel (``csrc/mba.cu``) and no V1 launch, the kernel
+against its plain version and the f64 host evaluation, in turns with
+V1's tree (``mba_Mpts_s``), and in f32 the tree through the API and the
+patch form on V1.  Last, after
 every solver phase (so that no solver follows
 these timings' profiler session or cuSPARSE call), the device time per
 call by the profiler of the map-reduce, the compaction (one and two
@@ -180,8 +184,12 @@ Each view assignment is one launch by its counter.  Phase 14: each FFT
 within a relative L2 error of 1e-5 (c64) or 1e-12 (c128) of the c128
 transform, the round trip within twice that; complex products 1e-6 (c64)
 and 1e-13 (c128) of the largest magnitude (FMA contraction; no division
-on the path), complex sums as the real sums; MBA 1e-5 of its plain form
-and 1e-4 absolute of the f64 host evaluation on 4096 points.
+on the path), complex sums as the real sums; MBA's kernel (the tree's
+operations in its order, uncontracted) and V1's tree 1e-5 (f32) and
+1e-12 (f64) of the largest magnitude of the plain form, and 1e-4 (f32)
+and 1e-10 (f64) absolute of the f64 host evaluation on 4096 points.
+Phase 2 holds the generated kernel's integer ``//``, ``%`` and ``fmod``
+with zero divisors bitwise against their plain forms.
 
 Any failed check raises, and the script exits non-zero without the
 result line; it also fails when no CUDA device is visible and when the
@@ -208,6 +216,7 @@ CG_ITERS = 100
 CG_X_TOL = 1e-3
 CG_RESIDUAL_DROP = 20.0
 TOL = {"f32": 1e-5, "f64": 1e-12}
+MBA_HOST_TOL = {"f32": 1e-4, "f64": 1e-10}   # of the f64 host evaluation
 SUM_TOL = {"f32": 1e-5, "f64": 1e-10}
 DIA_TOL = {"f32": 1e-6, "f64": 1e-12}
 STENCIL_N = 1 << 26
@@ -704,6 +713,8 @@ def main() -> int:
     from vexcl_tpu_torch.expr.triton_emit import assign_complex
     from vexcl_tpu_torch.ops.mba import _eval_level_host as mba_host
     from vexcl_tpu_torch.ops.mba import mba_device_eval
+    from vexcl_tpu_torch.ops.cuda_mba import mba_eval, mba_plain
+    from vexcl_tpu_torch.ops.cufft import execute as cufft_execute
     from vexcl_tpu_torch.ops.triton_reduce import map_reduce_complex
 
     results = {"seed": args.seed}
@@ -723,7 +734,8 @@ def main() -> int:
                 "gather_ranges": gather_ranges,
                 "complex": assign_complex,
                 "reduce_complex": map_reduce_complex,
-                "mba": assign_indexed}
+                "mba": mba_eval, "mba_tree": assign_indexed,
+                "cufft": cufft_execute}
     main_launches = {}
 
     def counted(keys, fn):
@@ -836,6 +848,37 @@ def main() -> int:
             report(f"reduce_{kind}_{dname}_nan", {"kernel": k, "plain": p})
         del x, y, z, u, v
         torch.cuda.empty_cache()
+
+    # integer //, % and fmod with zeros in the divisor (and the least
+    # signed integer by -1): the generated kernel bitwise against its plain
+    # form, which gives XLA's values as the JAX package does
+    zrng = np.random.default_rng(args.seed)
+    zdiv = {}
+    for dname, npdt in (("i32", np.int32), ("i64", np.int64),
+                        ("u32", np.uint32), ("bool", np.bool_)):
+        if npdt is np.bool_:
+            a_np, b_np = zrng.random(N_VEC) < 0.5, zrng.random(N_VEC) < 0.5
+        else:
+            info = np.iinfo(npdt)
+            a_np = zrng.integers(max(info.min, -(1 << 30)), 1 << 30,
+                                 N_VEC).astype(npdt)
+            b_np = zrng.integers(-3 if info.min else 0, 4,
+                                 N_VEC).astype(npdt)
+            a_np[:3] = [info.min, info.max, 0]
+            b_np[:3] = [-1 if info.min else 0, 0, 0]
+        A, B = (vex.vector(data=t_, context=ctx) for t_ in (a_np, b_np))
+        for op, fn in (("floordiv", lambda: A // B), ("mod", lambda: A % B),
+                       ("fmod", lambda: vex.fmod(A, B))):
+            expr = fn()
+            e, an, ty, lv = prepare(expr, N_VEC, dev)
+            k = vex.eval(expr)
+            pl = torch.empty_like(k)
+            assign_plain(e, an, ty, lv, pl)
+            check(torch.equal(k, pl), f"{dname} {op} by zero divisors: the "
+                  "kernel differs from its plain form")
+        zdiv[f"{dname}_zero_divisors"] = int((b_np == 0).sum())
+        del A, B
+    report("integer_division_by_zero", dict(zdiv, bitwise=True))
 
     # -- phase 3: the SpMV on Poisson 256^3 ---------------------------------
     nrows = POISSON_N ** 3
@@ -1025,10 +1068,12 @@ def main() -> int:
                         w).view(-1)
     _, lib_rel = errors(conv_stencil(), ref)
     check(lib_rel <= STENCIL_TOL["f32"], f"conv1d stencil: rel {lib_rel}")
-    kernels["stencil"] = kernel_row(
+    kernels["stencil"] = dict(kernel_row(
         abs_err, cuda_ms(lambda: stencil_apply(x0, cdev, 2), KERNEL_REPS),
         plain_ms, tensor_bytes(x0, k), 2 * 5 * STENCIL_N,
-        cuda_ms(conv_stencil, KERNEL_REPS))
+        cuda_ms(conv_stencil, KERNEL_REPS)),
+        host_us=host_us(lambda: stencil_apply(x0, cdev, 2)),
+        api_host_us=host_us(lambda: y.assign(x * st), 20))
     nbytes = 2 * STENCIL_N * 4
     report("stencil_2^26_w5_f32", {
         "max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
@@ -2854,7 +2899,8 @@ def main() -> int:
             z = vex.vector(n, dtype=dt, context=ctx)
             f = vex.FFT(shape, dims=dims, dtype=dt)
             fi = vex.FFT(shape, dims=dims, dtype=dt, inverse=True)
-            y[:] = f(x)
+            _, got = counted(("cufft",), lambda: y.assign(f(x)))
+            add_launches(got)
             ref = torch.fft.fftn(x.storage.to(torch.complex128).view(shape),
                                  dim=dims).reshape(-1)
             err = rel_l2(y.storage, ref)
@@ -2865,16 +2911,33 @@ def main() -> int:
             xv = x.storage.view(shape)
             turns = in_turns({"api": lambda: y.assign(f(x)),
                               "raw": lambda: torch.fft.fftn(xv, dim=dims)})
+            fx_ = f(x)
             r = {"rel_l2_err_vs_c128": err, "roundtrip_rel_l2": back,
                  "api_ms": turns["api"]["ms"],
                  "api_ms_range": turns["api"]["ms_range"],
                  "raw_ms": turns["raw"]["ms"],
                  "raw_ms_range": turns["raw"]["ms_range"],
                  "api_overhead_ms": turns["api"]["ms"] - turns["raw"]["ms"],
+                 "api_over_raw": turns["api"]["ms"] / turns["raw"]["ms"],
+                 "cufft_into_target": f.plan.cufft_layout is not None,
+                 "api_host_us": host_us(lambda: y.assign(fx_)),
+                 "raw_host_us": host_us(lambda: torch.fft.fftn(xv,
+                                                               dim=dims)),
                  f"{name}_GFLOPs": flops / (turns["api"]["ms"] * 1e-3) / 1e9,
                  "raw_GFLOPs": flops / (turns["raw"]["ms"] * 1e-3) / 1e9,
                  "bound_ms": bound(2 * n * dt.itemsize, flops)[0],
                  "bound_by": bound(2 * n * dt.itemsize, flops)[1]}
+            if name == "fft_2^24":
+                # cuFFT writes the target itself: no copy kernel after it
+                api_k, _ = profile_call(lambda: y.assign(fx_), 10)
+                raw_k, _ = profile_call(lambda: torch.fft.fftn(xv, dim=dims),
+                                        10)
+                check(not any(w in k_.lower() for k_ in api_k for w in (
+                    "copy", "elementwise", "memcpy")), f"{name}: the API "
+                    f"copies after cuFFT: {api_k}")
+                r.update(api_device_us=sum(api_k.values()),
+                         raw_device_us=sum(raw_k.values()),
+                         api_kernels=list(api_k))
             if name in FFT_CT:
                 # the ported Cooley-Tukey engine (planar torch.matmul
                 # codelets at full f32 precision)
@@ -2888,7 +2951,7 @@ def main() -> int:
                                                           * 1e-3) / 1e9
             report(name, r)
             rec[name] = r
-            del x, y, z, ref, xv
+            del x, y, z, ref, xv, fx_
             torch.cuda.empty_cache()
 
         # complex expressions at 2^24: p[:] = fx * conj(fx) and
@@ -2988,7 +3051,11 @@ def main() -> int:
             "c128": rows["c128"][1]}, workload="Reductor(SUM)(fx), 2^24 c64")
 
         # MBA: bench.py's fit (bench.py:683-716), z[:] = interp(X, Y) at
-        # 2^24 f32 points in the lattice and the patch form
+        # 2^24 points, f32 and f64: one launch of the CUDA kernel
+        # (csrc/mba.cu) and no V1 launch, the kernel against its plain
+        # version (the tree's plain form) and the f64 host evaluation, in
+        # turns with V1's tree (the route before it); in f32 also the tree
+        # through the API (V1, its launches) and the patch form
         rng_l = np.random.default_rng(7)
         sx, sy = rng_l.random(4096), rng_l.random(4096)
         surf = vex.mba(lo=(-0.01, -0.01), hi=(1.01, 1.01), coords=(sx, sy),
@@ -2996,60 +3063,100 @@ def main() -> int:
                        levels=6)
         check(surf.lattice.shape == (259, 259) and surf.patch is not None,
               f"mba: lattice {surf.lattice.shape}")
-        X, Y = rand(N_VEC, torch.float32), rand(N_VEC, torch.float32)
-        z = vex.vector(N_VEC, context=ctx)
-        hq = [X.storage[:4096].double().cpu().numpy(),
-              Y.storage[:4096].double().cpu().numpy()]
-        host = torch.from_numpy(mba_host(surf.lo, surf.hi, surf.grids[0],
-                                         surf.lattice, hq))
-        forms, calls = {}, {}
-        patch = surf.tables(torch.float32, dev)[1]
-        for form in ("lattice", "patch"):
-            # the API's form, and the patch form beside it
-            expr = surf(X, Y) if form == "lattice" else mba_device_eval(
-                surf.lo, surf.hi, surf.grids, None, [X, Y], patch=patch)
-            _, got = counted(("mba",), lambda: z.assign(expr))
-            check(got["mba"] == 1, f"mba {form}: {got}")
+        shape_l = tuple(g + 3 for g in surf.grids[0])
+        mba_rows = {}
+        for dname, dt in (("f32", torch.float32), ("f64", torch.float64)):
+            X, Y = rand(N_VEC, dt), rand(N_VEC, dt)
+            z = vex.vector(N_VEC, dtype=dt, context=ctx)
+            hq = [X.storage[:4096].double().cpu().numpy(),
+                  Y.storage[:4096].double().cpu().numpy()]
+            host = torch.from_numpy(mba_host(surf.lo, surf.hi,
+                                             surf.grids[0], surf.lattice, hq))
+            api = surf(X, Y)
+            _, got = counted(("mba",), lambda: z.assign(api))
+            check(got["mba"] == 1 and assign_indexed.launches == 0,
+                  f"mba {dname}: {got}, V1 {assign_indexed.launches}")
             add_launches(got)
-            e, an, ty, lv = prepare(expr, N_VEC, dev)
+            lat = surf.tables(dt, dev)[0]
+            tab = surf.kernel_table(dt, dev)
+            coords = [X.storage, Y.storage]
             k = torch.empty_like(z.storage)
             pl = torch.empty_like(k)
-            assign(e, an, ty, lv, k)
-            assign_plain(e, an, ty, lv, pl)
+            mba_eval(k, coords, lat, surf.lo, surf.hi, surf.grids[0], tab)
+            mba_plain(pl, coords, lat, surf.lo, surf.hi, surf.grids[0])
             abs_err, rel = errors(k, pl)
             herr = (z.storage[:4096].double().cpu() - host).abs().max().item()
-            check(rel <= 1e-5 and herr <= 1e-4 and torch.equal(k, z.storage),
-                  f"mba {form}: rel err {rel} to its plain form, {herr} to "
-                  "the f64 host evaluation")
-            per_kernel, _ = profile_call(lambda: z.assign(expr), KERNEL_REPS)
-            check(len(per_kernel) == 1 and "assign_kernel" in next(
-                iter(per_kernel)), f"mba {form} is not one generated "
-                f"kernel: {per_kernel}")
-            forms[form] = dict(kernel_row(
-                abs_err, None, cuda_ms(lambda: assign_plain(e, an, ty, lv,
-                                                            pl), 3),
-                3 * 4 * N_VEC, 0, None),
+            check(rel <= TOL[dname] and herr <= MBA_HOST_TOL[dname]
+                  and torch.equal(k, z.storage), f"mba {dname}: rel err "
+                  f"{rel} to its plain form, {herr} to the f64 host "
+                  "evaluation")
+            per_kernel, _ = profile_call(lambda: z.assign(api), KERNEL_REPS)
+            check(len(per_kernel) == 1 and "mba_kernel" in next(
+                iter(per_kernel)), f"mba {dname} is not one launch of the "
+                f"MBA kernel: {per_kernel}")
+            tree = mba_device_eval(surf.lo, surf.hi, surf.grids,
+                                   [lat.reshape(shape_l)], [X, Y])
+            e, an, ty, lv = prepare(tree, N_VEC, dev)
+            kt = torch.empty_like(k)
+            assign(e, an, ty, lv, kt)
+            abs_t, rel_t = errors(kt, pl)
+            check(rel_t <= TOL[dname], f"mba {dname} V1 tree: rel err {rel_t}")
+            turns = in_turns({
+                "kernel": lambda: mba_eval(k, coords, lat, surf.lo, surf.hi,
+                                           surf.grids[0], tab),
+                "v1_tree": lambda: assign(e, an, ty, lv, kt)})
+            tree_k, _ = profile_call(lambda: assign(e, an, ty, lv, kt),
+                                     KERNEL_REPS)
+            row = dict(kernel_row(
+                abs_err, turns["kernel"]["ms"],
+                cuda_ms(lambda: mba_plain(pl, coords, lat, surf.lo, surf.hi,
+                                          surf.grids[0]), 3),
+                3 * dt.itemsize * N_VEC, 0, None),
+                ms_range=turns["kernel"]["ms_range"],
                 device_us=sum(per_kernel.values()),
-                host_us=host_us(lambda: z.assign(expr)),
+                host_us=host_us(lambda: z.assign(api)),
                 max_rel_err=rel, host_f64_abs_err=herr,
-                taps_l2_bytes=N_VEC * 16 * 4)
-            calls[form] = (lambda e=e, an=an, ty=ty, lv=lv, k=k:
-                           assign(e, an, ty, lv, k))
-            del pl
-        turns = in_turns(calls)
-        for form in forms:
-            forms[form].update(ms=turns[form]["ms"],
-                               ms_range=turns[form]["ms_range"],
-                               mba_Mpts_s=N_VEC / (turns[form]["ms"] * 1e-3)
-                               / 1e6)
-            report(f"mba_{form}_2^24_f32", forms[form])
-        rec["mba_Mpts_s"] = forms["lattice"]["mba_Mpts_s"]
-        rec["mba_patch_Mpts_s"] = forms["patch"]["mba_Mpts_s"]
-        kernels["mba"] = dict(forms["lattice"],
-                              others={"patch": forms["patch"]},
-                              workload="z[:] = interp(X, Y), 2^24 f32, "
-                              "259^2 lattice")
-        del X, Y, z, calls, surf, patch
+                v1_tree_ms=turns["v1_tree"]["ms"],
+                v1_tree_ms_range=turns["v1_tree"]["ms_range"],
+                v1_tree_device_us=sum(tree_k.values()),
+                mba_Mpts_s=N_VEC / (turns["kernel"]["ms"] * 1e-3) / 1e6)
+            if dt == torch.float32:
+                # V1's tree through the API and the patch form (V1)
+                _, got = counted(("mba_tree",), lambda: z.assign(tree))
+                check(got["mba_tree"] == 1, f"mba tree: {got}")
+                add_launches(got)
+                patch = surf.tables(dt, dev)[1]
+                pexpr = mba_device_eval(surf.lo, surf.hi, surf.grids, None,
+                                        [X, Y], patch=patch)
+                ep, anp, typ, lvp = prepare(pexpr, N_VEC, dev)
+                assign(ep, anp, typ, lvp, kt)
+                _, rel_p = errors(kt, pl)
+                check(rel_p <= TOL[dname], f"mba patch: rel err {rel_p}")
+                patch_k, _ = profile_call(
+                    lambda: assign(ep, anp, typ, lvp, kt), KERNEL_REPS)
+                mba_rows["tree"] = dict(kernel_row(
+                    abs_t, turns["v1_tree"]["ms"], row["plain_ms"],
+                    3 * dt.itemsize * N_VEC, 0, None),
+                    ms_range=turns["v1_tree"]["ms_range"],
+                    device_us=sum(tree_k.values()),
+                    host_us=host_us(lambda: z.assign(tree), 20),
+                    patch_ms=cuda_ms(lambda: assign(ep, anp, typ, lvp, kt)),
+                    patch_device_us=sum(patch_k.values()),
+                    workload="z[:] = the interpolant's tree, 2^24 f32")
+                del patch, pexpr, ep, lvp
+            report(f"mba_{dname}_2^24", row)
+            mba_rows[dname] = row
+            del X, Y, z, api, k, pl, kt, tree, e, lv, coords
+            torch.cuda.empty_cache()
+        rec["cufft_launches"] = main_launches["cufft"]
+        rec["mba_Mpts_s"] = mba_rows["f32"]["mba_Mpts_s"]
+        rec["mba_f64_Mpts_s"] = mba_rows["f64"]["mba_Mpts_s"]
+        kernels["mba"] = dict(mba_rows["f32"],
+                                   others={"f64": mba_rows["f64"]},
+                                   workload="z[:] = interp(X, Y), 2^24 f32, "
+                                   "259^2 lattice")
+        kernels["mba_tree"] = mba_rows["tree"]
+        del surf
         torch.cuda.empty_cache()
         rec["phase_s"] = time.perf_counter() - t14
         report("fft_complex_mba", {k_: v for k_, v in rec.items()
@@ -3194,6 +3301,8 @@ def main() -> int:
          "vexcl_tpu_torch/ops/triton_reduce.py",
          "vexcl_tpu/ops/reductor.py:69-97", "reduce_complex"),
         ("mba_tap_gather", "triton", "vexcl_tpu_torch/expr/triton_emit.py",
+         "vexcl_tpu/ops/mba.py:164-208", "mba_tree"),
+        ("mba_cuda", "cuda", "vexcl_tpu_torch/csrc/mba.cu",
          "vexcl_tpu/ops/mba.py:164-208", "mba"),
     ]
     check("jax" not in sys.modules and "vexcl_tpu" not in sys.modules,

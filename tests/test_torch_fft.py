@@ -199,3 +199,102 @@ def test_sig_separates_engines_and_dist_raises(tctx):
     assert sx != sc
     with pytest.raises(NotImplementedError):
         vt.FFT(64, impl="dist")
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("shape, dims", [((512,), None), ((16, 24), None),
+                                         ((8, 64), (1,)), ((64, 8), (0,))])
+def test_vector_direct_path_matches_jax(ctx1, tctx, rng, shape, dims,
+                                        inverse):
+    """``y[:] = FFT(shape)(x)`` of a vector into a whole vector goes from
+    ``vector.assign`` to the plan (``FFTExpr.into_vector``), forward and
+    inverse, 1-D, 2-D and batched over the leading or the trailing axis,
+    and gives the JAX package's transform."""
+    from vexcl_tpu_torch.ops.fft import FFTExpr
+
+    n = int(np.prod(shape))
+    hx = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    x = vex.vector(data=hx, context=ctx1)
+    y = vex.vector(n, dtype=C128, context=ctx1)
+    y[:] = vex.FFT(shape, dims=dims, inverse=inverse)(x)
+    tx = vt.vector(data=hx, context=tctx)
+    ty = vt.vector(n, dtype=C128, context=tctx)
+    f = vt.FFT(shape, dims=dims, inverse=inverse, dtype=C128)
+    taken = []
+    into = FFTExpr.into_vector
+    try:
+        FFTExpr.into_vector = lambda self, v: taken.append(into(self, v)) \
+            or taken[-1]
+        ty[:] = f(tx)
+    finally:
+        FFTExpr.into_vector = into
+    assert taken == [True]
+    _close(ty.to_numpy(), np.asarray(y))
+
+
+def test_direct_path_declines_other_targets(ctx1, tctx, rng):
+    """A target of another type, a slice of a vector, and an input that is
+    the target take the general path, with the JAX package's results."""
+    n = 256
+    hx = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    want = np.fft.fft(hx)
+    tx = vt.vector(data=hx, context=tctx)
+    f = vt.FFT(n, dtype=C128)
+    y64 = vt.vector(n, dtype=np.complex64, context=tctx)
+    assert not f(tx).into_vector(y64)
+    y64[:] = f(tx)
+    np.testing.assert_allclose(y64.to_numpy(), want, rtol=1e-5, atol=1e-4)
+    # a slice target: the transform into a temporary, stored through V3
+    big = vt.vector(2 * n, dtype=C128, context=tctx)
+    big[n:] = f(tx)
+    jbig = vex.vector(2 * n, dtype=C128, context=ctx1)
+    jbig[n:] = vex.FFT(n)(vex.vector(data=hx, context=ctx1))
+    _close(big.to_numpy(), np.asarray(jbig))
+    assert not f(tx).into_vector(tx)
+
+
+def test_interop_holder_sees_the_transform(tctx, rng):
+    """A tensor that shares the target's memory (``interop.to_dlpack``)
+    sees the transform: it is written into the target's own storage."""
+    n = 1024
+    hx = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    tx = vt.vector(data=hx, context=tctx)
+    ty = vt.vector(n, dtype=C128, context=tctx)
+    holder = torch.utils.dlpack.from_dlpack(vt.interop.to_dlpack(ty))
+    ty[:] = vt.FFT(n, dtype=C128)(tx)
+    np.testing.assert_allclose(holder.numpy(), np.fft.fft(hx), rtol=1e-7,
+                               atol=1e-8)
+    ty[:] = vt.FFT(n, dtype=C128, inverse=True)(tx)
+    np.testing.assert_allclose(holder.numpy(), np.fft.ifft(hx), rtol=1e-7,
+                               atol=1e-8)
+
+
+def test_plan_into_an_out_of_another_type(rng):
+    """A c64 plan called with a c128 ``out`` (and a c64 one) writes the
+    transform into it, cast, as ``torch.fft.fftn(out=)`` does: an ``out``
+    that is not of the plan's type never reaches cuFFT."""
+    from vexcl_tpu_torch.ops.fft import Plan
+
+    n = 512
+    hx = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    x = torch.from_numpy(hx).to(torch.complex64)
+    want = np.fft.fft(x.numpy().astype(C128))
+    for dt in (torch.complex128, torch.complex64):
+        out = torch.zeros(n, dtype=dt)
+        assert Plan((n,), None, False, np.complex64)(x, out) is out
+        np.testing.assert_allclose(out.numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+def test_cufft_layout_covers_leading_or_trailing_axes():
+    """One cuFFT plan covers 1-3 transformed axes that lead or trail the
+    shape; the rest keep torch.fft."""
+    from vexcl_tpu_torch.ops.cufft import layout
+
+    assert layout((1 << 20,), (0,)) == ((1 << 20,), 1, 1, 1 << 20)
+    assert layout((64, 256), (1,)) == ((256,), 64, 1, 256)
+    assert layout((64, 256), (0,)) == ((64,), 256, 256, 1)
+    assert layout((8, 16, 32), (0, 1)) == ((8, 16), 32, 32, 1)
+    assert layout((8, 16, 32), (1,)) is None
+    assert layout((2, 3, 4, 5), (0, 1, 2, 3)) is None
+    assert layout((8, 16, 32), (0, 2)) is None

@@ -8,14 +8,28 @@ evaluated through both packages' public APIs.
 * Float trees: f32 vectors, weak Python scalars, builtins of plain
   numbers (``pow(fabs(c) + 0.5, x)``), 0-d f32 and f64 tensors (strongly
   typed, as a 0-d jnp array is), ``element_index``; assigned into an f32
-  vector and summed.  Tolerance: ten times the rounding headroom of the
+  vector and summed.  Seeds from 3 on put special values in the vectors
+  (NaN, ±0, ±inf; normal numbers only, as the JAX package on the CPU
+  flushes subnormals: ``sign`` and ``fmod`` take whole numbers, which a
+  subnormal result does not change), which ``sign``, ``cbrt`` and
+  ``fmod`` (zero divisors) meet.  Tolerance: ten times the rounding headroom of the
   tree (a numpy f32 evaluation against an f64 one, the fuzzer's own
-  measure) plus 1e-4 of the magnitude; result types must agree.
+  measure) plus 1e-4 of the magnitude, the same places not finite;
+  result types must agree.
 * Integer trees: u32 vectors with values above 2^31, u64 vectors with
-  values at and above 2^63, i32 and boolean vectors, and the operators
-  the CPU could not compute on them before (``+ - * // % << >>``,
-  compares, ``min``/``max``, ``abs``, ``where``); exact, result types
-  must agree; MIN, MAX and SUM of each.
+  values at and above 2^63, i32 and i64 vectors, each with zeros, -1 and
+  the extremes at random places, and boolean vectors, through the
+  operators the CPU could not compute on them before (``+ - * // % <<
+  >>``, compares, ``min``/``max``, ``abs``, ``where``), ``//``, ``%`` and
+  ``fmod`` by divisors with zeros, ``pow`` of two integers, and ``rint``
+  of a whole tree (the default float type); exact, result types must
+  agree; MIN, MAX and SUM of each.
+* Complex trees: c64 and c128 vectors of halves (so that sums, products
+  and their rounding are exact in both packages) through ``+ - *``,
+  ``conj``, ``round``, ``rint`` and ``sign`` (at the root); their MIN,
+  MAX (numpy's lexicographic order, with ties in the real parts) and
+  SUM.  Exact, ``sign`` and SUM within 1e-6 (c64) / 1e-12 (c128) of the
+  magnitude.
 * Algorithms: ``sort``, ``sort_by_key``, the scans, ``scan_by_key`` and
   ``reduce_by_key`` over the fuzzer's key patterns (all equal, all
   distinct, runs, alternating, random) at a tiny and two odd sizes (each
@@ -35,6 +49,8 @@ import vexcl_tpu as vex
 import vexcl_tpu_torch as vt
 
 SEEDS = (0, 1, 2)
+#: seeds of float trees whose vectors hold special values
+SPECIAL_SEEDS = (3, 4, 5)
 N = 257
 
 
@@ -54,6 +70,10 @@ BINOPS = [
     (lambda m, a, b: m.fmin(a, b), np.fmin),
     (lambda m, a, b: m.pow(m.fabs(a) + 0.5, b),
      lambda a, b: np.power(np.abs(a) + 0.5, b)),
+    # whole divisors (zero where |b| < 1): a tree's own results may
+    # underflow to subnormals, which the JAX package flushes to zero
+    (lambda m, a, b: m.fmod(a, m.trunc(b)), lambda a, b: np.fmod(
+        a, np.trunc(b))),
 ]
 UNOPS = [
     (lambda m, e: m.sin(m.fmin(m.fmax(e, -30.0), 30.0)),
@@ -64,7 +84,12 @@ UNOPS = [
     (lambda m, e: m.tanh(e), np.tanh),
     (lambda m, e: -e, lambda a: -a),
     (lambda m, e: 2.5 * e + 1.0, lambda a: 2.5 * a + 1.0),
+    (lambda m, e: m.sign(m.trunc(e * 4.0)),
+     lambda a: np.sign(np.trunc(a * 4.0))),
+    (lambda m, e: m.cbrt(e), np.cbrt),
 ]
+#: the special values of the special seeds' vectors
+SPECIALS = (np.nan, -0.0, 0.0, np.inf, -np.inf)
 
 
 def float_recipe(rng, depth):
@@ -130,13 +155,17 @@ def _has_vector(recipe) -> bool:
         _has_vector(r) for r in recipe[2:] if isinstance(r, tuple))
 
 
-@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("seed", SEEDS + SPECIAL_SEEDS)
 def test_expression_fuzz(seed, ctx1, tctx):
     """Random float trees, assigned and summed, through both packages."""
     import jax.numpy as jnp
 
     rng = np.random.default_rng(seed)
     arrs = [rng.normal(size=N).astype(np.float32) for _ in range(3)]
+    if seed in SPECIAL_SEEDS:
+        for a in arrs:
+            a[rng.choice(N, 3 * len(SPECIALS), replace=False)] = np.repeat(
+                SPECIALS, 3)
     jv = [vex.vector(data=a, context=ctx1) for a in arrs]
     tv = [vt.vector(data=a, context=tctx) for a in arrs]
     trees = 0
@@ -186,6 +215,10 @@ INT_BINOPS = [
     lambda m, a, b: m.max(a, b),
     lambda m, a, b: m.if_else(a < b, a, b),
     lambda m, a, b: m.if_else(a >= b, b, a | b),
+    lambda m, a, b: a // b,
+    lambda m, a, b: a % b,
+    lambda m, a, b: m.fmod(a, b),
+    lambda m, a, b: m.pow(a & 7, b & 3),
 ]
 INT_UNOPS = [
     lambda m, e: e >> 3,
@@ -204,6 +237,11 @@ BOOL_OPS = [
     lambda m, b, t: (b & t) | b,
     lambda m, b, t: m.if_else(b, t, b),
     lambda m, b, t: m.min(b, t),
+    lambda m, b, t: b // b,
+    lambda m, b, t: b % b,
+    lambda m, b, t: m.fmod(b, b),
+    lambda m, b, t: m.fmod(t, b),
+    lambda m, b, t: m.fmod(t, b * 1),
 ]
 
 
@@ -212,12 +250,16 @@ def int_arrays(rng, dtype):
         hi = rng.integers(0, 1 << 62, N, dtype=np.uint64) * np.uint64(4)
         a = hi + rng.integers(0, 4, N, dtype=np.uint64)
         a[:4] = [1 << 63, (1 << 64) - 1, (1 << 63) + 5, 0]
-        return a
-    if dtype == np.uint32:
+    elif dtype == np.uint32:
         a = rng.integers(0, 1 << 32, N, dtype=np.uint64).astype(np.uint32)
         a[:3] = [1 << 31, (1 << 32) - 1, (1 << 31) + 7]
-        return a
-    return rng.integers(-(1 << 30), 1 << 30, N).astype(np.int32)
+    else:
+        a = rng.integers(-(1 << 30), 1 << 30, N).astype(dtype)
+    # zero divisors, -1 and the extremes at random places
+    info = np.iinfo(dtype)
+    special = [0] * 8 + [1, info.max] + ([-1, info.min] if info.min else [])
+    a[rng.choice(N, len(special), replace=False)] = special
+    return a
 
 
 def int_recipe(rng, depth):
@@ -240,19 +282,23 @@ def build_int(recipe, m, vecs):
 
 
 @pytest.mark.parametrize("seed", SEEDS)
-@pytest.mark.parametrize("dtype", [np.uint32, np.uint64, np.int32])
+@pytest.mark.parametrize("dtype", [np.uint32, np.uint64, np.int32,
+                                   np.int64])
 def test_integer_fuzz(seed, dtype, ctx1, tctx):
     """Random integer trees over u32 (values above 2^31), u64 (values at
-    and above 2^63) and i32 vectors, evaluated, and their MIN, MAX, SUM:
-    exact, of one type in both packages."""
+    and above 2^63), i32 and i64 vectors with zeros, -1 and the extremes,
+    evaluated, and their MIN, MAX, SUM: exact, of one type in both
+    packages."""
     rng = np.random.default_rng(100 + seed)
     arrs = [int_arrays(rng, dtype) for _ in range(2)]
     jv = [vex.vector(data=a, context=ctx1) for a in arrs]
     tv = [vt.vector(data=a, context=tctx) for a in arrs]
-    for _ in range(8):
+    for k in range(8):
         recipe = int_recipe(rng, int(rng.integers(1, 4)))
-        jr = np.asarray(vex.eval(build_int(recipe, vex, jv)))
-        tr = np.asarray(vt.eval(build_int(recipe, vt, tv)))
+        je, te = build_int(recipe, vex, jv), build_int(recipe, vt, tv)
+        if k == 7:      # an integer tree made the default float type
+            je, te = vex.rint(je), vt.rint(te)
+        jr, tr = np.asarray(vex.eval(je)), np.asarray(vt.eval(te))
         assert tr.dtype == jr.dtype, recipe
         np.testing.assert_array_equal(tr, jr, err_msg=str(recipe))
     for kind in ("MIN", "MAX", "SUM"):
@@ -279,6 +325,67 @@ def test_boolean_fuzz(seed, ctx1, tctx):
     for kind in ("MIN", "MAX"):
         assert (vt.Reductor(getattr(vt, kind))(tb)
                 == vex.Reductor(getattr(vex, kind))(jb))
+
+
+# -- complex trees -----------------------------------------------------------
+
+CPLX_BINOPS = [lambda m, a, b: a + b, lambda m, a, b: a - b,
+               lambda m, a, b: a * b]
+CPLX_UNOPS = [lambda m, e: m.conj(e), lambda m, e: m.round(e * 0.5),
+              lambda m, e: m.rint(e * 0.5) - e]
+
+
+def complex_recipe(rng, depth):
+    if depth == 0 or rng.random() < 0.3:
+        return ("v", int(rng.integers(0, 3)))
+    if rng.random() < 0.4:
+        return ("u", int(rng.integers(0, len(CPLX_UNOPS))),
+                complex_recipe(rng, depth - 1))
+    return ("b", int(rng.integers(0, len(CPLX_BINOPS))),
+            complex_recipe(rng, depth - 1), complex_recipe(rng, depth - 1))
+
+
+def build_complex(recipe, m, vecs):
+    if recipe[0] == "v":
+        return vecs[recipe[1]]
+    if recipe[0] == "u":
+        return CPLX_UNOPS[recipe[1]](m, build_complex(recipe[2], m, vecs))
+    return CPLX_BINOPS[recipe[1]](m, build_complex(recipe[2], m, vecs),
+                                  build_complex(recipe[3], m, vecs))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+def test_complex_fuzz(seed, dtype, ctx1, tctx):
+    """Random complex trees over vectors of halves (exact arithmetic),
+    with ``sign`` at the root of every other one, evaluated, and their
+    MIN, MAX and SUM, through both packages."""
+    rng = np.random.default_rng(500 + seed)
+    arrs = [(rng.integers(-4, 5, N) * 0.5
+             + 1j * rng.integers(-4, 5, N) * 0.5).astype(dtype)
+            for _ in range(3)]
+    arrs[0][:4] = 0
+    jv = [vex.vector(data=a, context=ctx1) for a in arrs]
+    tv = [vt.vector(data=a, context=tctx) for a in arrs]
+    tol = 1e-6 if dtype == np.complex64 else 1e-12
+    for k in range(8):
+        recipe = complex_recipe(rng, int(rng.integers(1, 4)))
+        je, te = build_complex(recipe, vex, jv), build_complex(recipe, vt, tv)
+        if k % 2:
+            je, te = vex.sign(je), vt.sign(te)
+        jr, tr = np.asarray(vex.eval(je)), np.asarray(vt.eval(te))
+        assert tr.dtype == jr.dtype, recipe
+        if k % 2:
+            np.testing.assert_allclose(tr, jr, rtol=0, atol=tol,
+                                       err_msg=str(recipe))
+            continue
+        np.testing.assert_array_equal(tr, jr, err_msg=str(recipe))
+        for kind in ("MIN", "MAX"):
+            assert (vt.Reductor(getattr(vt, kind), context=tctx)(te)
+                    == vex.Reductor(getattr(vex, kind))(je)), (kind, recipe)
+        js = vex.Reductor(vex.SUM)(je)
+        ts = vt.Reductor(vt.SUM, context=tctx)(te)
+        assert abs(ts - js) <= tol * max(1.0, np.abs(jr).sum()), recipe
 
 
 # -- algorithms --------------------------------------------------------------

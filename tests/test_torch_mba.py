@@ -187,3 +187,96 @@ def test_mba_tables_once_per_type_and_device(tctx, rng):
     assert list(ip._tables) == [(torch.float32, torch.device("cpu"))]
     ip(vt.vector(data=pts, context=tctx))
     assert len(ip._tables) == 2
+
+
+_NODE_GRID = {1: [8], 2: [6, 5], 3: [4, 3, 4], 4: [2, 2, 2, 2]}
+
+
+@pytest.mark.parametrize("dt", [np.float32, np.float64])
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+def test_mba_node_matches_jax(ctx1, tctx, rng, d, dt):
+    """``z[:] = interp(*coords)``: one ``MBAExpr`` node for 1-3 axes (the
+    CUDA kernel's, its plain version here), the tree for 4 (a route by
+    structure), against the JAX package's interpolant: f64 within 1e-12,
+    f32 queries (the port keeps f32 tables, the JAX package f64 ones)
+    within 1e-5."""
+    from vexcl_tpu_torch.ops.mba import MBAExpr
+
+    sc = [rng.random(600) for _ in range(d)]
+    kw = dict(lo=[-0.01] * d, hi=[1.01] * d, coords=sc,
+              values=sum(np.sin(2 * c) for c in sc), grid=_NODE_GRID[d],
+              levels=2)
+    ja, ta = vex.mba(**kw), vt.mba(**kw)
+    m = 257
+    q = [rng.random(m).astype(dt) for _ in range(d)]
+    q[0][:3] = [-0.5, 1.01, 1.5]
+    jq = [vex.vector(data=c.astype(np.float64), context=ctx1) for c in q]
+    z = vex.vector(m, dtype=np.float64, context=ctx1)
+    z[:] = ja(*jq)
+    tq = [vt.vector(data=c, context=tctx) for c in q]
+    expr = ta(*tq)
+    assert isinstance(expr, MBAExpr) == (d <= 3)
+    tz = vt.vector(m, dtype=dt, context=tctx)
+    tz[:] = expr
+    np.testing.assert_allclose(tz.to_numpy(), np.asarray(z), rtol=0,
+                               atol=1e-12 if dt == np.float64 else 1e-5)
+
+
+def test_mba_in_a_larger_tree_matches_jax(ctx1, tctx, rng):
+    """``2 * interp(X, Y) + W`` and an interpolant at expressions of the
+    vectors (evaluated into the kernel's coordinates first)."""
+    px, py = rng.random(900), rng.random(900)
+    kw = dict(lo=[-0.01, -0.01], hi=[1.01, 1.01], coords=[px, py],
+              values=np.cos(3 * px) + py, grid=[5, 5], levels=3)
+    ja, ta = vex.mba(**kw), vt.mba(**kw)
+    m = 300
+    qx, qy, w = rng.random(m), rng.random(m), rng.random(m)
+    X, Y, W = (vex.vector(data=a, context=ctx1) for a in (qx, qy, w))
+    TX, TY, TW = (vt.vector(data=a, context=tctx) for a in (qx, qy, w))
+    for jexpr, texpr in ((2 * ja(X, Y) + W, 2 * ta(TX, TY) + TW),
+                         (ja(X * 0.5, 1.0 - Y), ta(TX * 0.5, 1.0 - TY))):
+        z = vex.vector(m, dtype=np.float64, context=ctx1)
+        tz = vt.vector(m, dtype=np.float64, context=tctx)
+        z[:] = jexpr
+        tz[:] = texpr
+        np.testing.assert_allclose(tz.to_numpy(), np.asarray(z), rtol=0,
+                                   atol=1e-12)
+
+
+def test_mba_interpolants_of_one_structure_share_a_kernel(tctx, rng):
+    """Two interpolants of one structure (other domains, data and grids'
+    lattices) have one signature, alone and inside a tree, so they share
+    the kernels compiled for it; each gives its own values."""
+    from vexcl_tpu_torch.expr.node import analyze
+
+    pts = rng.random(500)
+    a = vt.mba([0.0], [1.0], [pts], np.sin(pts), grid=[8], levels=3)
+    b = vt.mba([-2.0], [3.0], [pts * 5 - 2], pts ** 2, grid=[8], levels=2)
+    Q = vt.vector(data=rng.random(64), context=tctx)
+    assert analyze(a(Q)).sig == analyze(b(Q)).sig
+    assert analyze(2 * a(Q) + 1).sig == analyze(2 * b(Q) + 1).sig
+    za, zb = (vt.vector(64, dtype=np.float64, context=tctx)
+              for _ in range(2))
+    za[:] = a(Q)
+    zb[:] = b(Q)
+    assert not np.allclose(za.to_numpy(), zb.to_numpy())
+
+
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_mba_kernel_table_by_type(tctx, rng, d):
+    """The CUDA kernel's table, made once per type and device: f32 the
+    flattened lattice itself, f64 four entries a control whose entry j
+    holds controls j .. j + 3 of the flattened lattice (clipped at its
+    end)."""
+    from vexcl_tpu_torch.ops import cuda_mba
+
+    sc = [rng.random(200) for _ in range(d)]
+    ip = vt.mba([0.0] * d, [1.0] * d, sc, sum(sc), grid=[3] * d, levels=2)
+    flat = ip.lattice.reshape(-1)
+    t32 = ip.kernel_table(torch.float32, torch.device("cpu"))
+    assert ip.kernel_table(torch.float32, torch.device("cpu")) is t32
+    np.testing.assert_array_equal(t32.numpy(), flat.astype(np.float32))
+    t64 = cuda_mba.table(torch.from_numpy(ip.lattice))
+    at = np.minimum(np.arange(flat.size)[:, None] + np.arange(4),
+                    flat.size - 1)
+    np.testing.assert_array_equal(t64.numpy(), flat[at].reshape(-1))

@@ -59,6 +59,7 @@ LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "vexcl_philox": ("philox.cu",),
     "vexcl_scatter": ("scatter.cu", "ranges_common.cuh"),
     "vexcl_gather": ("gather.cu", "ranges_common.cuh"),
+    "vexcl_mba": ("mba.cu",),
 }
 
 #: nvcc flags of a user kernel (``backend.cuda_kernel``): a cubin, which

@@ -7,9 +7,14 @@ kernel form)``:
 * the type rule follows the jnp function the JAX package maps the name
   to: ``"inexact"`` (promote, then make floating: ``sin`` of i32 is f32),
   ``"join"`` (promote only: ``fmin``, ``floor``, ``fabs`` keep an integer
-  type), ``"numeric"`` (``fmod``: booleans computed as i32), ``"bool"``
-  (classification), ``"real"`` (promote; a complex value gives the type
-  of its parts: ``abs``, ``real`` and ``imag`` of c64 are f32);
+  type; ``"join_real"`` the same, refusing complex values: ``ceil``),
+  ``"numeric"`` (``fmod``, ``pow``: booleans computed as i32, two
+  integers give an integer), ``"float"`` (an integer becomes the default
+  float type: ``rint`` and ``exp10`` of i32 are f64), ``"weak_inexact"``
+  (promoted with a weak float, as ``sin(pi * x)``: ``sinpi`` of i32 is a
+  weak f64, of f32 f32), ``"bool"`` (classification), ``"real"``
+  (promote; a complex value gives the type of its parts: ``abs``,
+  ``real`` and ``imag`` of c64 are f32);
 * the PyTorch form gets its operands already cast to the compute type
   and serves CPU tensors;
 * the kernel form is the spelling in the generated Triton source, with
@@ -19,8 +24,9 @@ kernel form)``:
   approximate PTX instructions in f32 on the installed Triton, so the
   kernel spells the correctly rounded libdevice functions.
 
-On complex values the kernel covers ``real``, ``imag``, ``conj`` and
-``abs`` (the magnitude, ``libdevice.hypot``) as (re, im) pairs
+On complex values the kernel covers ``real``, ``imag``, ``conj``,
+``abs`` (the magnitude, ``libdevice.hypot``), ``sign`` (x/|x|) and the
+rounding of each part (``round``, ``rint``, ``nearbyint``) as (re, im) pairs
 (``triton_emit.Emitter.complex_op``); every other builtin of a complex
 value raises ``NotImplementedError`` on CUDA and computes on the CPU.
 A builtin whose kernel form is ``None`` computes on CPU tensors and raises
@@ -41,7 +47,7 @@ from typing import Optional
 
 import torch
 
-from .node import Expr, FuncCall, as_expr
+from .node import Expr, FuncCall, as_expr, fmod, sign
 
 __all__ = ["builtin", "BUILTINS"]
 
@@ -70,7 +76,7 @@ class builtin:
             # plain Python numbers: jnp computes them weakly typed (f64 in
             # 64-bit mode) and the result stays weak, so it comes back as a
             # Python number, which an expression takes as a weak scalar
-            inexact = self.entry[0] == "inexact"
+            inexact = self.entry[0] in ("inexact", "float", "weak_inexact")
             vals = [torch.tensor(a, dtype=torch.float64 if inexact and type(
                 a) in (bool, int) else _WEAK[type(a)]) for a in args]
             return self.entry[1](*vals).item()
@@ -106,7 +112,17 @@ def _conj(x):
 
 
 def _rootn(x, n):
-    return torch.sign(x) * torch.abs(x) ** (1.0 / n)
+    return sign(x) * torch.abs(x) ** (1.0 / n)
+
+
+def _parts(fn):
+    """``fn`` of a real value; of a complex value, of each part (jnp.round
+    and jnp.rint round the real and imaginary parts)."""
+    def form(x):
+        if x.is_complex():
+            return torch.complex(fn(x.real), fn(x.imag))
+        return fn(x) if x.is_floating_point() else x
+    return form
 
 
 _CATALOG = {
@@ -118,9 +134,9 @@ _CATALOG = {
     "acos": ("inexact", torch.acos, _ld("acos")),
     "atan": ("inexact", torch.atan, _ld("atan")),
     "atan2": ("inexact", torch.atan2, _ld("atan2", 2)),
-    "sinpi": ("inexact", lambda x: torch.sin(math.pi * x), None),
-    "cospi": ("inexact", lambda x: torch.cos(math.pi * x), None),
-    "tanpi": ("inexact", lambda x: torch.tan(math.pi * x), None),
+    "sinpi": ("weak_inexact", lambda x: torch.sin(math.pi * x), None),
+    "cospi": ("weak_inexact", lambda x: torch.cos(math.pi * x), None),
+    "tanpi": ("weak_inexact", lambda x: torch.tan(math.pi * x), None),
     "asinpi": ("inexact", lambda x: torch.asin(x) / math.pi, None),
     "acospi": ("inexact", lambda x: torch.acos(x) / math.pi, None),
     "atanpi": ("inexact", lambda x: torch.atan(x) / math.pi, None),
@@ -135,7 +151,7 @@ _CATALOG = {
     # exponential / log
     "exp": ("inexact", torch.exp, _ld("exp")),
     "exp2": ("inexact", torch.exp2, _ld("exp2")),
-    "exp10": ("inexact", lambda x: torch.pow(10.0, x), _ld("exp10")),
+    "exp10": ("float", lambda x: torch.pow(10.0, x), _ld("exp10")),
     "expm1": ("inexact", torch.expm1, _ld("expm1")),
     "log": ("inexact", torch.log, _ld("log")),
     "log2": ("inexact", torch.log2, _ld("log2")),
@@ -144,34 +160,29 @@ _CATALOG = {
     "logb": ("inexact", lambda x: torch.floor(torch.log2(torch.abs(x))),
              None),
     # power / roots
-    "pow": ("inexact", torch.pow, _ld("pow", 2)),
-    "powr": ("inexact", torch.pow, _ld("pow", 2)),
-    "pown": ("inexact", torch.pow, _ld("pow", 2)),
+    "pow": ("numeric", torch.pow, "pow"),
+    "powr": ("numeric", torch.pow, "pow"),
+    "pown": ("numeric", torch.pow, "pow"),
     "sqrt": ("inexact", torch.sqrt, _ld("sqrt_rn")),
     "rsqrt": ("inexact", torch.rsqrt, _ld("rsqrt")),
-    "cbrt": ("inexact", lambda x: torch.sign(x) * torch.abs(x) ** (1.0 / 3),
+    "cbrt": ("inexact", lambda x: sign(x) * torch.abs(x) ** (1.0 / 3),
              _ld("cbrt")),
-    "rootn": ("inexact", _rootn, None),
+    "rootn": ("weak_inexact", _rootn, None),
     "hypot": ("inexact", torch.hypot, _ld("hypot", 2)),
-    # rounding (integers pass through, as with jnp)
-    "ceil": ("join", lambda x: torch.ceil(x) if x.is_floating_point() else x,
-             "ceil"),
-    "floor": ("join",
-              lambda x: torch.floor(x) if x.is_floating_point() else x,
-              "floor"),
-    "trunc": ("join",
-              lambda x: torch.trunc(x) if x.is_floating_point() else x,
-              "trunc"),
-    "round": ("join",
-              lambda x: torch.round(x) if x.is_floating_point() else x,
-              "rint"),
-    "rint": ("inexact", torch.round, _ld("rint")),
-    "nearbyint": ("inexact", torch.round, _ld("rint")),
+    # rounding (integers pass through, as with jnp; rint and nearbyint
+    # cast them to the default float type; a complex value rounds each
+    # part, and ceil, floor and trunc refuse it)
+    "ceil": ("join_real", _parts(torch.ceil), "ceil"),
+    "floor": ("join_real", _parts(torch.floor), "floor"),
+    "trunc": ("join_real", _parts(torch.trunc), "trunc"),
+    "round": ("join", _parts(torch.round), "rint"),
+    "rint": ("float", _parts(torch.round), "rint"),
+    "nearbyint": ("float", _parts(torch.round), "rint"),
     # abs / sign / remainder
     "fabs": ("real", torch.abs, "tl.abs({0})"),
     "abs": ("real", torch.abs, "tl.abs({0})"),
-    "sign": ("join", torch.sign, None),
-    "fmod": ("numeric", torch.fmod, "fmod"),
+    "sign": ("join", sign, "sign"),
+    "fmod": ("numeric", fmod, "fmod"),
     "remainder": ("inexact", lambda x, y: x - torch.round(x / y) * y, None),
     "copysign": ("inexact", torch.copysign, _ld("copysign", 2)),
     "nextafter": ("inexact", torch.nextafter, None),

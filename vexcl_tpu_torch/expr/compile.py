@@ -313,7 +313,13 @@ def evaluate(expr: Any, n: Optional[int] = None, op: str = "=",
 
 
 def assign_value(vec, value, op: str = "=") -> None:
-    """Drive an assignment onto a vector container (in place)."""
+    """Drive an assignment onto a vector container (in place).  The
+    transform of a vector into a whole vector (``y[:] = FFT(n)(x)``) goes
+    straight to its plan, with no expression analysis."""
+    from ..ops.fft import FFTExpr
+
+    if op == "=" and isinstance(value, FFTExpr) and value.into_vector(vec):
+        return
     if ASSIGN_OPS[op] is not None:
         value = BinOp(ASSIGN_OPS[op], VectorTerminal(vec), as_expr(value))
     evaluate(value, n=vec.size, out=vec.storage)

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..types import (COMPLEX_CODES, code_of, dtype_of, dtype_of_code, join,
-                     real_code, scalar_code, to_inexact)
+                     real_code, scalar_code, to_float, to_inexact)
 
 __all__ = [
     "Expr", "BinOp", "UnOp", "FuncCall", "Where", "VectorTerminal",
@@ -397,6 +397,11 @@ class Expr:
 # "numeric" = the same, with booleans computed as i32 (jnp's
 # ``promote_args_numeric``: ``b // b``, ``b % b``, ``b << b`` are i32),
 # "inexact" = promoted and then made floating (i32 / i32 -> f32),
+# "float" = promoted, an integer or boolean type cast to the default float
+# type (``jnp.rint``: i32 -> f64), "weak_inexact" = promoted with a weak
+# float (the jnp forms that scale by a Python float, ``jnp.sin(pi * x)``:
+# i32 -> weak f64, f32 -> f32), "join_real" = "join" of real types only
+# (``jnp.ceil`` of a complex value raises TypeError),
 # "bool" = comparisons, "real" = promoted, the result the type of a complex
 # value's parts (``jnp.abs``, ``jnp.real``: c64 -> f32).  The PyTorch and
 # kernel forms receive operands already cast to the compute type (the
@@ -404,27 +409,81 @@ class Expr:
 # ---------------------------------------------------------------------------
 
 
+def sign(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.sign``: -1, 0 or 1 by the sign, NaN at NaN and a zero kept
+    with its sign (``torch.sign`` gives 0 at NaN and +0.0 at -0.0); of a
+    complex value x/|x|, part by part (inf + 0j gives NaN + 0j, as XLA's
+    sign), and 0 at 0."""
+    if x.is_complex():
+        a = torch.abs(x)
+        s = torch.complex(x.real / a, x.imag / a)
+        return torch.where(a == 0, torch.zeros_like(x), s)
+    if x.dtype == torch.bool:
+        raise TypeError("sign does not accept booleans")
+    if not x.dtype.is_floating_point:
+        return torch.sign(x)
+    return torch.where((x == 0) | torch.isnan(x), x, torch.sign(x))
+
+
 def _float_divmod(a, b):
     """jnp's float floor_divide/remainder (jax/_src/numpy/ufuncs.py
     ``_float_divmod``): fmod-based, quotient rounded half away from 0."""
     mod = torch.fmod(a, b)
     div = (a - mod) / b
-    ind = (mod != 0) & (torch.sign(b) != torch.sign(mod))
+    ind = (mod != 0) & (sign(b) != sign(mod))
     mod = torch.where(ind, mod + b, mod)
     div = torch.where(ind, div - 1, div)
-    return torch.sign(div) * torch.floor(torch.abs(div) + 0.5), mod
+    return sign(div) * torch.floor(torch.abs(div) + 0.5), mod
+
+
+def _lax_divrem(a, b):
+    """XLA's truncating integer quotient and remainder (``lax.div``,
+    ``lax.rem``), which PyTorch's CPU kernels raise (a zero divisor) or
+    trap (the least signed integer by -1) on: a zero divisor gives all
+    ones (-1, or the largest unsigned value) and the dividend; a divisor
+    of -1 the wrapped negation and 0."""
+    zero = b == 0
+    minus = (b == -1) if b.dtype.is_signed else torch.zeros_like(zero)
+    bs = torch.where(zero | minus, torch.ones_like(b), b)
+    q = torch.where(minus, -a, torch.div(a, bs, rounding_mode="trunc"))
+    q = torch.where(zero, ~torch.zeros_like(q), q)
+    return q, torch.where(zero, a, torch.fmod(a, bs))
 
 
 def _floordiv(a, b):
+    """``jnp.floor_divide``: lax.div, one less where the signs differ and
+    the division is not exact (so x // 0 is -2, or -1 for x == 0)."""
     if a.dtype.is_floating_point:
         return _float_divmod(a, b)[0]
-    return torch.div(a, b, rounding_mode="floor")
+    q, r = _lax_divrem(a, b)
+    if not a.dtype.is_signed:
+        return q
+    return q - ((torch.sign(a) != torch.sign(b)) & (r != 0)).to(q.dtype)
 
 
 def _mod(a, b):
+    """``jnp.remainder``: a zero divisor taken as 1 (x % 0 is 0), the
+    remainder given the divisor's sign."""
     if a.dtype.is_floating_point:
         return _float_divmod(a, b)[1]
-    return torch.remainder(a, b)
+    b = torch.where(b == 0, torch.ones_like(b), b)
+    r = _lax_divrem(a, b)[1]
+    return torch.where((r != 0) & ((r < 0) != (b < 0)), r + b, r)
+
+
+def fmod(a, b):
+    """``jnp.fmod`` of operands in an integer or float compute type: an
+    integer zero divisor taken as 1 (fmod(x, 0) is 0).  Booleans, whose
+    zero divisor jnp leaves (``lax.rem(x, 0)`` is x), are ``fmod_bool``."""
+    if a.dtype.is_floating_point:
+        return torch.fmod(a, b)
+    return _lax_divrem(a, torch.where(b == 0, torch.ones_like(b), b))[1]
+
+
+def fmod_bool(a, b):
+    """``jnp.fmod`` of two booleans, computed in i32: jnp replaces a zero
+    divisor only for integer types, so fmod(x, False) is x."""
+    return torch.where(b != 0, torch.zeros_like(a), a)
 
 
 _BINOPS: Dict[str, Tuple[str, Any, Optional[str]]] = {
@@ -447,7 +506,7 @@ _BINOPS: Dict[str, Tuple[str, Any, Optional[str]]] = {
     "eq": ("bool", torch.eq, "({0} == {1})"),
     "ne": ("bool", torch.ne, "({0} != {1})"),
     "atan2": ("inexact", torch.atan2, "libdevice.atan2({0}, {1})"),
-    "fmod": ("numeric", torch.fmod, "fmod"),
+    "fmod": ("numeric", fmod, "fmod"),
     "min": ("join", torch.minimum, "min"),
     "max": ("join", torch.maximum, "max"),
     "hypot": ("inexact", torch.hypot, "libdevice.hypot({0}, {1})"),
@@ -476,6 +535,15 @@ def _result_code(rule: str, codes: List[str]) -> Tuple[str, str]:
     if rule == "inexact":
         c = to_inexact(c)
         return c, c
+    if rule == "float":
+        c = to_float(c)
+        return c, c
+    if rule == "weak_inexact":
+        c = join(c, "f*")
+        return c, c
+    if rule == "join_real" and c in COMPLEX_CODES:
+        raise TypeError(f"no {dtype_of_code(c)} operand is accepted here "
+                        "(integer and float types only)")
     if rule == "bool":
         return c, "b1"
     if rule == "real":
@@ -544,7 +612,10 @@ def _u64_form(op: str, fn, args: List[torch.Tensor]) -> torch.Tensor:
         return out if out.dtype == torch.bool else out ^ _I64_MIN
     if op in ("floordiv", "mod", "fmod"):
         q, r = _udivmod64(*args)
-        return q if op == "floordiv" else r
+        if op != "floordiv":
+            return r
+        # XLA: a zero divisor gives all ones
+        return torch.where(args[1] == 0, -1, q)
     if op == "shr":
         return _lshr64(*args)
     if op in ("abs", "fabs"):
@@ -578,6 +649,8 @@ def _carried(op: str, fn, args: List[torch.Tensor], cc: str,
         r = torch.where(cond, *vals)
     elif op in ("fdim", "abs_diff"):
         r = vals[0] - vals[1]
+    elif op == "floordiv":
+        r = _lax_divrem(*vals)[0]       # unsigned: no sign to adjust by
     else:
         r = fn(*vals)
     return r.to(out) if r.dtype == torch.bool else (r & mask).to(out)
@@ -598,10 +671,17 @@ class _Op(Expr):
         return _result_code(self._entry()[0],
                             [types[id(c)] for c in self.children])[0]
 
+    def _fmod_bool(self, types) -> bool:
+        """``fmod`` of two booleans, which keeps a zero divisor."""
+        return self.op == "fmod" and all(types[id(c)] == "b1"
+                                         for c in self.children)
+
     def emit(self, env: EmitEnv):
         cc = self._compute_code(env.types)
         args = [env.cast(c, cc) for c in self.children]
         out = dtype_of_code(env.types[id(self)])
+        if self._fmod_bool(env.types):
+            return fmod_bool(*args).to(out)
         if cc in _CARRIER:
             return _carried(self.op, self._entry()[1], args, cc, out)
         if cc == "b1" and self.op in ("abs", "fabs"):
@@ -612,7 +692,7 @@ class _Op(Expr):
         cc = self._compute_code(em.types)
         if cc == "b1" and self.op in ("abs", "fabs"):
             return em.value(self.children[0])     # jnp.abs of booleans
-        form = self._entry()[2]
+        form = "fmod_bool" if self._fmod_bool(em.types) else self._entry()[2]
         if cc in COMPLEX_CODES:
             # (re, im) pairs: the emitter's complex forms, or it raises
             args = [em.cast(em.value(c), em.types[id(c)], cc)

@@ -585,12 +585,29 @@ class Emitter:
         if op in ("abs", "fabs"):
             (ar, ai), = args
             return d(f"libdevice.hypot({ar}, {ai})")
+        if op in ("round", "rint", "nearbyint"):
+            return tuple(d(f"libdevice.rint({p})") for p in args[0])
+        if op == "sign":
+            # jnp.sign: x / |x| part by part, 0 at 0
+            (ar, ai), = args
+            h, z = d(f"libdevice.hypot({ar}, {ai})"), self.zero(real_code(cc))
+            return tuple(d(f"tl.where({h} == 0, {z}, libdevice.div_rn({p}, "
+                           f"{h}))") for p in (ar, ai))
         raise NotImplementedError(
             f"{op!r} on {dtype_of_code(cc)} is not covered by the CUDA "
             "expression kernel")
 
 
 _ARITH = ("add", "sub", "mul", "div", "floordiv", "mod", "pow", "neg")
+
+
+def _divisor(em: Emitter, b: str, cc) -> str:
+    """The divisor with 0 (and, signed, -1) taken as 1: C's integer ``/``
+    and ``%`` leave both undefined, where XLA defines them (a zero
+    divisor: all ones and the dividend; -1: the wrapped negation and 0)
+    and the callers select those results."""
+    bad = f"({b} == 0) | ({b} == -1)" if _is_signed(cc) else f"{b} == 0"
+    return em.define(f"tl.where({bad}, 1, {b})")
 
 
 def _floordiv(em: Emitter, args, cc) -> str:
@@ -602,21 +619,31 @@ def _floordiv(em: Emitter, args, cc) -> str:
         d = em.define(f"tl.where(({m} != 0) & (({b} < 0) != ({m} < 0)), "
                       f"{d} - 1, {d})")
         return f"libdevice.round({d})"
+    bs = _divisor(em, b, cc)
+    q = em.define(f"({a} // {bs})")  # Triton: truncating, as in C
+    if _is_signed(cc):
+        q = em.define(f"tl.where({b} == -1, -({a}), {q})")
+    # lax.div: all ones at a zero divisor
+    q = em.define(f"tl.where({b} == 0, ~tl.zeros_like({q}), {q})")
     if not _is_signed(cc):
-        return f"({a} // {b})"
-    q = em.define(f"({a} // {b})")  # Triton: truncating, as in C
-    return (f"tl.where((({a} % {b}) != 0) & (({a} < 0) != ({b} < 0)), "
-            f"{q} - 1, {q})")
+        return q
+    # jnp.floor_divide: one less where the signs differ and lax.rem (the
+    # dividend at a zero divisor) is not 0
+    r = em.define(f"tl.where({b} == 0, {a}, {a} % {bs})")
+    return (f"tl.where(({r} != 0) & ((({a} < 0) != ({b} < 0)) | "
+            f"({b} == 0)), {q} - 1, {q})")
 
 
 def _mod(em: Emitter, args, cc) -> str:
     a, b = args
     if _is_float(cc):
         r = em.define(f"libdevice.fmod({a}, {b})")
-    elif not _is_signed(cc):
-        return f"({a} % {b})"
     else:
+        # jnp.remainder takes a zero divisor as 1: x % 0 is 0
+        b = _divisor(em, b, cc)
         r = em.define(f"({a} % {b})")  # Triton: sign of the dividend
+        if not _is_signed(cc):
+            return r
     return f"tl.where(({r} != 0) & (({r} < 0) != ({b} < 0)), {r} + {b}, {r})"
 
 
@@ -630,7 +657,24 @@ def _pow(em: Emitter, args, cc) -> str:
 def _fmod(em: Emitter, args, cc) -> str:
     if _is_float(cc):
         return f"libdevice.fmod({args[0]}, {args[1]})"
-    return f"({args[0]} % {args[1]})"
+    # jnp.fmod takes an integer zero divisor as 1: fmod(x, 0) is 0
+    return f"({args[0]} % {_divisor(em, args[1], cc)})"
+
+
+def _fmod_bool(em: Emitter, args, cc) -> str:
+    # jnp.fmod of two booleans (in i32) keeps a zero divisor: lax.rem(x, 0)
+    return f"tl.where({args[1]} != 0, 0, {args[0]})"
+
+
+def _sign(em: Emitter, args, cc) -> str:
+    """jnp.sign of a real value: NaN at NaN, a zero with its sign."""
+    x = args[0]
+    if _is_float(cc):
+        one = em.define(f"tl.where({x} > 0, 1, -1).to({tl_type(cc)})")
+        return f"tl.where(({x} == 0) | ({x} != {x}), {x}, {one})"
+    if _is_signed(cc):
+        return f"(({x} > 0).to({tl_type(cc)}) - ({x} < 0).to({tl_type(cc)}))"
+    return f"({x} != 0).to({tl_type(cc)})"
 
 
 def _minmax(fn: str):
@@ -668,6 +712,7 @@ _NAMED = {
     "real": lambda em, args, cc: args[0],
     "conj": lambda em, args, cc: args[0], "imag": _zeros,
     "floordiv": _floordiv, "mod": _mod, "pow": _pow, "fmod": _fmod,
+    "fmod_bool": _fmod_bool, "sign": _sign,
     "min": _minmax("minimum"), "max": _minmax("maximum"), "max0": _max0,
     "clamp": _clamp, "floor": _rounding("floor"), "ceil": _rounding("ceil"),
     "trunc": _rounding("trunc"), "rint": _rounding("rint"),

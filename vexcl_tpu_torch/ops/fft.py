@@ -15,15 +15,21 @@ complex temporary (``compile.hoist``), and the rest of the tree reads that
 in one generated kernel (``p[:] = fx * conj(fx)``: complex pairs,
 ``expr/triton_emit.py``); a tree that is only the transform, assigned to
 a complex target of its length that it does not read, writes straight
-into the target.  Its input is evaluated and cast to the plan's type
-first (a real input becomes complex, as in the JAX package; no ``rfft``).
+into the target (``y[:] = f(x)`` of a vector x goes from
+``vector.assign`` to the plan with no expression analysis,
+``FFTExpr.into_vector``).  Its input is evaluated and cast to the plan's
+type first (a real input becomes complex, as in the JAX package; no
+``rfft``).
 
 Two engines (``impl``):
 
 * ``"xla"``, the default: the JAX package calls XLA's FFT HLO there,
-  which is no Pallas kernel; here it is ``torch.fft.fftn``/``ifftn`` over
-  ``dims`` (cuFFT on the card; ``ifftn`` scales by 1/n as
-  ``jnp.fft.ifftn`` does).  As a plain product may stay ``torch.matmul``,
+  which is no Pallas kernel; here it is cuFFT on the card, run by
+  ``ops/cufft.py`` straight into the target where one plan covers
+  ``dims`` (``torch.fft.fftn(out=)`` would write a temporary and copy
+  it), else ``torch.fft.fftn``/``ifftn`` over ``dims`` (the inverse
+  scaled by 1/n as ``jnp.fft.ifftn`` does).  As a plain product may stay
+  ``torch.matmul``,
   the library transform that stands where XLA's stood is no hand-written
   kernel, and none is claimed.  cuFFT handles large primes itself, so the
   JAX package's routing of large-prime lengths away from the TPU's FFT
@@ -57,6 +63,7 @@ import torch
 from ..cache import ObjectCache
 from ..expr.node import EmitEnv, Expr, VectorTerminal, as_expr
 from ..types import dtype_of
+from . import cufft
 
 __all__ = ["FFT", "fft", "ifft", "prime_factors", "plan_cache", "Plan",
            "FFTExpr", "MAX_CODELET"]
@@ -286,11 +293,23 @@ class Plan:
         self.impl = impl
         self.sign = +1.0 if inverse else -1.0
         self.size = int(np.prod(self.shape, dtype=np.int64))
+        #: one cuFFT plan's layout over ``dims``, or None (``cufft``)
+        self.cufft_layout = cufft.layout(self.shape, self.dims)
+        #: (device index, stream) -> its cuFFT plan
+        self.cufft: dict = {}
 
     def __call__(self, x: torch.Tensor,
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The transform of ``x`` (the shape, or its flat length), cast to
         the plan's type first; into ``out`` where it is given."""
+        if (self.impl == "xla" and out is not None and x.is_cuda
+                and self.cufft_layout is not None and x.dtype == self.dtype
+                and out.dtype == self.dtype and out.device == x.device
+                and x.is_contiguous() and out.is_contiguous()
+                and x.numel() == out.numel() == self.size):
+            # cuFFT straight into out: torch.fft's out= would copy
+            cufft.execute(self, x, out)
+            return out
         flat_in = x.ndim == 1 and len(self.shape) > 1
         if flat_in:
             x = x.reshape(self.shape)
@@ -344,6 +363,25 @@ class FFTExpr(Expr):
         """The transform's type: ``materialize`` writes it straight into a
         target of that type (``compile.evaluate``'s direct path)."""
         return self.plan.dtype
+
+    def into_vector(self, vec) -> bool:
+        """``vec[:] = self`` for the transform of a vector straight into
+        the whole of ``vec`` (``vector.assign``'s direct path, no
+        expression analysis): True; False where the general path must
+        take it (an input that is not a vector of the plan's size, a
+        target of another type or length, or one that shares the input's
+        memory)."""
+        x = self.children[0]
+        if not isinstance(x, VectorTerminal):
+            return False
+        xt, out = x.vec.storage, vec.storage
+        if (out.dtype != self.plan.dtype or out.numel() != self.plan.size
+                or xt.numel() != self.plan.size or xt.device != out.device
+                or xt.untyped_storage().data_ptr()
+                == out.untyped_storage().data_ptr()):
+            return False
+        self.plan(xt, out)
+        return True
 
     def materialize(self, device: torch.device, n: Optional[int] = None,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:

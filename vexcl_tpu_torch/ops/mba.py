@@ -12,46 +12,55 @@ reference): a hierarchy of cubic B-spline control lattices fitted to the
 residuals, each coarser lattice refined exactly onto the next dyadic grid
 and added in, so that one flattened control lattice remains.
 
-The evaluation is an elementwise tree of existing nodes, so it fuses into
-the assignment kernel (V1, ``expr/triton_emit.py``) with no code of its
-own: the coordinates clamped to the domain and floored, the tap box's
-base index clamped explicitly (in f32 ``grid - 1e-12`` rounds to
-``grid``; a tap must never leave its table, where a ``PointerDeref``
-reads NaN), the cubic weights, and one ``PointerDeref`` (``expr/
-pointer.py``) a tap: 4^d loads from the flattened lattice, or, in the
-patch form, 4^d loads of one contiguous row of the widened table whose
-row j holds the tap box based at control j.  The domain, the cell sizes
-and the strides are Python numbers, which cross into the kernel as
-scalar leaves: two interpolants of one structure share a kernel and
-differ in its arguments.  The kernel is bound by the coordinates' reads
-and the result's write (2-D f32: 12 bytes a point); the taps come from a
-table that the L2 (and L1) cache holds.
+An interpolant of 1-3 axes (``interp(x, y)``) is one ``MBAExpr`` node,
+evaluated by a hand-written CUDA kernel (``ops/cuda_mba.py``,
+``csrc/mba.cu``): not elementwise, so ``z[:] = interp(x, y)`` is one
+launch straight into z (the coordinates read in place), and a larger
+tree (``2 * interp(x, y) + w``) runs it into a temporary first (the
+faster of the two forms there, against the fused tree, on the card:
+PERF.md §6).  An interpolant of more axes is the elementwise tree below,
+a route by structure.
+
+The tree (``mba_device_eval``), the kernel's plain version, is made of
+existing nodes and fuses into the assignment kernel (V1,
+``expr/triton_emit.py``): the coordinates clamped to the domain and
+floored, the tap box's base index clamped explicitly (in f32 ``grid -
+1e-12`` rounds to ``grid``; a tap must never leave its table, where a
+``PointerDeref`` reads NaN), the cubic weights, and one
+``PointerDeref`` (``expr/pointer.py``) a tap: 4^d loads from the
+flattened lattice, or, in the patch form, 4^d loads of one contiguous
+row of the widened table whose row j holds the tap box based at control
+j.  The domain, the cell sizes and the strides are Python numbers, which
+cross into the kernel as scalar leaves: two interpolants of one
+structure share a kernel and differ in its arguments.
 
 The tables live on the device in the coordinates' float type (f64 for f64
-coordinates, else f32), made once per type and device.  An interpolant
-evaluates through its lattice: on an H100 the patch form took 0.864 ms
-for the lattice form's 0.601 at 2^24 f32 points of a 259^2 lattice
-(``chip_smoke.py`` phase 14), where the JAX package takes the patch for
-the TPU's gathers.  The patch table (4^d times the lattice, built where
-it fits ``PATCH_BUDGET_BYTES``) serves ``mba_device_eval(...,
-patch=...)``.
+coordinates, else f32), made once per type and device (the kernel's
+table once per type and device).  The tree evaluates through
+the lattice: on an H100 the patch form took 0.864 ms for the lattice
+form's 0.601 at 2^24 f32 points of a 259^2 lattice (``chip_smoke.py``
+phase 14), where the JAX package takes the patch for the TPU's gathers.
+The patch table (4^d times the lattice, built where it fits
+``PATCH_BUDGET_BYTES``) serves ``mba_device_eval(..., patch=...)``.
 """
 
 from __future__ import annotations
 
 from itertools import product
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..expr.builtins import BUILTINS
-from ..expr.node import (ArrayTerminal, CastExpr, ConstantTerminal, Expr,
-                         as_expr, expression_properties, infer_types)
+from ..expr.node import (ArrayTerminal, CastExpr, ConstantTerminal, EmitEnv,
+                         Expr, VectorTerminal, as_expr, expression_properties,
+                         infer_types)
 from ..expr.pointer import PointerDeref
-from ..types import dtype_of_code, join, to_inexact
+from ..types import code_of, dtype_of_code, join, to_inexact
 
-__all__ = ["mba", "mba_device_eval", "PATCH_BUDGET_BYTES"]
+__all__ = ["mba", "mba_device_eval", "MBAExpr", "PATCH_BUDGET_BYTES",
+           "KERNEL_AXES"]
 
 #: the widened patch table is built where it takes at most this many
 #: bytes (in f64), as the JAX package's default budget
@@ -240,6 +249,72 @@ def mba_device_eval(lo, hi, grids, lattices, coords, patch=None) -> Expr:
     return out
 
 
+#: the axes the CUDA kernel takes; an interpolant of more keeps the tree
+KERNEL_AXES = (1, 2, 3)
+
+
+class MBAExpr(Expr):
+    """An interpolant at d coordinate expressions, evaluated by the CUDA
+    kernel (``cuda_mba.mba_eval``): not elementwise (``hoist`` runs it
+    into a temporary), and written straight into a target of its type
+    (``direct_dtype``).  Its signature is its structure (the axes and the
+    type): two interpolants of one structure share everything but their
+    tables."""
+
+    _opname = "mba"
+    _elementwise = False
+
+    def __init__(self, interp: "mba", dtype: torch.dtype,
+                 lattice: torch.Tensor, coords: Sequence[Expr]):
+        self.interp = interp
+        self.dtype = dtype
+        self.lattice = lattice
+        self.children = tuple(coords)
+
+    def extra_sig(self) -> str:
+        return f"{len(self.children)}:{self.dtype}"
+
+    def _infer(self, child_codes):
+        return code_of(self.dtype)
+
+    def direct_dtype(self) -> torch.dtype:
+        return self.dtype
+
+    def _coord(self, c: Expr, device: torch.device, n: int) -> torch.Tensor:
+        """A coordinate as a contiguous tensor of the interpolant's type:
+        a vector of that type read in place, anything else evaluated."""
+        if isinstance(c, VectorTerminal):
+            t = c.vec.storage
+            if t.dtype == self.dtype and t.device == device \
+                    and t.numel() == n:
+                return t
+        from ..expr.compile import evaluate
+
+        return evaluate(c, n=n, out_dtype=self.dtype, device=device)
+
+    def materialize(self, device: torch.device, n: Optional[int] = None,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The interpolant's values on ``device`` (n of them; into ``out``
+        where it is given)."""
+        from . import cuda_mba
+
+        n = out.numel() if out is not None else (n or self.size_hint())
+        if n is None:
+            raise ValueError("an interpolant over no vector needs a size")
+        coords = [self._coord(c, device, n) for c in self.children]
+        if out is None:
+            out = torch.empty(n, dtype=self.dtype, device=device)
+        ip = self.interp
+        tab = (ip.kernel_table(self.dtype, device)
+               if device.type == "cuda" else None)
+        cuda_mba.mba_eval(out, coords, self.lattice.to(device), ip.lo, ip.hi,
+                          ip.grids[0], tab)
+        return out
+
+    def emit(self, env: EmitEnv):
+        return self.materialize(env.device, env.n)
+
+
 class mba:
     """vex::mba<NDIM> (mba.hpp:160-240).
 
@@ -307,6 +382,8 @@ class mba:
             self.patch = patch
         #: (dtype, device) -> (lattice, patch or None) on the device
         self._tables: Dict[tuple, tuple] = {}
+        #: (dtype, device) -> the CUDA kernel's table
+        self._kernel_tables: Dict[tuple, torch.Tensor] = {}
 
     def tables(self, dtype: torch.dtype, device: torch.device):
         """(the flattened lattice, the flattened patch table or None) in
@@ -321,8 +398,23 @@ class mba:
             tabs = self._tables[key] = (lat, patch)
         return tabs
 
+    def kernel_table(self, dtype: torch.dtype,
+                     device: torch.device) -> torch.Tensor:
+        """The CUDA kernel's table in ``dtype`` (``cuda_mba.table``), made
+        at the first request."""
+        from . import cuda_mba
+
+        key = (dtype, device)
+        tab = self._kernel_tables.get(key)
+        if tab is None:
+            shape = tuple(g + 3 for g in self.grids[0])
+            lat = self.tables(dtype, device)[0].reshape(shape)
+            tab = self._kernel_tables[key] = cuda_mba.table(lat)
+        return tab
+
     def __call__(self, *coords: Any) -> Expr:
-        """The interpolant at ``coords``, through the flattened lattice."""
+        """The interpolant at ``coords``: the kernel's node for 1-3 axes,
+        else the tree through the flattened lattice."""
         if len(coords) != self.ndim:
             raise ValueError(f"mba expects {self.ndim} coordinate "
                              "expressions")
@@ -342,6 +434,8 @@ class mba:
 
             ctx = current_context()
         lat, _ = self.tables(dtype, ctx.device)
+        if self.ndim in KERNEL_AXES:
+            return MBAExpr(self, dtype, lat, coords)
         shape = tuple(g + 3 for g in self.grids[0])
         return mba_device_eval(self.lo, self.hi, self.grids,
                                [lat.reshape(shape)], coords)

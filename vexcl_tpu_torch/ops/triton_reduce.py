@@ -446,9 +446,18 @@ def map_reduce_multi_plain(pairs: Sequence[Tuple[Expr, str]],
 def min_max_plain(val: torch.Tensor, least: bool, dim=None) -> torch.Tensor:
     """``amin``/``amax`` (over ``dim``, or all), NaN propagated; unsigned
     values, which the CPU's kernels do not order, in a signed carrier:
-    u16/u32 in i64, u64 in i64 with the sign bit flipped."""
+    u16/u32 in i64, u64 in i64 with the sign bit flipped; complex values
+    in numpy's lexicographic order (the real parts, then the imaginary
+    parts of the values whose real part is the extreme one)."""
     fn = torch.amin if least else torch.amax
     kw = {} if dim is None else {"dim": dim}
+    if val.is_complex():
+        re, im = val.real, val.imag
+        top = fn(re, **kw)
+        at = re == (top if dim is None else fn(re, dim=dim, keepdim=True))
+        far = float("inf") if least else float("-inf")
+        side = fn(torch.where(at, im, torch.full_like(im, far)), **kw)
+        return torch.complex(top, side)
     if val.dtype == torch.uint64:
         flip = -(1 << 63)
         return (fn(val.view(torch.int64) ^ flip, **kw) ^ flip).view(

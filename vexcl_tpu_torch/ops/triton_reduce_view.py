@@ -127,11 +127,16 @@ def mul(a, b):
 """
 
 
-def _acc_code(op: str, code: str) -> str:
+def _acc_code(op: str, code: str, kernel: bool = True) -> str:
+    """The accumulator type of ``op`` over ``code``; with ``kernel``,
+    raise on complex values, which the CUDA kernel does not cover and the
+    plain form reduces in their own type."""
     dt = dtype_of_code(code)
     if dt.is_complex:
-        raise NotImplementedError("complex reductions are not covered by "
-                                  "the CUDA reduce_view kernel")
+        if kernel:
+            raise NotImplementedError("complex reductions are not covered "
+                                      "by the CUDA reduce_view kernel")
+        return "c128" if code == "c*" else code
     if dt.is_floating_point:
         return "f64" if dt == torch.float64 else "f32"
     if op in ("sum", "prod"):
@@ -412,7 +417,7 @@ def reduce_view_plain(inner: Expr, analysis: Analysis, types, leaves, op: str,
     tensor, accumulated as the kernel accumulates."""
     m = int(np.prod(shape, dtype=np.int64))
     v = plain_value(inner, analysis, types, leaves, m, out.device)
-    acc = dtype_of_code(_acc_code(op, types[id(inner)]))
+    acc = dtype_of_code(_acc_code(op, types[id(inner)], kernel=False))
     v = v.to(acc).reshape(tuple(shape))
     if not axes:
         res = v

@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 __all__ = ["dtype_of", "type_name", "promote", "is_floating", "is_integral",
-           "is_complex", "scalar_of", "COMPLEX_CODES", "real_code"]
+           "is_complex", "scalar_of", "COMPLEX_CODES", "real_code",
+           "to_float"]
 
 _CODE_TO_DTYPE = {
     "b1": torch.bool,
@@ -93,6 +94,14 @@ def join(a: str, b: str) -> str:
 
 def to_inexact(code: str) -> str:
     return _TO_INEXACT.get(code, code)
+
+
+def to_float(code: str) -> str:
+    """jnp's cast of an integer or boolean type to the default float type
+    (f64 in 64-bit mode, strongly typed: ``jnp.rint`` of i32 is f64);
+    float and complex codes as they are."""
+    dt = _CODE_TO_DTYPE[code]
+    return code if dt.is_floating_point or dt.is_complex else "f64"
 
 
 def real_code(code: str) -> str:
