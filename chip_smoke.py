@@ -113,7 +113,23 @@ lattice) at 2^24 f32 and f64 points: ``z[:] = interp(X, Y)`` one launch
 of the CUDA kernel (``csrc/mba.cu``) and no V1 launch, the kernel
 against its plain version and the f64 host evaluation, in turns with
 V1's tree (``mba_Mpts_s``), and in f32 the tree through the API and the
-patch form on V1.  Last, after
+patch form on V1; (15) every catalog builtin's kernel form once at 2^20
+(f32 operands, i32 for the integer helpers) against its plain form
+element by element, and
+boolean ``+``, ``*``, ``//``, ``%``, ``**``, orders and ``select`` in
+the generated kernel; ``select`` and integer ``**`` at 2^24 (one launch
+each through the API) in turns with ``torch.where`` and ``torch.pow``;
+five advanced slicer keys (an index array beside an integer, two arrays
+adjacent and separated, a broadcast array of one element; one V1 launch
+each, bitwise against the plain form) and ``slicer((4096, 4096))[i,
+j](x)`` at 2^24 in turns with PyTorch's advanced indexing; ``z[:] =
+img(X, Y)`` of a 4096^2 f32 ``image2d`` at 2^24 points drawn uniformly
+over it, bilinear and nearest (one V1 launch each), in turns with its
+plain form and ``grid_sample`` on the normalised grid (the library
+column), its bound the image, X, Y and z moved once at the card's
+memory rate (``stream_bound_ms``: at the rate of a 2^26 f32 copy
+measured in the same process); ``svm_vector``'s map/unmap
+and ``Filter.Exclusive`` on the card.  Last, after
 every solver phase (so that no solver follows
 these timings' profiler session or cuSPARSE call), the device time per
 call by the profiler of the map-reduce, the compaction (one and two
@@ -189,7 +205,10 @@ operations in its order, uncontracted) and V1's tree 1e-5 (f32) and
 1e-12 (f64) of the largest magnitude of the plain form, and 1e-4 (f32)
 and 1e-10 (f64) absolute of the f64 host evaluation on 4096 points.
 Phase 2 holds the generated kernel's integer ``//``, ``%`` and ``fmod``
-with zero divisors bitwise against their plain forms.
+with zero divisors bitwise against their plain forms.  Phase 15: each
+builtin's kernel form within 8e-6 of the largest magnitude of its plain
+form (f32; integer and boolean results, nearest samples and advanced
+keys bitwise), non-finite values equal.
 
 Any failed check raises, and the script exits non-zero without the
 result line; it also fails when no CUDA device is visible and when the
@@ -224,6 +243,21 @@ STENCIL_N_SMALL = 1 << 24
 STENCIL_TOL = {"f32": 1e-5, "f32_wide": 1e-4, "f64": 1e-12}
 RANDOM_N = 1 << 20
 SPMV_TOL = {"f32": 1e-5, "f64": 1e-12}
+BUILTIN_N = 1 << 20           # phase 15's size for every builtin
+BUILTIN_TOL = 8e-6            # 4 x the card tests' f32 RTOL of 2e-6
+IMG_GRID = 4096               # phase 15's image: 4096^2 f32
+#: the builtins' operands, here and in the tests: each float operand
+#: drawn over its builtin's domain, (-3, 3) where none is listed; the
+#: integer helpers take integer operands (the arity is the catalog's)
+BUILTIN_DOMAIN = {"acosh": (1.0, 3.0), "asin": (-1, 1), "acos": (-1, 1),
+                  "atanh": (-0.99, 0.99), "log": (0.01, 3),
+                  "log2": (0.01, 3), "log10": (0.01, 3), "log1p": (0, 3),
+                  "sqrt": (0, 4), "rsqrt": (0.01, 4), "lgamma": (0.1, 5),
+                  "pow": (0.1, 2), "powr": (0.1, 2), "pown": (0.1, 2),
+                  "asinpi": (-1, 1), "acospi": (-1, 1), "rootn": (1, 3)}
+BUILTIN_INTEGER = ("hadd", "rhadd", "bitselect", "select", "mad_hi",
+                   "popcount", "clz", "rotate", "add_sat", "sub_sat",
+                   "mad_sat", "mul_hi", "upsample", "__popc", "__popcll")
 VIEW_GRID = 4096              # the views' 2-D grid: 2^24 elements
 VIEW_N = VIEW_GRID * VIEW_GRID
 VIEW_3D = (512, 256, 128)     # a 3-D reshape's output dims: 2^24 elements
@@ -735,7 +769,8 @@ def main() -> int:
                 "complex": assign_complex,
                 "reduce_complex": map_reduce_complex,
                 "mba": mba_eval, "mba_tree": assign_indexed,
-                "cufft": cufft_execute}
+                "cufft": cufft_execute, "builtins": assign, "ipow": assign,
+                "advanced_index": assign_indexed, "image": assign_indexed}
     main_launches = {}
 
     def counted(keys, fn):
@@ -3163,6 +3198,271 @@ def main() -> int:
                                    if not isinstance(v, dict)})
     fft_mba_phase()
 
+    # -- phase 15: builtins, integer pow and boolean arithmetic in the
+    # generated kernels, advanced slicer keys, images ----------------------
+    def builtins_images_phase():
+        """Phase 15, in a scope of its own."""
+        from vexcl_tpu_torch.expr.builtins import KERNEL_BUILTINS
+        from vexcl_tpu_torch.types import dtype_of_code
+
+        t15 = time.perf_counter()
+        rec = {}
+
+        def uniform(n, lo, hi, dt=torch.float32):
+            return vex.vector(data=lo + (hi - lo) * torch.rand(
+                n, generator=gen, device=dev, dtype=dt), context=ctx)
+
+        def ints(n, lo, hi, dt=torch.int32):
+            return vex.vector(data=torch.randint(
+                lo, hi, (n,), generator=gen, device=dev, dtype=dt),
+                context=ctx)
+
+        def kernel_and_plain(expr, n):
+            e, an, ty, lv = prepare(expr, n, dev)
+            k = torch.empty(n, dtype=dtype_of_code(ty[id(e)]), device=dev)
+            p = torch.empty_like(k)
+            assign(e, an, ty, lv, k)
+            assign_plain(e, an, ty, lv, p)
+            return k, p, (e, an, ty, lv)
+
+        def rel_err(name, k, p):
+            """The kernel's worst error element by element, relative to
+            the plain value's magnitude (absolute below 1); the same
+            values where either is not finite."""
+            if not p.dtype.is_floating_point:
+                check(torch.equal(k, p), f"{name}: the kernel differs from "
+                      "its plain form")
+                return 0.0
+            fin = torch.isfinite(p)
+            check(torch.equal(torch.isfinite(k), fin)
+                  and torch.equal(torch.isnan(k), torch.isnan(p))
+                  and torch.equal(k[~fin & ~torch.isnan(p)],
+                                  p[~fin & ~torch.isnan(p)]),
+                  f"{name}: the kernel's non-finite values differ")
+            if not fin.any():
+                return 0.0
+            k, p = k[fin].double(), p[fin].double()
+            return ((k - p).abs() / p.abs().clamp_min(1.0)).max().item()
+
+        # every builtin's kernel form once at BUILTIN_N against its plain
+        # form (f32 operands over the card tests' domains; i32, or i16 for
+        # upsample, for the integer helpers; an i32 exponent for ldexp)
+        t = time.perf_counter()
+        worst = {}
+        for name in KERNEL_BUILTINS:
+            nargs = vex.BUILTINS[name].nargs
+            if name in BUILTIN_INTEGER:
+                idt = torch.int16 if name == "upsample" else torch.int32
+                args = [ints(BUILTIN_N, -1000, 1000, idt)
+                        for _ in range(nargs)]
+            else:
+                lo, hi = BUILTIN_DOMAIN.get(name, (-3.0, 3.0))
+                args = [uniform(BUILTIN_N, lo, hi) for _ in range(nargs)]
+                if name == "ldexp":
+                    args[1] = ints(BUILTIN_N, -20, 20)
+            k, p, _ = kernel_and_plain(vex.BUILTINS[name](*args), BUILTIN_N)
+            worst[name] = rel_err(name, k, p)
+            check(worst[name] <= BUILTIN_TOL, f"{name}: rel err "
+                  f"{worst[name]}")
+        rec["builtins_checked"] = len(worst)
+        rec["builtins_s"] = time.perf_counter() - t
+        rec["builtins_worst"] = max(worst, key=worst.get)
+        rec["builtins_worst_rel_err"] = worst[rec["builtins_worst"]]
+        # booleans: + is or, * is and, //, % and ** in i32, orders on 0, 1
+        b, c, d = (vex.vector(data=torch.rand(
+            BUILTIN_N, generator=gen, device=dev) < 0.5, context=ctx)
+            for _ in range(3))
+        bool_exprs = [b + c, b * c, vex.mad(b, c, d), b ** c, b // c,
+                      b % c, b < c, vex.max(b, c), vex.select(b, c, d)]
+        for i_, expr in enumerate(bool_exprs):
+            k, p, _ = kernel_and_plain(expr, BUILTIN_N)
+            rel_err(f"boolean expression {i_}", k, p)
+        rec["boolean_exprs_checked"] = len(bool_exprs)
+
+        def timed(tag, expr, out, library, nbytes, nops=0, ops_s=F32_OPS_S,
+                  key="builtins"):
+            """One API assignment (one launch of its counter), the
+            kernel against its plain form, in turns with its library
+            call, the plain form's time, device and host µs."""
+            _, got = counted((key,), lambda: out.assign(expr))
+            check(got[key] == 1, f"{tag}: launches {got}")
+            add_launches(got)
+            k, p, (e, an, ty, lv) = kernel_and_plain(expr, out.size)
+            err = rel_err(tag, k, p)
+            check(err <= BUILTIN_TOL, f"{tag}: rel err {err}")
+            abs_err = (k.double() - p.double()).abs().max().item()
+            fns = {"kernel": lambda: assign(e, an, ty, lv, k)}
+            if library is not None:
+                fns["library"] = library
+            turns = in_turns(fns)
+            per_kernel, _ = profile_call(fns["kernel"], KERNEL_REPS)
+            row = dict(kernel_row(
+                abs_err, turns["kernel"]["ms"],
+                cuda_ms(lambda: assign_plain(e, an, ty, lv, p), 3), nbytes,
+                nops, turns["library"]["ms"] if library else None, ops_s),
+                ms_range=turns["kernel"]["ms_range"],
+                device_us=sum(v for n_, v in per_kernel.items()
+                              if "assign_kernel" in n_),
+                host_us=host_us(lambda: out.assign(expr)), max_rel_err=err)
+            if library is not None:
+                row["library_ms_range"] = turns["library"]["ms_range"]
+            report(tag, row)
+            return row, k
+
+        # the memory rate in this process: a 2^26 f32 copy
+        src = torch.rand(1 << 26, generator=gen, device=dev)
+        dst = torch.empty_like(src)
+        copy_ms = cuda_ms(lambda: dst.copy_(src), KERNEL_REPS)
+        stream_bytes_s = 2 * 4 * (1 << 26) / (copy_ms * 1e-3)
+        rec["stream_copy_ms"] = copy_ms
+        rec["stream_GBs"] = stream_bytes_s / 1e9
+        del src, dst
+
+        # select and integer pow at 2^24 against the assignment kernel's
+        # bound, in turns with torch.where and torch.pow
+        n = N_VEC
+        x, y = uniform(n, -1.0, 1.0), uniform(n, -1.0, 1.0)
+        cond = vex.vector(data=torch.rand(n, generator=gen, device=dev)
+                          < 0.5, context=ctx)
+        z = vex.vector(n, dtype=torch.float32, context=ctx)
+        kernels["builtins"], _ = timed(
+            "builtin_select_2^24_f32", vex.select(x, y, cond), z,
+            lambda: torch.where(cond.storage, y.storage, x.storage),
+            (4 + 4 + 1 + 4) * n)
+        kernels["builtins"]["workload"] = (
+            "z[:] = select(x, y, c), 2^24 f32, c boolean")
+        ia, ib = ints(n, -3, 4), ints(n, 0, 41)
+        zi = vex.vector(n, dtype=torch.int32, context=ctx)
+        # the loop's rounds (the largest exponent's bits): and, compare,
+        # select, two multiplies and a shift each, and the negative
+        # exponent's selects
+        rounds = int(ib.storage.max().item()).bit_length()
+        kernels["ipow"], _ = timed(
+            "integer_pow_2^24_i32", ia ** ib, zi,
+            lambda: torch.pow(ia.storage, ib.storage), 12 * n,
+            (6 * rounds + 8) * n, scheduler_ops_s(), key="ipow")
+        kernels["ipow"]["workload"] = (
+            "z[:] = a ** b, 2^24 i32, a in [-3, 3], b in [0, 40]")
+        del x, y, cond, z, ia, ib, zi
+        torch.cuda.empty_cache()
+
+        # advanced slicer keys: each form one V1 launch, bitwise against
+        # its plain form; (i, j) on the 4096^2 grid at 2^24 timed in
+        # turns with PyTorch's advanced indexing of the same grid
+        g = VIEW_GRID
+        xg = uniform(g * g, -1.0, 1.0)
+        dims3 = (256, 256, 256)
+        i3, j3, one = ints(1000, -300, 300), ints(1000, -300, 300), ints(
+            1, 0, 256)
+        forms = {"array_int": (i3, 7), "arrays_adjacent": (i3, j3),
+                 "arrays_separated": (i3, vex._, j3),
+                 "int_separated": (5, vex._, i3),
+                 "one_broadcast": (one, i3, vex._)}
+        for tag, key in forms.items():
+            view = vex.slicer(dims3)[key](xg)
+            out = vex.vector(view.size_hint(), dtype=torch.float32,
+                             context=ctx)
+            _, got = counted(("advanced_index",), lambda: out.assign(view))
+            check(got["advanced_index"] == 1, f"{tag}: launches {got}")
+            add_launches(got)
+            k, p, _ = kernel_and_plain(view, out.size)
+            rel_err(f"advanced key {tag}", k, p)
+        gi, gj = ints(n, 0, g), ints(n, 0, g)
+        gi64, gj64 = gi.storage.long(), gj.storage.long()
+        grid2 = xg.storage.view(g, g)
+        zg = vex.vector(n, dtype=torch.float32, context=ctx)
+        view = vex.slicer((g, g))[gi, gj](xg)
+        kernels["advanced_index"], k = timed(
+            "advanced_index_2^24_f32", view, zg,
+            lambda: grid2[gi64, gj64], (4 + 4 + 4) * n + 4 * g * g,
+            key="advanced_index")
+        check(torch.equal(k, grid2[gi64, gj64]),
+              "advanced index: differs from PyTorch's indexing")
+        kernels["advanced_index"]["workload"] = (
+            "z[:] = slicer((4096, 4096))[i, j](x), 2^24 random (i, j), "
+            "f32; the library call reads i64 indices")
+        rec["advanced_forms_checked"] = len(forms)
+        del xg, i3, j3, one, gi, gj, gi64, gj64, grid2, zg, view
+        torch.cuda.empty_cache()
+
+        # images: a 4096^2 f32 image, 2^24 f32 points drawn uniformly
+        # over it, nearest and bilinear, in turns with the plain form and
+        # grid_sample (the same function on the normalised grid, padding
+        # "border": a yardstick of time, not the oracle); the bound reads
+        # X, Y, z and the image once at the card's memory rate, and
+        # stream_bound_ms at the copy's rate measured above
+        w = h = IMG_GRID
+        img = torch.rand(h, w, generator=gen, device=dev)
+        X, Y = uniform(n, 0.0, w - 1.0), uniform(n, 0.0, h - 1.0)
+        grid = torch.stack([X.storage / (w - 1) * 2 - 1,
+                            Y.storage / (h - 1) * 2 - 1], -1).view(1, 1, n, 2)
+        inp = img.view(1, 1, h, w)
+        z = vex.vector(n, dtype=torch.float32, context=ctx)
+        nbytes = 3 * 4 * n + 4 * h * w
+        image_rows = {}
+        for filt, mode in (("linear", "bilinear"), ("nearest", "nearest")):
+            im = vex.image2d(img, filter=filt, context=ctx)
+            expr = im(X, Y)
+            _, got = counted(("image",), lambda: z.assign(expr))
+            check(got["image"] == 1, f"image {filt}: launches {got}")
+            add_launches(got)
+            k, p, (e, an, ty, lv) = kernel_and_plain(expr, n)
+            err = rel_err(f"image {filt}", k, p)
+            check(err <= (0.0 if filt == "nearest" else BUILTIN_TOL),
+                  f"image {filt}: rel err {err}")
+
+            def gs(mode=mode):
+                return torch.nn.functional.grid_sample(
+                    inp, grid, mode=mode, padding_mode="border",
+                    align_corners=True)
+
+            gs_diff = (gs().view(-1) - k).abs().max().item()
+            turns = in_turns({
+                "kernel": lambda: assign(e, an, ty, lv, k),
+                "plain": lambda: assign_plain(e, an, ty, lv, p),
+                "grid_sample": gs})
+            per_kernel, _ = profile_call(lambda: assign(e, an, ty, lv, k),
+                                         KERNEL_REPS)
+            row = dict(kernel_row(
+                (k.double() - p.double()).abs().max().item(),
+                turns["kernel"]["ms"], turns["plain"]["ms"], nbytes, 0,
+                turns["grid_sample"]["ms"]),
+                stream_bound_ms=nbytes / stream_bytes_s * 1e3,
+                ms_range=turns["kernel"]["ms_range"],
+                library_ms_range=turns["grid_sample"]["ms_range"],
+                plain_ms_range=turns["plain"]["ms_range"],
+                device_us=sum(v for n_, v in per_kernel.items()
+                              if "assign_kernel" in n_),
+                host_us=host_us(lambda: z.assign(expr)), max_rel_err=err,
+                grid_sample_max_abs_diff=gs_diff,
+                Gsamples_s=n / (turns["kernel"]["ms"] * 1e-3) / 1e9)
+            report(f"image2d_{filt}_2^24_f32", row)
+            image_rows[filt] = row
+            del im, expr, e, lv, k, p
+        kernels["image"] = dict(
+            image_rows["linear"], others={"nearest": image_rows["nearest"]},
+            workload="z[:] = img(X, Y), bilinear, 4096^2 f32 image, 2^24 "
+            "f32 points uniform over it")
+        del img, X, Y, grid, inp, z
+        torch.cuda.empty_cache()
+
+        # svm_vector's map/unmap on the card, and Filter.Exclusive's lock
+        # on this card (held by this process, then released)
+        from vexcl_tpu_torch.context import release_exclusive_locks
+
+        sv = vex.svm_vector(1 << 20, dtype=torch.float32, context=ctx)
+        with sv as host:
+            host[:] = np.arange(1 << 20, dtype=np.float32)
+        check(torch.equal(sv.storage.cpu(), torch.arange(
+            1 << 20, dtype=torch.float32)), "svm_vector: unmap lost data")
+        ex = vex.Context(vex.Filter.Exclusive(vex.Filter.GPU),
+                         set_current=False)
+        check(ex.device == dev, f"Filter.Exclusive chose {ex.device}")
+        release_exclusive_locks()
+        rec["phase_s"] = time.perf_counter() - t15
+        report("builtins_images", rec)
+    builtins_images_phase()
+
     # last, after every solver phase, so that no solver's ms per iteration
     # (compared between versions of this script) follows these timings'
     # profiler session or cuSPARSE call: the
@@ -3304,6 +3604,14 @@ def main() -> int:
          "vexcl_tpu/ops/mba.py:164-208", "mba_tree"),
         ("mba_cuda", "cuda", "vexcl_tpu_torch/csrc/mba.cu",
          "vexcl_tpu/ops/mba.py:164-208", "mba"),
+        ("builtin_select", "triton", "vexcl_tpu_torch/expr/triton_emit.py",
+         "vexcl_tpu/expr/builtins.py:293", "builtins"),
+        ("integer_pow", "triton", "vexcl_tpu_torch/expr/triton_emit.py",
+         "vexcl_tpu/expr/node.py:356", "ipow"),
+        ("advanced_index", "triton", "vexcl_tpu_torch/expr/view.py",
+         "vexcl_tpu/expr/view.py:217-224", "advanced_index"),
+        ("image_sample", "triton", "vexcl_tpu_torch/ops/image.py",
+         "vexcl_tpu/ops/image.py:47-89", "image"),
     ]
     check("jax" not in sys.modules and "vexcl_tpu" not in sys.modules,
           "the port imported jax or vexcl_tpu")

@@ -8,8 +8,10 @@ installed:
 Tolerances: f32 results may differ from the plain version by a few ulp
 (FMA contraction, libdevice against PyTorch's own math, another summation
 order): 2e-6 relative to the largest magnitude, 1e-5 for sums.  f64: 1e-12
-and 1e-10 for sums.  MIN, MAX, integer results and the DIA kernel on
-integer-valued data are exact.  Scans: f32 sums 1e-5 relative to the
+and 1e-10 for sums.  The builtins' sweep holds each element within 4
+times that of the plain value's magnitude (absolutely below 1).  MIN,
+MAX, integer results and the DIA kernel on integer-valued data are
+exact.  Scans: f32 sums 1e-5 relative to the
 largest magnitude (another summation order), f64 1e-12, bf16 1e-2 (a sum
 carried in f32 in another order may round to a neighbouring bf16);
 MAX/MIN, integer scans and compaction bitwise; a scan repeated on the same
@@ -33,6 +35,7 @@ from vexcl_tpu_torch.expr.triton_emit import assign, assign_plain
 from vexcl_tpu_torch.ops.triton_reduce import map_reduce, map_reduce_plain
 from vexcl_tpu_torch.sparse.cuda_dia import dia_matvec, dia_matvec_plain
 from vexcl_tpu_torch.types import dtype_of_code
+from chip_smoke import BUILTIN_DOMAIN, BUILTIN_INTEGER
 
 pytestmark = pytest.mark.cuda
 
@@ -71,6 +74,19 @@ def _close(k, p, rtol):
     assert err <= rtol * scale, (err, scale)
 
 
+def _close_each(k, p, rtol):
+    """Element by element: each finite value within rtol of the plain
+    value's magnitude (absolutely below 1), the non-finite ones equal."""
+    k, p = k.double().cpu(), p.double().cpu()
+    fin = torch.isfinite(p)
+    assert torch.equal(torch.isfinite(k), fin)
+    assert torch.equal(torch.isnan(k), torch.isnan(p))
+    assert torch.equal(k[~fin & ~torch.isnan(p)], p[~fin & ~torch.isnan(p)])
+    if fin.any():
+        err = ((k[fin] - p[fin]).abs() / p[fin].abs().clamp_min(1.0)).max()
+        assert err.item() <= rtol, err.item()
+
+
 def _kernels_launched(fn, reps=3):
     """(name, count) of every device record (kernels and copies) of
     ``reps`` calls of fn, by torch.profiler.  The profiler drops a trace's first device records, more as the
@@ -97,44 +113,40 @@ def _kernels_launched(fn, reps=3):
     raise AssertionError("the profiler lost every lead-in record")
 
 
-_DOMAIN = {"acosh": (1.0, 3.0), "asin": (-1, 1), "acos": (-1, 1),
-           "atanh": (-0.99, 0.99), "log": (0.01, 3), "log2": (0.01, 3),
-           "log10": (0.01, 3), "log1p": (0, 3), "sqrt": (0, 4),
-           "rsqrt": (0.01, 4), "lgamma": (0.1, 5), "pow": (0.1, 2),
-           "powr": (0.1, 2), "pown": (0.1, 2)}
-
-
-_NARGS = {"atan2": 2, "pow": 2, "powr": 2, "pown": 2, "hypot": 2,
-          "fmod": 2, "copysign": 2, "fdim": 2, "abs_diff": 2, "fmin": 2,
-          "fmax": 2, "min": 2, "max": 2, "mul24": 2, "isequal": 2,
-          "isnotequal": 2, "isgreater": 2, "isgreaterequal": 2, "isless": 2,
-          "islessequal": 2, "islessgreater": 2, "isordered": 2,
-          "isunordered": 2, "hadd": 2, "rhadd": 2, "clamp": 3, "mix": 3,
-          "mad": 3, "fma": 3, "mad24": 3, "bitselect": 3}
-_INTEGER_ONLY = ("hadd", "rhadd", "bitselect")
+def _builtin_args(ctx, name, dt, rng, n=N):
+    """Vectors for one builtin of the sweep: floats of dt over its
+    domain; integers (i32 for f32, i64 for f64; i16 and i32 for
+    ``upsample``, which widens them) for the integer helpers; an i32
+    exponent for ``ldexp``."""
+    k = vex.BUILTINS[name].nargs
+    if name in BUILTIN_INTEGER:
+        npdt = np.int32 if dt == torch.float32 else np.int64
+        if name == "upsample":
+            npdt = np.int16 if dt == torch.float32 else np.int32
+        return [vex.vector(data=rng.integers(-1000, 1000, n).astype(npdt),
+                           context=ctx) for _ in range(k)]
+    lo, hi = BUILTIN_DOMAIN.get(name, (-3, 3))
+    npdt = np.float64 if dt == torch.float64 else np.float32
+    args = [vex.vector(data=(lo + (hi - lo) * rng.random(n)).astype(npdt),
+                       context=ctx) for _ in range(k)]
+    if name == "ldexp":
+        args[1] = vex.vector(data=rng.integers(-20, 20, n).astype(np.int32),
+                             context=ctx)
+    return args
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64])
 @pytest.mark.parametrize("name", KERNEL_BUILTINS)
 def test_builtin_kernel_matches_plain(gpu, name, dt):
     fn = vex.BUILTINS[name]
-    lo, hi = _DOMAIN.get(name, (-3, 3))
-    rng = np.random.default_rng(1)
-    if name in _INTEGER_ONLY:
-        npdt = np.int32 if dt == torch.float32 else np.int64
-        args = [_vec(gpu, rng.integers(-1000, 1000, N).astype(npdt))
-                for _ in range(_NARGS[name])]
-    else:
-        npdt = np.float64 if dt == torch.float64 else np.float32
-        args = [_vec(gpu, (lo + (hi - lo) * rng.random(N)).astype(npdt))
-                for _ in range(_NARGS.get(name, 1))]
+    args = _builtin_args(gpu, name, dt, np.random.default_rng(1))
     expr = vex.as_expr(fn(*args))
     res_dt = vex.eval(expr).dtype
     k, p = _both(expr, N, res_dt, gpu.device)
     if not res_dt.is_floating_point:
         assert torch.equal(k, p)
     else:
-        _close(k, p, 4 * RTOL[dt])
+        _close_each(k, p, 4 * RTOL[dt])
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64])
@@ -242,15 +254,16 @@ def test_map_reduce_on_two_streams(gpu):
 
 def test_reductor_raises_on_uncovered_kinds(gpu):
     """What the map-reduce kernels do not cover raises on the card: MIN or
-    MAX of booleans, complex values, a builtin without a kernel form."""
+    MAX of booleans, complex values, a builtin of a complex value (every
+    builtin has a kernel form for real types)."""
     x = _vec(gpu, np.ones(100, np.float32))
     with pytest.raises(NotImplementedError):
         vex.Reductor(vex.MIN_MAX)(x > 0)
     with pytest.raises(NotImplementedError):
         vex.Reductor(vex.SUM_Kahan)(_vec(gpu, np.ones(100, np.complex64)))
     with pytest.raises(NotImplementedError, match="sinpi"):
-        y = vex.vector(100, context=gpu)
-        y[:] = vex.sinpi(x)
+        y = vex.vector(100, dtype=torch.complex64, context=gpu)
+        y[:] = vex.sinpi(_vec(gpu, np.ones(100, np.complex64)))
 
 
 @pytest.mark.parametrize("pair", [(torch.bfloat16, torch.float32),
@@ -3589,3 +3602,212 @@ def test_fft_api_matches_torch_fft_c128(gpu):
                 back = ((z.storage - x.storage).norm()
                         / x.storage.norm()).item()
                 assert back <= 2 * tol, (shape, dt, impl, back)
+
+
+# -- the builtins' kernel forms on integer types, integer pow, boolean
+# arithmetic, advanced slicer keys and image samples --------------------
+
+_INT_TYPES = [torch.int8, torch.int16, torch.int32, torch.int64,
+              torch.uint8, torch.uint16, torch.uint32, torch.uint64]
+_NP_INT = {torch.int8: np.int8, torch.int16: np.int16, torch.int32: np.int32,
+           torch.int64: np.int64, torch.uint8: np.uint8,
+           torch.uint16: np.uint16, torch.uint32: np.uint32,
+           torch.uint64: np.uint64}
+
+
+def _int_data(n, dt, seed):
+    """Random values over all of dt, after its least and largest values,
+    0, 1 and (signed) -1."""
+    npdt = _NP_INT[dt]
+    info = np.iinfo(npdt)
+    rng = np.random.default_rng(seed)
+    h = rng.integers(info.min, info.max, n, dtype=npdt, endpoint=True)
+    special = [info.min, info.max, 0, 1] + ([-1] if info.min < 0 else [])
+    h[:len(special)] = np.array(special, dtype=object).astype(npdt)
+    return h
+
+
+#: the integer helpers and builtins that keep an integer type: arity
+_INT_BUILTINS = {"popcount": 1, "clz": 1, "__popc": 1, "__popcll": 1,
+                 "rotate": 2, "add_sat": 2, "sub_sat": 2, "mul_hi": 2,
+                 "mad_hi": 3, "mad_sat": 3, "upsample": 2, "maxmag": 2,
+                 "minmag": 2, "step": 2, "any": 1, "all": 1, "select": 3,
+                 "hadd": 2, "bitselect": 3, "signbit": 1, "isnormal": 1,
+                 "min": 2, "max": 2, "clamp": 3, "sign": 1, "abs": 1}
+
+
+@pytest.mark.parametrize("name,dt", [
+    (name, dt) for name in sorted(_INT_BUILTINS) for dt in _INT_TYPES
+    if not (name == "upsample" and dt.itemsize == 8)])
+def test_integer_builtin_kernel_bitwise(gpu, name, dt):
+    """Each builtin over random bits of every integer type (the type's
+    extremes, 0, 1 and -1 first), bitwise against its plain form."""
+    n = 20000
+    args = [vex.vector(data=_int_data(n, dt, 50 + i), context=gpu)
+            for i in range(_INT_BUILTINS[name])]
+    expr = vex.as_expr(vex.BUILTINS[name](*args))
+    k, p = _both(expr, n, vex.eval(expr).dtype, gpu.device)
+    assert torch.equal(k, p), name
+
+
+@pytest.mark.parametrize("dt", _INT_TYPES)
+def test_integer_pow_kernel_bitwise(gpu, dt):
+    """Integer ** (square and multiply over the exponent's bits) at
+    exponents -3..40 (0..40 unsigned), wrapping, bitwise against PyTorch's
+    integer pow; also by a scalar exponent and of a scalar base."""
+    n = 20000
+    npdt = _NP_INT[dt]
+    info = np.iinfo(npdt)
+    rng = np.random.default_rng(41)
+    lo = -3 if info.min < 0 else 0
+    base = rng.integers(max(info.min, -300), min(info.max, 300) + 1,
+                        n).astype(npdt)
+    base[:6] = np.array([0, 1, 2, 3, 1, 0]).astype(npdt)
+    if info.min < 0:
+        base[6:9] = np.array([-1, -2, -3]).astype(npdt)
+    exps = rng.integers(lo, 41, n).astype(npdt)
+    a = vex.vector(data=base, context=gpu)
+    b = vex.vector(data=exps, context=gpu)
+    for expr in (a ** b, a ** 3, a ** 40, 2 ** b, a ** b + 1):
+        k, p = _both(expr, n, dt, gpu.device)
+        assert torch.equal(k, p)
+
+
+def test_boolean_arithmetic_kernel_bitwise(gpu):
+    """Operators and builtins on booleans give what their plain forms give
+    (+ is or, * is and; //, %, ** in i32; orders on 0 and 1); - and
+    unary - raise TypeError, as PyTorch refuses them."""
+    n = 5000
+    rng = np.random.default_rng(42)
+    b, c, d = (vex.vector(data=rng.random(n) < 0.5, context=gpu)
+               for _ in range(3))
+    exprs = [b + c, b * c, b * c + d, vex.mad(b, c, d), vex.fma(b, c, d),
+             vex.mul24(b, c), vex.mad24(b, c, d), vex.hadd(b, c),
+             vex.min(b, c), vex.max(b, c), vex.clamp(b, c, d),
+             vex.maxmag(b, c), vex.minmag(b, c), vex.step(b, c), b ** c,
+             b // c, b % c, vex.select(b, c, d), b & c, b | c, b ^ c, ~b,
+             b == c, b < c, b >= c, vex.isless(b, c), b + 1, b * 2.5,
+             vex.rotate(b, c)]
+    for e in exprs:
+        e = vex.as_expr(e)
+        k, p = _both(e, n, vex.eval(e).dtype, gpu.device)
+        assert torch.equal(k, p)
+    y = vex.vector(n, dtype=torch.bool, context=gpu)
+    for e in (lambda: b - c, lambda: -b):
+        with pytest.raises(TypeError):
+            y[:] = e()
+
+
+def test_advanced_slicer_keys_kernel_matches_plain(gpu, cpu):
+    """Index arrays beside integers, two arrays adjacent and separated by
+    a slice (their axis first), an array of one element broadcast, with
+    out-of-range indices (wrapped, then clamped): V1's indexed loads, one
+    launch each, bitwise against the plain version."""
+    from vexcl_tpu_torch.expr.triton_emit import assign_indexed
+
+    dims = (37, 41, 29)
+    hx = torch.from_numpy(np.random.default_rng(43).standard_normal(
+        int(np.prod(dims))).astype(np.float32))
+    hi = np.array([0, 36, -1, 40, -40, 5, 17, 3, 8, 2, 1])
+    hj = np.array([28, 0, 13, -3, 41, 7, 6, 5, 4, 3, 2])
+    cases = [lambda i, j, o: (i, 5), lambda i, j, o: (3, i),
+             lambda i, j, o: (i, j), lambda i, j, o: (i, vex._, j),
+             lambda i, j, o: (vex._, i, j), lambda i, j, o: (i, vex._, o),
+             lambda i, j, o: (2, vex._, i), lambda i, j, o: (i, 1, j),
+             lambda i, j, o: (o, i), lambda i, j, o: (vex.r(1, 30), i, 4)]
+    for key in cases:
+        res = []
+        for c in (gpu, cpu):
+            x = vex.vector(data=hx, context=c)
+            i, j, o = (vex.vector(data=a, context=c)
+                       for a in (hi, hj, np.array([4])))
+            view = vex.slicer(dims)[key(i, j, o)](x)
+            out = vex.vector(view.size_hint(), dtype=torch.float32,
+                             context=c)
+            before = assign_indexed.launches
+            out[:] = view * 2 + 1
+            if c is gpu:
+                torch.cuda.synchronize()
+                assert assign_indexed.launches == before + 1
+            res.append(out.storage.cpu())
+        _bitwise(res[0], res[1])
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_image_sampling_kernel_matches_plain(gpu, dt):
+    """image1d and image2d, nearest (bitwise) and linear (4 RTOL: the
+    kernel contracts products into FMAs), at the edges, at halves and
+    outside the image; one V1 launch a sample."""
+    from vexcl_tpu_torch.expr.triton_emit import assign_indexed
+
+    rng = np.random.default_rng(44)
+    h, w, n = 61, 47, 30000
+    img = rng.standard_normal((h, w))
+    xs = rng.uniform(-3, w + 3, n)
+    ys = rng.uniform(-3, h + 3, n)
+    edge = [0.0, w - 1.0, -0.5, w - 0.5, 2.5, 3.5, -3.0, w + 2.0]
+    xs[:len(edge)], ys[:len(edge)] = edge, edge[::-1]
+    npdt = np.float32 if dt == torch.float32 else np.float64
+    X = vex.vector(data=xs.astype(npdt), context=gpu)
+    Y = vex.vector(data=ys.astype(npdt), context=gpu)
+    for f in ("nearest", "linear"):
+        im2 = vex.image2d(img.astype(npdt), filter=f, context=gpu)
+        im1 = vex.image1d(img[3].astype(npdt), filter=f, context=gpu)
+        for expr in (im2(X, Y), im1(X), 2 * im2(X, Y) + im1(Y)):
+            before = assign_indexed.launches
+            k, p = _both(expr, n, dt, gpu.device)
+            assert assign_indexed.launches == before + 1
+            if f == "nearest":
+                _bitwise(k, p)
+            else:
+                _close(k, p, 4 * RTOL[dt])
+
+
+@pytest.mark.parametrize("table", ["i32", "b1", "u16", "c64", "f16_coords",
+                                   "i32_coords"])
+def test_image_sample_types_kernel_matches_plain(gpu, table):
+    """Integer, boolean, unsigned and complex tables with f32
+    coordinates, and an f32 table at f16 and i32 coordinates: nearest and
+    linear samples inside and outside the image, bitwise (integers and
+    nearest samples) or within 4 RTOL (f32 and c64 lerps); one V1 launch
+    a sample (counted on ``assign_complex`` for the complex table)."""
+    from vexcl_tpu_torch.expr.triton_emit import (assign_complex,
+                                                  assign_indexed)
+
+    def launches():
+        return assign_indexed.launches + assign_complex.launches
+
+    rng = np.random.default_rng(45)
+    h, w, n = 19, 23, 20000
+    img = rng.standard_normal((h, w)) * 50
+    xs, ys = rng.uniform(-3, w + 3, n), rng.uniform(-3, h + 3, n)
+    npdt, cdt = {"i32": (np.int32, np.float32), "b1": (np.bool_, np.float32),
+                 "u16": (np.uint16, np.float32),
+                 "c64": (np.complex64, np.float32),
+                 "f16_coords": (np.float32, np.float16),
+                 "i32_coords": (np.float32, np.int32)}[table]
+    if npdt == np.bool_:
+        img = img > 0
+    elif npdt == np.uint16:
+        img = np.abs(img)
+    elif npdt == np.complex64:
+        img = img + 1j * rng.standard_normal((h, w))
+    X = vex.vector(data=xs.astype(cdt), context=gpu)
+    Y = vex.vector(data=ys.astype(cdt), context=gpu)
+    for f in ("nearest", "linear"):
+        im2 = vex.image2d(img.astype(npdt), filter=f, context=gpu)
+        im1 = vex.image1d(img[2].astype(npdt), filter=f, context=gpu)
+        for expr in (im2(X, Y), im1(X)):
+            res = vex.eval(expr).dtype
+            before = launches()
+            k, p = _both(expr, n, res, gpu.device)
+            assert launches() == before + 1
+            if f == "nearest" or not (res.is_floating_point
+                                      or res.is_complex):
+                _bitwise(k, p)
+            elif res.is_complex:
+                _close(torch.view_as_real(k).reshape(-1),
+                       torch.view_as_real(p).reshape(-1), 4 * RTOL[
+                           torch.float32])
+            else:
+                _close(k, p, 4 * RTOL[torch.float32])

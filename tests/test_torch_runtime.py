@@ -189,3 +189,37 @@ def test_bicgstab_matches_jax_f64(ctx1, tctx):
     assert np.linalg.norm(x - xr) <= 1e-9 * np.linalg.norm(xr)
     r = b - TA._matvec(tx.storage).numpy()
     assert np.linalg.norm(r) <= 1e-9 * np.linalg.norm(b)
+
+
+def test_exclusive_filter_two_processes(tmp_path, monkeypatch):
+    """Filter.Exclusive (opencl/filter.hpp:214-330) as the JAX package's:
+    with one lock directory, the CPU device this process holds is not
+    selected by a second process, and is once this process releases it;
+    the lock files are keyed alike (the device's type and index)."""
+    import os
+    import subprocess
+    import sys
+
+    from vexcl_tpu_torch.context import release_exclusive_locks
+
+    monkeypatch.setenv("VEXTPU_LOCK_DIR", str(tmp_path))
+    mine = vt.Filter.Exclusive(vt.Filter.CPU).select(
+        [torch.device("cpu")])
+    assert mine == [torch.device("cpu")]
+    # held already: this process selects it again
+    c = vt.Context(vt.Filter.Exclusive(vt.Filter.CPU), set_current=False)
+    assert c.device == torch.device("cpu")
+    assert os.listdir(tmp_path) == ["vextpu_device_cpu_0.lock"]
+    child = ("import torch, vexcl_tpu_torch as vt\n"
+             "sel = vt.Filter.Exclusive(vt.Filter.CPU).select("
+             "[torch.device('cpu')])\n"
+             "print('GOT', len(sel))\n")
+    env = dict(os.environ, VEXTPU_LOCK_DIR=str(tmp_path))
+    runs = []
+    for _ in range(2):
+        out = subprocess.run([sys.executable, "-c", child], env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        runs.append(out.stdout.strip())
+        release_exclusive_locks()
+    assert runs == ["GOT 0", "GOT 1"]

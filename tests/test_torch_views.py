@@ -441,6 +441,55 @@ def test_setitem_with_index_array(ctx1, tctx):
         tx[np.array([-33])] = 0.0
 
 
+_ADV_DIMS = (6, 7, 5)
+_ADV_I = np.array([0, 5, -1, 9, -8, 2, 3])        # out of range: 9, -8
+_ADV_J = np.array([6, 0, 3, -2, 11, 1, 4])
+_ADV_KEYS = {
+    "array_int": lambda i, j, o, m: (i, 2),
+    "int_array": lambda i, j, o, m: (3, i),
+    "arrays_adjacent": lambda i, j, o, m: (i, j),
+    "arrays_adjacent_last": lambda i, j, o, m: (m._, i, o),
+    "arrays_separated": lambda i, j, o, m: (i, m._, o),
+    "int_separated": lambda i, j, o, m: (1, m._, i),
+    "array_int_array": lambda i, j, o, m: (i, 4, o),
+    "one_broadcast": lambda i, j, o, m: (o, j),
+    "range_array_int": lambda i, j, o, m: (m.r(1, 5), j, 3),
+}
+
+
+@pytest.mark.parametrize("key", sorted(_ADV_KEYS))
+@pytest.mark.parametrize("dt", [np.float64, np.int32])
+def test_slicer_advanced_keys(ctx1, tctx, key, dt):
+    """Index arrays beside integers and beside each other (numpy's
+    advanced indexing: broadcast together, their axis in place where they
+    are adjacent, first where a slice separates them), out-of-range
+    indices wrapped and clamped; against the JAX package and numpy."""
+    hx = np.random.default_rng(19).integers(-99, 99, 210).astype(dt)
+    jx, tx = _pair(hx, ctx1, tctx)
+    hk = [_ADV_I, _ADV_J, np.array([4])]
+    dims = _ADV_DIMS
+    ref_key = _ADV_KEYS[key](*hk, type("np_", (), {"_": slice(None),
+                                                   "r": _np_range}))
+    clamped = []
+    for d, part in zip(dims, ref_key):
+        if isinstance(part, np.ndarray):
+            part = np.clip(np.where(part < 0, part + d, part), 0, d - 1)
+        clamped.append(part)
+    want = hx.reshape(dims)[tuple(clamped)].ravel()
+    outs = []
+    for m, x, c in ((vex, jx, ctx1), (vt, tx, tctx)):
+        keys = [m.vector(data=a, context=c) for a in hk]
+        y = m.vector(want.size, dtype=dt, context=c)
+        y[:] = m.slicer(dims)[_ADV_KEYS[key](*keys, m)](x) * 2 + 1
+        outs.append(np.asarray(y.to_numpy() if m is vt else y))
+    _exact(outs[1], outs[0])
+    _exact(outs[1], want * 2 + 1)
+
+
+def _np_range(start, stop):
+    return slice(start, stop)
+
+
 @pytest.mark.parametrize("kind", ["add", "sub", "min", "max"])
 @pytest.mark.parametrize("dt", [np.float32, np.float64, np.int32, np.int64])
 def test_atomic_updates(ctx1, tctx, kind, dt):

@@ -26,7 +26,11 @@ reduction kernel, atomic updates through a permutation, ``tensordot``,
 the generated kernels ((re, im) pairs: ``conj``, ``real``, ``imag``,
 ``abs``), ``FFT``/``fft``/``ifft`` (cuFFT, or the ported Cooley-Tukey
 engine) and ``mba`` (a host fit, its evaluation fused into the
-assignment kernel).
+assignment kernel); every builtin of ``vexcl_tpu`` (integer helpers,
+``select``, the pairs, the geometric helpers), integer ``**`` and
+boolean arithmetic in the generated kernels, numpy's advanced indexing
+in slicer keys, ``image1d``/``image2d`` samples (their taps fused into
+the assignment kernel), ``svm_vector`` and ``Filter.Exclusive``.
 On CPU tensors every kernel's plain PyTorch version runs instead.  The default context
 is a CUDA device: the CPU runs where it is asked for (``Filter.CPU``,
 ``device="cpu"`` or ``VEXTPU_PLATFORM=cpu``).  This package imports neither ``jax`` nor ``vexcl_tpu``::
@@ -65,6 +69,7 @@ from .ops.sort import sort, sort_by_key
 from .ops.random import Random, RandomNormal
 from .ops.fft import FFT, fft, ifft
 from .ops.mba import mba
+from .ops.image import image1d, image2d, svm_vector
 from .expr.view import (MultiSliceView, PermutationView, ReducedView,
                         ReshapeView, SliceTerminal, _, permutation, r,
                         range_, reduce_view, reshape, slicer)
@@ -77,6 +82,7 @@ from .ops.logical import all_of, any_of
 from .vector import copy, partition
 from .profiler import profiler, stopwatch
 from . import backend, events, generator, interop
+from .generator import symbolic
 from .backend import CustomKernel
 from .events import enqueue, enqueue_barrier, enqueue_marker
 from .utils.util import ExpressionError, alignup, nextpow2, precondition

@@ -9,8 +9,11 @@ lives there.
 
 Dropped, with the TPU: the ``jax.sharding.Mesh`` and its shardings (a
 context spanning several devices is a later slice of the port), and the
-XLA compilation-cache setup.  ``Filter.Exclusive`` (cross-process device
-locks) is not ported yet.  Nothing here falls back to another device: a
+XLA compilation-cache setup.  ``Filter.Exclusive`` keeps the JAX
+package's cross-process device locks: ``flock`` files in
+``$VEXTPU_LOCK_DIR`` (or the temporary directory), one a device, keyed by
+its torch device type and index.  Nothing here falls back to another
+device: a
 filter that selects no device raises, and the default (``Context()``,
 ``current_context()``) selects CUDA devices only, so a host without a
 card runs on the CPU only where the caller asks for it.
@@ -18,13 +21,15 @@ card runs on the CPU only where the caller asks for it.
 
 from __future__ import annotations
 
+import atexit
 import os
 import re
 from typing import Callable, List, Optional, Sequence
 
 import torch
 
-__all__ = ["Filter", "Context", "current_context", "make_context"]
+__all__ = ["Filter", "Context", "current_context", "make_context",
+           "release_exclusive_locks"]
 
 
 def _devices() -> List[torch.device]:
@@ -152,6 +157,75 @@ class _Env(DeviceFilter):
         return out
 
 
+class _Exclusive(DeviceFilter):
+    """Cross-process exclusive device ownership through lock files
+    (opencl/filter.hpp:214-330, the VEXCL_LOCK_DIR analog).
+
+    A device passes only where this process takes (or already holds) an
+    exclusive ``flock`` on ``$VEXTPU_LOCK_DIR/vextpu_device_<type>_<index>
+    .lock``, so two processes that share a lock directory never select one
+    device.  The locks are held until ``release_exclusive_locks`` or the
+    process's exit; the kernel drops a ``flock`` when its holder dies, so
+    a stale lock file is harmless."""
+
+    def __init__(self, inner: DeviceFilter) -> None:
+        self.inner = inner
+
+    @staticmethod
+    def _lock_dir() -> str:
+        import tempfile
+
+        d = os.environ.get("VEXTPU_LOCK_DIR") or tempfile.gettempdir()
+        os.makedirs(d, exist_ok=True)
+        return d
+
+    @staticmethod
+    def _dev_key(dev: torch.device) -> str:
+        return f"{dev.type}_{dev.index or 0}"
+
+    def select(self, devices: Sequence) -> List:
+        import fcntl
+
+        out = []
+        lock_dir = self._lock_dir()
+        for dev in self.inner.select(devices):
+            key = self._dev_key(dev)
+            if key in _exclusive_locks:       # already this process's
+                out.append(dev)
+                continue
+            path = os.path.join(lock_dir, f"vextpu_device_{key}.lock")
+            try:
+                fd = os.open(path, os.O_RDWR | os.O_CREAT, 0o666)
+            except OSError:
+                continue                      # an unwritable lock directory
+            try:
+                fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+            except OSError:
+                os.close(fd)
+                continue                      # held by another process
+            _exclusive_locks[key] = fd
+            out.append(dev)
+        return out
+
+
+#: the device keys this process holds, and their lock files' descriptors
+_exclusive_locks: dict = {}
+
+
+def release_exclusive_locks() -> None:
+    """Release every ``Filter.Exclusive`` lock this process holds (the
+    reference frees them with their Context)."""
+    for key, fd in list(_exclusive_locks.items()):
+        try:
+            os.close(fd)                      # closing drops the flock
+        except OSError:
+            pass
+        del _exclusive_locks[key]
+
+
+atexit.register(release_exclusive_locks)
+
+
 class _FilterNamespace:
     """vex::Filter::* namespace object."""
 
@@ -187,6 +261,7 @@ class _FilterNamespace:
 
     Count = staticmethod(_Count)
     Position = staticmethod(_Position)
+    Exclusive = staticmethod(_Exclusive)
 
 
 Filter = _FilterNamespace()

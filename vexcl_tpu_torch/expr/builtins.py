@@ -14,24 +14,47 @@ kernel form)``:
   (promoted with a weak float, as ``sin(pi * x)``: ``sinpi`` of i32 is a
   weak f64, of f32 f32), ``"bool"`` (classification), ``"real"``
   (promote; a complex value gives the type of its parts: ``abs``,
-  ``real`` and ``imag`` of c64 are f32);
-* the PyTorch form gets its operands already cast to the compute type
-  and serves CPU tensors;
+  ``real`` and ``imag`` of c64 are f32), and the rules of one or a few
+  entries each (``node._result_code``): ``"int"`` (integer types only:
+  ``popcount``, ``add_sat``, ``mul_hi``, ...), ``"int_numeric"``
+  (``rotate``: booleans as i32), ``"select"`` (the condition apart),
+  ``"step"`` (x's type), ``"join_inexact"`` (``smoothstep``: differences
+  in the operands' type, the result inexact), ``"msb"`` (``any``,
+  ``all``: i32), ``"ilogb"`` (``ilogb``, ``frexp_exp``: i32 of an
+  inexact value), ``"nan"`` (f32), ``"gamma_sign"`` (the weak default
+  integer), ``"ldexp"`` (an integer exponent, as i64) and ``"upsample"``
+  (twice the high half's width: 8 to 16, 16 to 32, 32 to 64 bits);
+* the PyTorch form gets its operands already cast to their compute types
+  and serves CPU tensors; a form marked ``typed`` (the integer helpers)
+  takes the operands' codes and the result code first, and computes on
+  i64 values itself (PyTorch's CPU kernels lack most operations on u16,
+  u32 and u64);
 * the kernel form is the spelling in the generated Triton source, with
-  ``{0}``, ``{1}`` ... for the operands (``triton_emit.py`` defines the
-  few named forms such as ``"min"``).  ``libdevice`` is Triton's CUDA
+  ``{0}``, ``{1}`` ... for the operands, or the name of a form that
+  ``triton_emit.py`` defines (``"min"``, ``"popcount"``, ``"tgamma"``,
+  ...).  A kernel form spells its plain form's formula (``sinpi`` is
+  sin(pi x) in the compute type, ``tgamma`` the reflection formula), so
+  that the card holds the two within a few ulp; the integer helpers map to
+  libdevice where it computes the same thing (``mulhi``, ``popc``,
+  ``clz``, ``ilogb``, ``ldexp``).  ``libdevice`` is Triton's CUDA
   libdevice binding: ``tl.exp``, ``tl.sqrt`` and ``/`` lower to
   approximate PTX instructions in f32 on the installed Triton, so the
   kernel spells the correctly rounded libdevice functions.
 
-On complex values the kernel covers ``real``, ``imag``, ``conj``,
-``abs`` (the magnitude, ``libdevice.hypot``), ``sign`` (x/|x|) and the
-rounding of each part (``round``, ``rint``, ``nearbyint``) as (re, im) pairs
+Every entry has a kernel form for real types.  On complex values the
+kernel covers ``real``, ``imag``, ``conj``, ``abs`` (the magnitude,
+``libdevice.hypot``), ``sign`` (x/|x|) and the rounding of each part
+(``round``, ``rint``, ``nearbyint``) as (re, im) pairs
 (``triton_emit.Emitter.complex_op``); every other builtin of a complex
 value raises ``NotImplementedError`` on CUDA and computes on the CPU.
-A builtin whose kernel form is ``None`` computes on CPU tensors and raises
-``NotImplementedError`` (with its name) on CUDA tensors.  Entries of the
-JAX catalog that are not in this table are listed in ROADMAP.md.
+Where the JAX package computes another thing than OpenCL, the port
+computes OpenCL's definition (ROADMAP.md §3): ``mad_hi`` is
+``mul_hi(a, b) + c``, ``mul_hi`` and ``mad_sat`` of 64-bit integers
+take the full product, ``rotate`` shifts logically and ``ilogb(0)`` is
+INT_MIN.  ``sincos``, ``modf``, ``frexp``, ``remquo`` and ``lgamma_r``
+return pairs of expressions; ``dot``, ``length``, ``distance``,
+``normalize``, ``cross`` and ``shuffle``/``shuffle2`` work on the
+components of a multivector, a ``MultiExpr`` or a tuple.
 Applied to plain numbers or tensors a builtin computes eagerly (the
 VEX_DUAL_FUNCTOR behaviour, function.hpp:243): on tensors it returns a
 tensor; on plain Python numbers a Python number, computed in f64 or i64
@@ -42,12 +65,16 @@ or a multivector expression, it applies componentwise.
 
 from __future__ import annotations
 
+import builtins as _py
 import math
 from typing import Optional
 
 import torch
 
-from .node import Expr, FuncCall, as_expr, fmod, sign
+from ..types import code_of, dtype_of_code, scalar_code
+from .node import (_BINOPS, _CARRIER, _I64_MIN, _INT_WIDTH, Expr, FuncCall,
+                   _carried, _lshr64, _ult64, as_expr, fmod, plain_apply,
+                   sign)
 
 __all__ = ["builtin", "BUILTINS"]
 
@@ -64,23 +91,43 @@ class builtin:
     def kernel_form(self) -> Optional[str]:
         return self.entry[2]
 
+    @property
+    def nargs(self) -> int:
+        """The number of operands."""
+        return _ARITY.get(self.name, 1)
+
     def __call__(self, *args):
-        if any(getattr(a, "_multi", False) for a in args):
+        if len(args) != self.nargs:
+            raise TypeError(f"{self.name}() takes {self.nargs} operand"
+                            f"{'s' if self.nargs > 1 else ''} "
+                            f"({len(args)} given)")
+        # this module's globals hold the device functions ``any``, ``all``,
+        # ``min``, ``max`` and ``abs``: Python's own are ``_py.*``
+        if _py.any(getattr(a, "_multi", False) for a in args):
             from ..multivector import lift
 
             return lift(self, args)
-        if any(isinstance(a, Expr) or hasattr(a, "_as_terminal")
-               for a in args):
+        if _py.any(isinstance(a, Expr) or hasattr(a, "_as_terminal")
+                   for a in args):
             return FuncCall(self.name, self.entry, [as_expr(a) for a in args])
-        if all(type(a) in _WEAK for a in args):
+        typed = getattr(self.entry[1], "typed", False)
+        if _py.all(type(a) in _WEAK for a in args):
             # plain Python numbers: jnp computes them weakly typed (f64 in
             # 64-bit mode) and the result stays weak, so it comes back as a
             # Python number, which an expression takes as a weak scalar
+            if typed:
+                return plain_apply(self.name, self.entry, [
+                    torch.tensor(a, dtype=_WEAK[type(a)]) for a in args],
+                    [scalar_code(a) for a in args]).item()
             inexact = self.entry[0] in ("inexact", "float", "weak_inexact")
             vals = [torch.tensor(a, dtype=torch.float64 if inexact and type(
                 a) in (bool, int) else _WEAK[type(a)]) for a in args]
             return self.entry[1](*vals).item()
-        return self.entry[1](*[torch.as_tensor(a) for a in args])
+        vals = [torch.as_tensor(a) for a in args]
+        if typed:
+            return plain_apply(self.name, self.entry, vals,
+                               [code_of(v.dtype) for v in vals])
+        return self.entry[1](*vals)
 
     def __repr__(self):
         return f"<device function {self.name}>"
@@ -115,6 +162,335 @@ def _rootn(x, n):
     return sign(x) * torch.abs(x) ** (1.0 / n)
 
 
+def _select(codes, rc, a, b, c):
+    """jnp.where(c, b, a): c (a boolean) picks b."""
+    if codes[0] in _CARRIER:        # no unsigned where on the CPU
+        return _carried("where", torch.where, [b, a], codes[0], a.dtype, c)
+    return torch.where(c, b, a)
+
+
+_select.typed = True
+
+
+# ---------------------------------------------------------------------------
+# Integer helpers.  Their PyTorch forms compute on i64 tensors that hold
+# each operand's value (a u64 operand: its bits), with the width and the
+# signedness of its type (PyTorch's CPU kernels lack most operations on
+# u16, u32 and u64), and give the result back in its type.  Where the JAX
+# package computes another thing than OpenCL (ROADMAP.md §3), these
+# compute OpenCL's definition: ``mul_hi`` and ``mad_sat`` of 64-bit
+# integers from the full product, ``mad_hi`` as mul_hi(a, b) + c,
+# ``rotate`` by a logical shift.
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _typed(fn):
+    """Mark a PyTorch form that takes (operand codes, result code, *args)
+    (``node.plain_apply``)."""
+    fn.typed = True
+    return fn
+
+
+def _wide(t: torch.Tensor, code: str) -> torch.Tensor:
+    """An integer tensor of type ``code`` as i64 values (u64: its bits)."""
+    if t.dtype == torch.uint64:
+        return t.view(torch.int64)
+    return t.to(torch.int64)
+
+
+def _narrow(v: torch.Tensor, code: str) -> torch.Tensor:
+    """i64 values in the range of ``code`` (u64: bits) as that type."""
+    if code == "u64":
+        return v.view(torch.uint64)
+    return v.to(dtype_of_code(code))
+
+
+def _mask(w: int) -> int:
+    """The low ``w`` bits, as an i64 value (all 64: -1)."""
+    return -1 if w == 64 else (1 << w) - 1
+
+
+def _wrap(v: torch.Tensor, w: int, signed: bool) -> torch.Tensor:
+    """i64 values reduced modulo 2^w into a w-bit type's range."""
+    if w == 64:
+        return v
+    v = v & _mask(w)
+    if signed:
+        top = 1 << (w - 1)
+        v = (v ^ top) - top
+    return v
+
+
+def _lt(a: torch.Tensor, b: torch.Tensor, code: str) -> torch.Tensor:
+    """a < b for operands of type ``code`` (unsigned ones compared as
+    such)."""
+    if code in _CARRIER:
+        a, b = _wide(a, code), _wide(b, code)
+        if code == "u64":
+            return _ult64(a, b)
+    return a < b
+
+
+def _popcount64(v: torch.Tensor) -> torch.Tensor:
+    """The set bits of i64 words (SWAR; arithmetic shifts are masked)."""
+    v = v - ((v >> 1) & 0x5555555555555555)
+    v = (v & 0x3333333333333333) + ((v >> 2) & 0x3333333333333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F0F0F0F0F
+    return (v * 0x0101010101010101) >> 56
+
+
+def _bit_length64(v: torch.Tensor) -> torch.Tensor:
+    """The bit length of i64 words read as unsigned."""
+    n = torch.zeros_like(v)
+    for s in (32, 16, 8, 4, 2, 1):
+        t = _lshr64(v, s)
+        nz = t != 0
+        n = n + torch.where(nz, s, 0)
+        v = torch.where(nz, t, v)
+    return n + (v != 0).to(torch.int64)
+
+
+@_typed
+def _popcount(codes, rc, x):
+    w = _INT_WIDTH[codes[0]]
+    return _narrow(_popcount64(_wide(x, codes[0]) & _mask(w)), rc)
+
+
+@_typed
+def _clz(codes, rc, x):
+    w = _INT_WIDTH[codes[0]]
+    return _narrow(w - _bit_length64(_wide(x, codes[0]) & _mask(w)), rc)
+
+
+@_typed
+def _rotate(codes, rc, x, s):
+    """OpenCL rotate: x rotated left by s modulo its width."""
+    code = codes[0]
+    w = _INT_WIDTH[code]
+    v = _wide(x, code) & _mask(w)
+    k = _wide(s, code) & (w - 1)
+    r = (v << k) | _lshr64(v, (w - k) & (w - 1))
+    return _narrow(_wrap(r, w, code[0] == "i"), rc)
+
+
+def _limits(code: str):
+    info = torch.iinfo(dtype_of_code(code))
+    return info.min, info.max
+
+
+@_typed
+def _add_sat(codes, rc, a, b):
+    code = codes[0]
+    w, (lo, hi) = _INT_WIDTH[code], _limits(code)
+    a, b = _wide(a, code), _wide(b, code)
+    s = a + b                        # i64 arithmetic wraps
+    if w < 64:
+        return _narrow(s.clamp(lo, hi), rc)
+    if code == "u64":
+        return _narrow(torch.where(_ult64(s, a), -1, s), rc)
+    up = (a > 0) & (b > 0) & (s < 0)
+    dn = (a < 0) & (b < 0) & (s >= 0)
+    return _narrow(torch.where(up, hi, torch.where(dn, lo, s)), rc)
+
+
+@_typed
+def _sub_sat(codes, rc, a, b):
+    code = codes[0]
+    w, (lo, hi) = _INT_WIDTH[code], _limits(code)
+    a, b = _wide(a, code), _wide(b, code)
+    s = a - b
+    if w < 64:
+        return _narrow(s.clamp(lo, hi), rc)
+    if code == "u64":
+        return _narrow(torch.where(_ult64(a, b), 0, s), rc)
+    up = (a >= 0) & (b < 0) & (s < 0)
+    dn = (a < 0) & (b > 0) & (s >= 0)
+    return _narrow(torch.where(up, hi, torch.where(dn, lo, s)), rc)
+
+
+def _mul_hi64(a: torch.Tensor, b: torch.Tensor, signed: bool):
+    """The high word of the 128-bit product of i64 words (read as signed
+    or unsigned), from 32-bit halves."""
+    a0, a1 = a & _M32, _lshr64(a, 32)
+    b0, b1 = b & _M32, _lshr64(b, 32)
+    p01, p10 = a0 * b1, a1 * b0
+    mid = _lshr64(a0 * b0, 32) + (p01 & _M32) + (p10 & _M32)
+    hi = a1 * b1 + _lshr64(p01, 32) + _lshr64(p10, 32) + _lshr64(mid, 32)
+    if signed:
+        hi = hi - torch.where(a < 0, b, 0) - torch.where(b < 0, a, 0)
+    return hi
+
+
+def _mul_hi_wide(code: str, a: torch.Tensor, b: torch.Tensor):
+    """mul_hi of i64-held operands of type ``code``, as i64 values."""
+    w, signed = _INT_WIDTH[code], code[0] == "i"
+    if w == 64:
+        return _mul_hi64(a, b, signed)
+    p = a * b                        # exact, or (u32) its 64 bits
+    return p >> w if signed else _lshr64(p, w)
+
+
+@_typed
+def _mul_hi(codes, rc, a, b):
+    code = codes[0]
+    return _narrow(_mul_hi_wide(code, _wide(a, code), _wide(b, code)), rc)
+
+
+@_typed
+def _mad_hi(codes, rc, a, b, c):
+    code = codes[0]
+    hi = _mul_hi_wide(code, _wide(a, code), _wide(b, code))
+    return _narrow(_wrap(hi + _wide(c, code), _INT_WIDTH[code],
+                         code[0] == "i"), rc)
+
+
+@_typed
+def _mad_sat(codes, rc, a, b, c):
+    """a*b + c on the exact product, saturated to the type's range."""
+    code = codes[0]
+    w, (lo, hi) = _INT_WIDTH[code], _limits(code)
+    a, b, c = (_wide(t, code) for t in (a, b, c))
+    if w < 32 or code == "i32":
+        return _narrow((a * b + c).clamp(lo, hi), rc)
+    p = a * b                        # the low 64 bits of the product
+    s = p + c
+    carry = _ult64(s, p)             # an unsigned carry out of the sum
+    if code == "u32":
+        return _narrow(torch.where(carry | _ult64(_M32, s), _M32, s), rc)
+    if code == "u64":
+        over = (_mul_hi64(a, b, False) != 0) | carry
+        return _narrow(torch.where(over, -1, s), rc)
+    # i64: the 128-bit sum (hi:p) + (c >> 63 : c) fits 64 bits where its
+    # high word is the sign extension of its low one
+    top = _mul_hi64(a, b, True) + (c >> 63) + carry.to(torch.int64)
+    fits = top == (s >> 63)
+    return _narrow(torch.where(fits, s, torch.where(top < 0, _I64_MIN,
+                                                    hi)), rc)
+
+
+@_typed
+def _upsample(codes, rc, hi, lo):
+    """(hi << w) | lo in the type of twice hi's width w (lo already the
+    unsigned w-bit type)."""
+    w = _INT_WIDTH[codes[0]]
+    return _narrow((_wide(hi, codes[0]) << w) | _wide(lo, codes[1]), rc)
+
+
+@_typed
+def _msb(codes, rc, x):
+    """OpenCL's scalar any/all: 1 where x is below 0 (its sign bit; none
+    in unsigned and boolean types)."""
+    if x.dtype.is_floating_point or x.dtype.is_signed:
+        return (x < 0).to(torch.int32)
+    return torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+
+
+@_typed
+def _step(codes, rc, edge, x):
+    """0 where x < edge, else 1 (NaN: 1), in x's type."""
+    return (~_lt(x, edge, codes[0])).to(dtype_of_code(rc))
+
+
+def _magnitude(pick_ge: bool):
+    """maxmag (the operand of the larger magnitude, a on a tie) or minmag
+    (the smaller, a on a tie); booleans: or, and."""
+    @_typed
+    def form(codes, rc, a, b):
+        code = codes[0]
+        if code == "b1":
+            return (a | b) if pick_ge else (a & b)
+        if code in _CARRIER:
+            # unsigned: the magnitude is the value
+            wa, wb = _wide(a, code), _wide(b, code)
+            lt = _ult64(wa, wb) if code == "u64" else wa < wb
+            first = ~lt if pick_ge else lt | (wa == wb)
+            return _narrow(torch.where(first, wa, wb), rc)
+        ma, mb = torch.abs(a), torch.abs(b)
+        return torch.where(ma >= mb if pick_ge else ma <= mb, a, b)
+    return form
+
+
+def _one_below(dtype: torch.dtype) -> float:
+    """The largest value of ``dtype`` below 1."""
+    return 1.0 - torch.finfo(dtype).eps / 2
+
+
+def _fract(x):
+    """OpenCL fract: x - floor(x), at most the value below 1."""
+    return torch.minimum(x - torch.floor(x), torch.tensor(
+        _one_below(x.dtype), dtype=x.dtype, device=x.device))
+
+
+@_typed
+def _smoothstep(codes, rc, e0, e1, x):
+    """jnp's smoothstep: the differences in the operands' type (integers
+    wrap), the rest in the inexact type."""
+    sub, dt = _BINOPS["sub"], dtype_of_code(rc)
+    d = [plain_apply("sub", sub, [a, b], codes[:2]).to(dt)
+         for a, b in ((x, e0), (e1, e0))]
+    t = torch.clamp(d[0] / d[1], 0.0, 1.0)
+    return t * t * (3.0 - 2.0 * t)
+
+
+def _ilogb(x):
+    """OpenCL ilogb: the unbiased exponent; INT_MIN at 0 and NaN
+    (FP_ILOGB0, FP_ILOGBNAN as CUDA defines them), INT_MAX at infinity."""
+    e = torch.frexp(x).exponent - 1
+    e = torch.where((x == 0) | torch.isnan(x), -(1 << 31), e)
+    return torch.where(torch.isinf(x), (1 << 31) - 1, e)
+
+
+def _pow2(e: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """2^e (i64 e) in ``dtype`` from its bits: exact where representable,
+    a subnormal power included; 0 below, infinity above."""
+    bits, bias = {torch.float32: (23, 127),
+                  torch.float64: (52, 1023)}[dtype]
+    top = 2 * bias
+    ints = torch.where(e > -bias, (e.clamp(-bias + 1, bias) + bias) << bits,
+                       1 << (e + bias - 1 + bits).clamp(0, bits))
+    ints = torch.where(e < -bias + 1 - bits, 0, ints)
+    ints = torch.where(e > bias, (top + 1) << bits, ints)
+    itype = torch.int32 if dtype == torch.float32 else torch.int64
+    return ints.to(itype).view(dtype)
+
+
+def _ldexp(x, n):
+    """x * 2^n rounded once (OpenCL ldexp, libdevice's), as the JAX
+    package computes it on normal results: from frexp's mantissa, so that
+    no intermediate power overflows.  Half types go through f32."""
+    if x.dtype in (torch.float16, torch.bfloat16):
+        return _ldexp(x.float(), n).to(x.dtype)
+    m, e = torch.frexp(x)
+    e = e.to(torch.int64) + n.clamp(-100000, 100000)
+    # the exponent may overflow by one and still give a finite result
+    m = torch.where(e > 0, m * 2, m)
+    e = torch.where(e > 0, e - 1, e)
+    return torch.where(torch.isinf(x) | (x == 0), x, m * _pow2(e, x.dtype))
+
+
+def _frexp_mant(x):
+    return torch.frexp(x).mantissa
+
+
+def _frexp_exp(x):
+    return torch.frexp(x).exponent
+
+
+def _gamma_sign(x):
+    """The sign of gamma(x): 1 for x > 0 or an even floor, else -1."""
+    one = torch.ones(x.shape, dtype=torch.int64, device=x.device)
+    return torch.where((x > 0) | (torch.floor(x * 0.5) * 2 == torch.floor(x)),
+                       one, -one)
+
+
+@_typed
+def _nan(codes, rc, code):
+    return torch.full(code.shape, math.nan, dtype=torch.float32,
+                      device=code.device)
+
+
 def _parts(fn):
     """``fn`` of a real value; of a complex value, of each part (jnp.round
     and jnp.rint round the real and imaginary parts)."""
@@ -134,13 +510,14 @@ _CATALOG = {
     "acos": ("inexact", torch.acos, _ld("acos")),
     "atan": ("inexact", torch.atan, _ld("atan")),
     "atan2": ("inexact", torch.atan2, _ld("atan2", 2)),
-    "sinpi": ("weak_inexact", lambda x: torch.sin(math.pi * x), None),
-    "cospi": ("weak_inexact", lambda x: torch.cos(math.pi * x), None),
-    "tanpi": ("weak_inexact", lambda x: torch.tan(math.pi * x), None),
-    "asinpi": ("inexact", lambda x: torch.asin(x) / math.pi, None),
-    "acospi": ("inexact", lambda x: torch.acos(x) / math.pi, None),
-    "atanpi": ("inexact", lambda x: torch.atan(x) / math.pi, None),
-    "atan2pi": ("inexact", lambda y, x: torch.atan2(y, x) / math.pi, None),
+    "sinpi": ("weak_inexact", lambda x: torch.sin(math.pi * x), "pi:sin"),
+    "cospi": ("weak_inexact", lambda x: torch.cos(math.pi * x), "pi:cos"),
+    "tanpi": ("weak_inexact", lambda x: torch.tan(math.pi * x), "pi:tan"),
+    "asinpi": ("inexact", lambda x: torch.asin(x) / math.pi, "/pi:asin"),
+    "acospi": ("inexact", lambda x: torch.acos(x) / math.pi, "/pi:acos"),
+    "atanpi": ("inexact", lambda x: torch.atan(x) / math.pi, "/pi:atan"),
+    "atan2pi": ("inexact", lambda y, x: torch.atan2(y, x) / math.pi,
+                "/pi:atan2"),
     # hyperbolic
     "sinh": ("inexact", torch.sinh, _ld("sinh")),
     "cosh": ("inexact", torch.cosh, _ld("cosh")),
@@ -158,7 +535,7 @@ _CATALOG = {
     "log10": ("inexact", torch.log10, _ld("log10")),
     "log1p": ("inexact", torch.log1p, _ld("log1p")),
     "logb": ("inexact", lambda x: torch.floor(torch.log2(torch.abs(x))),
-             None),
+             "libdevice.floor(libdevice.log2(tl.abs({0})))"),
     # power / roots
     "pow": ("numeric", torch.pow, "pow"),
     "powr": ("numeric", torch.pow, "pow"),
@@ -167,7 +544,7 @@ _CATALOG = {
     "rsqrt": ("inexact", torch.rsqrt, _ld("rsqrt")),
     "cbrt": ("inexact", lambda x: sign(x) * torch.abs(x) ** (1.0 / 3),
              _ld("cbrt")),
-    "rootn": ("weak_inexact", _rootn, None),
+    "rootn": ("weak_inexact", _rootn, "rootn"),
     "hypot": ("inexact", torch.hypot, _ld("hypot", 2)),
     # rounding (integers pass through, as with jnp; rint and nearbyint
     # cast them to the default float type; a complex value rounds each
@@ -183,9 +560,10 @@ _CATALOG = {
     "abs": ("real", torch.abs, "tl.abs({0})"),
     "sign": ("join", sign, "sign"),
     "fmod": ("numeric", fmod, "fmod"),
-    "remainder": ("inexact", lambda x, y: x - torch.round(x / y) * y, None),
+    "remainder": ("inexact", lambda x, y: x - torch.round(x / y) * y,
+                  "({0} - libdevice.rint(libdevice.div_rn({0}, {1})) * {1})"),
     "copysign": ("inexact", torch.copysign, _ld("copysign", 2)),
-    "nextafter": ("inexact", torch.nextafter, None),
+    "nextafter": ("inexact", torch.nextafter, _ld("nextafter", 2)),
     "fdim": ("join", lambda a, b: torch.maximum(a - b, torch.zeros_like(a)),
              "max0"),
     "abs_diff": ("join", lambda a, b: torch.abs(a - b), "tl.abs({0} - {1})"),
@@ -198,22 +576,27 @@ _CATALOG = {
               lambda x, lo, hi: torch.minimum(torch.maximum(x, lo), hi),
               "clamp"),
     "mix": ("join", lambda x, y, a: x + (y - x) * a, "({0} + ({1} - {0}) * {2})"),
+    "step": ("step", _step, "step"),
+    "smoothstep": ("join_inexact", _smoothstep, "smoothstep"),
+    "maxmag": ("join", _magnitude(True), "maxmag"),
+    "minmag": ("join", _magnitude(False), "minmag"),
     # fused / fast arithmetic
     "mad": ("join", lambda a, b, c: a * b + c, "({0} * {1} + {2})"),
     "fma": ("join", lambda a, b, c: a * b + c, "({0} * {1} + {2})"),
     "mad24": ("join", lambda a, b, c: a * b + c, "({0} * {1} + {2})"),
     "mul24": ("join", lambda a, b: a * b, "({0} * {1})"),
+    "mad_hi": ("int", _mad_hi, "mad_hi"),
     # special functions
     "erf": ("inexact", torch.erf, _ld("erf")),
     "erfc": ("inexact", torch.erfc, _ld("erfc")),
     "lgamma": ("inexact", torch.lgamma, _ld("lgamma")),
-    "tgamma": ("inexact", _tgamma, None),
+    "tgamma": ("inexact", _tgamma, "tgamma"),
     # classification
     "isnan": ("bool", torch.isnan, "({0} != {0})"),
     "isinf": ("bool", torch.isinf, "(tl.abs({0}) == float('inf'))"),
     "isfinite": ("bool", torch.isfinite, "(tl.abs({0}) < float('inf'))"),
-    "isnormal": ("bool", lambda x: torch.isfinite(x) & (x != 0), None),
-    "signbit": ("bool", torch.signbit, "(libdevice.signbit({0}) != 0)"),
+    "isnormal": ("bool", lambda x: torch.isfinite(x) & (x != 0), "isnormal"),
+    "signbit": ("bool", torch.signbit, "signbit"),
     "isequal": ("bool", torch.eq, "({0} == {1})"),
     "isnotequal": ("bool", torch.ne, "({0} != {1})"),
     "isgreater": ("bool", torch.gt, "({0} > {1})"),
@@ -225,11 +608,15 @@ _CATALOG = {
                   "(({0} == {0}) & ({1} == {1}))"),
     "isunordered": ("bool", lambda a, b: torch.isnan(a) | torch.isnan(b),
                     "(({0} != {0}) | ({1} != {1}))"),
-    # conversions
-    "degrees": ("inexact", torch.rad2deg, None),
-    "radians": ("inexact", torch.deg2rad, None),
-    # selection
-    "select": ("join", lambda a, b, c: torch.where(c != 0, b, a), None),
+    # conversions / bit operations
+    "degrees": ("inexact", torch.rad2deg, "degrees"),
+    "radians": ("inexact", torch.deg2rad, "radians"),
+    "ldexp": ("ldexp", _ldexp, "ldexp"),
+    "popcount": ("int", _popcount, "popcount"),
+    "clz": ("int", _clz, "clz"),
+    "rotate": ("int_numeric", _rotate, "rotate"),
+    # selection (jnp.where(c, b, a): c is not promoted with a and b)
+    "select": ("select", _select, "tl.where({2}, {1}, {0})"),
     "bitselect": ("join", lambda a, b, c: (a & ~c) | (b & c),
                   "(({0} & ~{2}) | ({1} & {2}))"),
     # complex parts (jnp.real, jnp.imag, jnp.conj; a real value is its own
@@ -237,17 +624,162 @@ _CATALOG = {
     "real": ("real", torch.real, "real"),
     "imag": ("real", _imag, "imag"),
     "conj": ("join", _conj, "conj"),
-    # integer helpers
+    # saturating / carry-less integer arithmetic
     "hadd": ("join", lambda a, b: (a & b) + ((a ^ b) >> 1),
              "(({0} & {1}) + (({0} ^ {1}) >> 1))"),
     "rhadd": ("join", lambda a, b: (a | b) - ((a ^ b) >> 1),
               "(({0} | {1}) - (({0} ^ {1}) >> 1))"),
+    "add_sat": ("int", _add_sat, "add_sat"),
+    "sub_sat": ("int", _sub_sat, "sub_sat"),
+    "mad_sat": ("int", _mad_sat, "mad_sat"),
+    "mul_hi": ("int", _mul_hi, "mul_hi"),
+    "upsample": ("upsample", _upsample, "upsample"),
+    "__popc": ("int", _popcount, "popcount"),
+    "__popcll": ("int", _popcount, "popcount"),
+    # scalar any/all (the sign bit, OpenCL's relational chapter)
+    "any": ("msb", _msb, "msb"),
+    "all": ("msb", _msb, "msb"),
+    # float decomposition and classification
+    "fract": ("inexact", _fract, "fract"),
+    "ilogb": ("ilogb", _ilogb, "ilogb"),
+    "nan": ("nan", _nan, "nan"),
+}
+
+#: catalog entries that are not module names (the JAX package's hidden
+#: entries, reached through ``frexp`` and ``lgamma_r``)
+_HIDDEN = {
+    "frexp_mant": ("inexact", _frexp_mant, "frexp_mant"),
+    "frexp_exp": ("ilogb", _frexp_exp, "frexp_exp"),
+    "gamma_sign": ("gamma_sign", _gamma_sign, "gamma_sign"),
+}
+
+#: the number of operands of the entries that take more than one
+_ARITY = {
+    "atan2": 2, "atan2pi": 2, "pow": 2, "powr": 2, "pown": 2, "rootn": 2,
+    "hypot": 2, "fmod": 2, "remainder": 2, "copysign": 2, "nextafter": 2,
+    "fdim": 2, "abs_diff": 2, "fmin": 2, "fmax": 2, "min": 2, "max": 2,
+    "clamp": 3, "mix": 3, "step": 2, "smoothstep": 3, "maxmag": 2,
+    "minmag": 2, "mad": 3, "fma": 3, "mad24": 3, "mul24": 2, "mad_hi": 3,
+    "isequal": 2, "isnotequal": 2, "isgreater": 2, "isgreaterequal": 2,
+    "isless": 2, "islessequal": 2, "islessgreater": 2, "isordered": 2,
+    "isunordered": 2, "ldexp": 2, "rotate": 2, "select": 3,
+    "bitselect": 3, "hadd": 2, "rhadd": 2, "add_sat": 2, "sub_sat": 2,
+    "mad_sat": 3, "mul_hi": 2, "upsample": 2,
 }
 
 BUILTINS = {name: builtin(name, entry) for name, entry in _CATALOG.items()}
 
 globals().update(BUILTINS)
 __all__ += list(BUILTINS)
+BUILTINS.update((name, builtin(name, entry))
+                for name, entry in _HIDDEN.items())
 
-#: builtins that have a spelling in the CUDA expression kernel
-KERNEL_BUILTINS = tuple(n for n, e in _CATALOG.items() if e[2] is not None)
+#: builtins that have a spelling in the CUDA expression kernel: all
+KERNEL_BUILTINS = tuple(BUILTINS)
+
+
+# -- multi-output builtins (OpenCL's pointer-argument forms): pairs of
+# expressions, fused into one kernel by ``tie`` or a multivector ----------
+
+
+def sincos(x):
+    """OpenCL sincos(x, &c): (sin(x), cos(x))."""
+    return BUILTINS["sin"](x), BUILTINS["cos"](x)
+
+
+def modf(x):
+    """(fractional, integral) parts, both with x's sign."""
+    ip = BUILTINS["trunc"](x)
+    return x - ip, ip
+
+
+def frexp(x):
+    """(mantissa in +-[0.5, 1), integer exponent)."""
+    return BUILTINS["frexp_mant"](x), BUILTINS["frexp_exp"](x)
+
+
+def remquo(x, y):
+    """(remainder(x, y), the quotient rounded to nearest)."""
+    return BUILTINS["remainder"](x, y), BUILTINS["rint"](x / y)
+
+
+def lgamma_r(x):
+    """(lgamma(x), the sign of gamma(x))."""
+    return BUILTINS["lgamma"](x), BUILTINS["gamma_sign"](x)
+
+
+__all__ += ["sincos", "modf", "frexp", "remquo", "lgamma_r"]
+
+
+# -- geometric builtins over the components of a multivector, a
+# MultiExpr or a tuple of expressions (OpenCL's geometric chapter on
+# cl_vectorN) --------------------------------------------------------------
+
+
+def _components(v):
+    if getattr(v, "_multi", False):
+        from ..multivector import parts
+
+        return parts(v)
+    if isinstance(v, (tuple, list)):
+        return [as_expr(a) for a in v]
+    return [as_expr(v)]
+
+
+def _multi(components):
+    from ..multivector import MultiExpr
+
+    return MultiExpr(components)
+
+
+def dot(a, b):
+    """The components' dot product: one expression (not a matrix
+    product)."""
+    pa, pb = _components(a), _components(b)
+    if len(pa) != len(pb):
+        raise ValueError("dot: component counts differ")
+    acc = None
+    for x, y in zip(pa, pb):
+        acc = x * y if acc is None else acc + x * y
+    return acc
+
+
+def length(a):
+    return BUILTINS["sqrt"](dot(a, a))
+
+
+def distance(a, b):
+    return length(_multi([x - y for x, y in zip(_components(a),
+                                                 _components(b))]))
+
+
+def normalize(a):
+    inv = BUILTINS["rsqrt"](dot(a, a))
+    return _multi([x * inv for x in _components(a)])
+
+
+def cross(a, b):
+    (a0, a1, a2), (b0, b1, b2) = _components(a), _components(b)
+    return _multi([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0])
+
+
+fast_length = length
+fast_distance = distance
+fast_normalize = normalize
+
+
+def shuffle(x, mask):
+    """OpenCL shuffle with a static component mask: components of x in
+    the mask's order (a per-element index is a gather: ``permutation``)."""
+    p = _components(x)
+    return _multi([p[int(i)] for i in mask])
+
+
+def shuffle2(x, y, mask):
+    p = _components(x) + _components(y)
+    return _multi([p[int(i)] for i in mask])
+
+
+__all__ += ["dot", "length", "distance", "normalize", "cross",
+            "fast_length", "fast_distance", "fast_normalize",
+            "shuffle", "shuffle2"]

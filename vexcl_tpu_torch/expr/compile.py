@@ -114,7 +114,7 @@ def _reach(exprs: Sequence[Expr], analysis: Analysis, n: Optional[int]):
     over, by slot; the slots read beneath a view, at indices other than
     the element's own; the largest length reached).  A view's length must
     be its context's, or 1 (it broadcasts)."""
-    from .view import PermutationView, _View
+    from .view import _View
 
     need: Dict[int, set] = {}
     gathered = set()
@@ -139,8 +139,9 @@ def _reach(exprs: Sequence[Expr], analysis: Analysis, n: Optional[int]):
         for i, (c, cm) in enumerate(zip(node.children,
                                         node.child_sizes(m))):
             top = max(top, cm or 0)
-            # a permutation's index is read at the element's own index
-            own = not view or (isinstance(node, PermutationView) and i == 1)
+            # a permutation's index (an image's coordinates) is read at
+            # the element's own index
+            own = not view or i in node.own_children
             stack.append((c, cm, under or not own))
     return need, gathered, top
 

@@ -181,6 +181,9 @@ class Expr:
     #: a method on nodes that can write their value straight into a
     #: target (``compile.evaluate``): the value's type, or None
     direct_dtype = None
+    #: (BLOCK, warps) that an assignment kernel over this node launches
+    #: with (``triton_emit.launch_shape``), or None for the default
+    kernel_shape: Optional[Tuple[int, int]] = None
 
     # -- structural signature ---------------------------------------------
     def extra_sig(self) -> str:
@@ -405,7 +408,9 @@ class Expr:
 # "bool" = comparisons, "real" = promoted, the result the type of a complex
 # value's parts (``jnp.abs``, ``jnp.real``: c64 -> f32).  The PyTorch and
 # kernel forms receive operands already cast to the compute type (the
-# promoted operand type).
+# promoted operand type; ``_arg_codes`` names the few operands cast to
+# another).  The builtin catalog adds rules of a few entries each
+# (``builtins.py``).
 # ---------------------------------------------------------------------------
 
 
@@ -513,8 +518,6 @@ _BINOPS: Dict[str, Tuple[str, Any, Optional[str]]] = {
     "copysign": ("inexact", torch.copysign, "libdevice.copysign({0}, {1})"),
     "fdim": ("join", lambda a, b: torch.maximum(a - b, torch.zeros_like(a)),
              "max0"),
-    "ldexp": ("inexact", lambda a, b: torch.ldexp(a, b).to(a.dtype), None),
-    "nextafter": ("inexact", torch.nextafter, None),
     "logical_and": ("bool", torch.logical_and, "(({0} != 0) & ({1} != 0))"),
     "logical_or": ("bool", torch.logical_or, "(({0} != 0) | ({1} != 0))"),
 }
@@ -527,21 +530,39 @@ _UNOPS: Dict[str, Tuple[str, Any, Optional[str]]] = {
 }
 
 
+_INT_WIDTH = {"u8": 8, "i8": 8, "u16": 16, "i16": 16, "u32": 32, "i32": 32,
+              "u64": 64, "i64": 64, "i*": 64}
+
+
+def _integer(code: str, what: str) -> str:
+    if code not in _INT_WIDTH:
+        raise TypeError(f"{what} takes integer operands, not "
+                        f"{dtype_of_code(code)}")
+    return code
+
+
 def _result_code(rule: str, codes: List[str]) -> Tuple[str, str]:
     """(compute code, result code) of an operator under ``rule``."""
+    if rule == "select":
+        # jnp.where(c, b, a): the condition is not promoted with a and b
+        codes = codes[:2]
     c = codes[0]
     for o in codes[1:]:
         c = join(c, o)
     if rule == "inexact":
         c = to_inexact(c)
         return c, c
+    if rule == "join_inexact":
+        # operands in their promoted type, the result inexact
+        return c, to_inexact(c)
     if rule == "float":
         c = to_float(c)
         return c, c
-    if rule == "weak_inexact":
+    if rule in ("weak_inexact", "gamma_sign"):
         c = join(c, "f*")
-        return c, c
-    if rule == "join_real" and c in COMPLEX_CODES:
+        return c, "i*" if rule == "gamma_sign" else c
+    if rule in ("join_real", "msb", "ilogb", "ldexp") and \
+            c in COMPLEX_CODES:
         raise TypeError(f"no {dtype_of_code(c)} operand is accepted here "
                         "(integer and float types only)")
     if rule == "bool":
@@ -550,7 +571,47 @@ def _result_code(rule: str, codes: List[str]) -> Tuple[str, str]:
         return c, real_code(c)
     if rule == "numeric" and c == "b1":
         return "i32", "i32"
+    if rule == "int":
+        return _integer(c, "this builtin"), c
+    if rule == "int_numeric":
+        c = "i32" if c == "b1" else _integer(c, "rotate")
+        return c, c
+    if rule == "step":
+        # jnp.where(x < edge, 0.0, 1.0).astype(result_type(x))
+        return c, codes[-1]
+    if rule == "msb":
+        return codes[0], "i32"
+    if rule == "ilogb":
+        return to_inexact(codes[0]), "i32"
+    if rule == "nan":
+        return codes[0], "f32"
+    if rule == "ldexp":
+        if codes[1] not in _INT_WIDTH and codes[1] != "b1":
+            raise TypeError("ldexp takes an integer exponent, not "
+                            f"{dtype_of_code(codes[1])}")
+        c = to_inexact(codes[0])
+        return c, c
+    if rule == "upsample":
+        hi = codes[0]
+        if _INT_WIDTH.get(hi, 64) == 64 or codes[1] not in _INT_WIDTH:
+            raise TypeError("upsample takes 8-, 16- or 32-bit integers")
+        wide = {8: "16", 16: "32", 32: "64"}[_INT_WIDTH[hi]]
+        return hi, hi[0] + wide
     return c, c
+
+
+def _arg_codes(rule: str, codes: List[str], cc: str) -> List[str]:
+    """The code each operand is cast to before the operator's forms see
+    it: the compute code, except the condition of ``select`` (a boolean),
+    the exponent of ``ldexp`` (i64) and the low half of ``upsample`` (the
+    unsigned type of the high half's width)."""
+    if rule == "select":
+        return [cc, cc, "b1"]
+    if rule == "ldexp":
+        return [cc, "i64"]
+    if rule == "upsample":
+        return [cc, "u" + cc[1:]]
+    return [cc] * len(codes)
 
 
 # ---------------------------------------------------------------------------
@@ -618,6 +679,8 @@ def _u64_form(op: str, fn, args: List[torch.Tensor]) -> torch.Tensor:
         return torch.where(args[1] == 0, -1, q)
     if op == "shr":
         return _lshr64(*args)
+    if op == "signbit":
+        return torch.zeros_like(args[0], dtype=torch.bool)
     if op in ("abs", "fabs"):
         return args[0]
     if op == "sign":
@@ -656,6 +719,29 @@ def _carried(op: str, fn, args: List[torch.Tensor], cc: str,
     return r.to(out) if r.dtype == torch.bool else (r & mask).to(out)
 
 
+def plain_apply(op: str, entry, vals: List[torch.Tensor],
+                codes: List[str]) -> torch.Tensor:
+    """The PyTorch form of ``entry`` (a catalog or operator entry) over
+    ``vals`` of type ``codes``: each operand cast to its compute type
+    (``_arg_codes``), the result in the rule's result type.  A form
+    marked ``typed`` takes the operands' codes and the result code first
+    and handles unsigned types itself."""
+    rule, fn = entry[0], entry[1]
+    cc, rc = _result_code(rule, codes)
+    acs = _arg_codes(rule, codes, cc)
+    args = [v.to(dtype_of_code(c)) for v, c in zip(vals, acs)]
+    out = dtype_of_code(rc)
+    if getattr(fn, "typed", False):
+        return fn(acs, rc, *args)
+    if op == "fmod" and all(c == "b1" for c in codes):
+        return fmod_bool(*args).to(out)
+    if cc in _CARRIER:
+        return _carried(op, fn, args, cc, out)
+    if cc == "b1" and op in ("abs", "fabs"):
+        return args[0]                  # jnp.abs of booleans
+    return fn(*args).to(out)
+
+
 class _Op(Expr):
     """Shared body of operator and builtin-call nodes."""
 
@@ -667,50 +753,37 @@ class _Op(Expr):
     def _infer(self, child_codes):
         return _result_code(self._entry()[0], child_codes)[1]
 
-    def _compute_code(self, types) -> str:
-        return _result_code(self._entry()[0],
-                            [types[id(c)] for c in self.children])[0]
-
-    def _fmod_bool(self, types) -> bool:
-        """``fmod`` of two booleans, which keeps a zero divisor."""
-        return self.op == "fmod" and all(types[id(c)] == "b1"
-                                         for c in self.children)
+    def _codes(self, types):
+        """(each operand's compute code, the compute code, the result
+        code)."""
+        rule = self._entry()[0]
+        codes = [types[id(c)] for c in self.children]
+        cc, rc = _result_code(rule, codes)
+        return _arg_codes(rule, codes, cc), cc, rc
 
     def emit(self, env: EmitEnv):
-        cc = self._compute_code(env.types)
-        args = [env.cast(c, cc) for c in self.children]
-        out = dtype_of_code(env.types[id(self)])
-        if self._fmod_bool(env.types):
-            return fmod_bool(*args).to(out)
-        if cc in _CARRIER:
-            return _carried(self.op, self._entry()[1], args, cc, out)
-        if cc == "b1" and self.op in ("abs", "fabs"):
-            return args[0]                  # jnp.abs of booleans
-        return self._entry()[1](*args).to(out)
+        return plain_apply(self.op, self._entry(),
+                           [c.emit_cached(env) for c in self.children],
+                           [env.types[id(c)] for c in self.children])
 
     def emit_src(self, em) -> str:
-        cc = self._compute_code(em.types)
+        acs, cc, rc = self._codes(em.types)
         if cc == "b1" and self.op in ("abs", "fabs"):
             return em.value(self.children[0])     # jnp.abs of booleans
-        form = "fmod_bool" if self._fmod_bool(em.types) else self._entry()[2]
+        fmod_bool = self.op == "fmod" and all(
+            em.types[id(c)] == "b1" for c in self.children)
+        form = "fmod_bool" if fmod_bool else self._entry()[2]
+        args = [em.cast(em.value(c), em.types[id(c)], a)
+                for c, a in zip(self.children, acs)]
         if cc in COMPLEX_CODES:
             # (re, im) pairs: the emitter's complex forms, or it raises
-            args = [em.cast(em.value(c), em.types[id(c)], cc)
-                    for c in self.children]
             return em.complex_op(self.op, args, cc)
-        if form is None:
-            raise NotImplementedError(
-                f"{self._kind} {self.op!r} is not covered by the CUDA "
-                "expression kernel")
-        args = [em.cast(em.value(c), em.types[id(c)], cc)
-                for c in self.children]
-        return em.define(em.apply(form, args, cc, self.op))
+        return em.define(em.apply(form, args, cc, self.op, rc))
 
 
 class BinOp(_Op):
     _opname = "b"
     _table = _BINOPS
-    _kind = "operator"
 
     def __init__(self, op: str, a: Expr, b: Expr):
         self.op = op
@@ -723,7 +796,6 @@ class BinOp(_Op):
 class UnOp(_Op):
     _opname = "u"
     _table = _UNOPS
-    _kind = "operator"
 
     def __init__(self, op: str, a: Expr):
         self.op = op
@@ -732,15 +804,6 @@ class UnOp(_Op):
     def extra_sig(self) -> str:
         return self.op
 
-    def _infer(self, child_codes):
-        rule = self._entry()[0]
-        if rule == "bool":
-            return "b1"
-        return real_code(child_codes[0]) if rule == "real" else child_codes[0]
-
-    def _compute_code(self, types) -> str:
-        return types[id(self.children[0])]
-
 
 class FuncCall(_Op):
     """Application of a builtin device function (builtins.py).  Its
@@ -748,7 +811,6 @@ class FuncCall(_Op):
     spelling in the kernel source."""
 
     _opname = "f"
-    _kind = "builtin"
 
     def __init__(self, name: str, entry, args: Sequence[Expr]):
         self.op = name

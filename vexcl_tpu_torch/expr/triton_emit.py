@@ -63,8 +63,14 @@ Every node is cast to the type the port inferred for it (``types.py``
 follows the JAX package's promotion, not Triton's), scalar leaves are
 passed in their own type (a Python float is passed as its 64 bits, since
 Triton would pass it as f32), and integer ``//`` and ``%`` are corrected
-to floor semantics (Triton's are C's).  A node or builtin outside this
-coverage raises ``NotImplementedError`` on CUDA.
+to floor semantics (Triton's are C's).  Integer ``**`` is PyTorch's
+``powi``: square and multiply over the exponent's bits in the compute
+type, wrapping, while any exponent of the block has bits left.  Booleans compute what PyTorch
+computes on them: ``+`` is or and ``*`` is and (the form in i32 tested
+against 0), orders compare 0 and 1, and ``-`` and unary ``-`` raise
+TypeError.  A node outside this coverage (complex values beyond the
+forms above, types without a Triton type) raises
+``NotImplementedError`` on CUDA.
 
 The kernel is bound by device memory bandwidth: it reads each leaf once
 and writes each destination once, one 16-byte access per thread per leaf
@@ -77,6 +83,7 @@ for CPU tensors.
 
 from __future__ import annotations
 
+import math
 import struct
 from typing import Dict, List, Sequence, Tuple
 
@@ -89,7 +96,7 @@ from ..config import config
 from ..ops import cuda_gather, cuda_scatter
 from ..types import (COMPLEX_CODES, code_of, dtype_of_code, real_code,
                      scalar_code)
-from .node import (Analysis, ArrayTerminal, BinOp, CastExpr,
+from .node import (_INT_WIDTH, Analysis, ArrayTerminal, BinOp, CastExpr,
                    ConstantTerminal, EmitEnv, Expr, ScalarTerminal, UnOp,
                    VectorTerminal)
 
@@ -514,25 +521,36 @@ class Emitter:
         return self.temps[key]
 
     # -- operators --------------------------------------------------------
-    def apply(self, form: str, args: List[str], cc: str, op: str) -> str:
-        """Expression text of ``form`` over ``args`` in compute type cc."""
+    def apply(self, form: str, args: List[str], cc: str, op: str,
+              rc: str = None) -> str:
+        """Expression text of ``form`` over ``args`` in compute type cc,
+        giving a value of the result type ``rc`` (cc where omitted)."""
+        rc = rc or cc
         if any(isinstance(a, tuple) for a in args):
             raise NotImplementedError(
                 f"{op!r} on a complex value is not covered by the CUDA "
                 "expression kernel")
-        if cc == "b1" and op in _ARITH:
-            raise NotImplementedError(
-                f"{op!r} on booleans is not covered by the CUDA expression "
-                "kernel")
+        if cc == "b1":
+            if op in _BOOL_REFUSED:
+                raise TypeError(f"{op!r} does not accept booleans")
+            if op in _BOOL_LOGIC or op in _BOOL_ORDER:
+                # PyTorch's and jnp's booleans: + is or, * is and, as the
+                # form's value in i32 tested against 0; an order compares
+                # them as 0 and 1
+                v = form.format(*[f"{a}.to(tl.int32)" for a in args])
+                return v if op in _BOOL_ORDER else f"({v} != 0)"
         named = _NAMED.get(form)
         half = cc in ("bf16", "f16")
         if half and (named is not None or "libdevice." in form):
-            # libdevice has no 16-bit forms: compute in f32, round back
-            args = [f"{a}.to(tl.float32)" for a in args]
-            inner = named(self, args, "f32") if named else form.format(*args)
-            return f"({inner}).to({tl_type(cc)})"
+            # libdevice has no 16-bit forms: compute in f32, round back a
+            # result of the 16-bit type (ldexp's exponent is an integer)
+            args = [a if op == "ldexp" and i == 1 else f"{a}.to(tl.float32)"
+                    for i, a in enumerate(args)]
+            inner = named(self, args, "f32", "f32" if rc == cc else rc) \
+                if named else form.format(*args)
+            return f"({inner}).to({tl_type(rc)})" if rc == cc else inner
         if named is not None:
-            return named(self, args, cc)
+            return named(self, args, cc, rc)
         if "libdevice." in form and not _is_float(cc):
             raise NotImplementedError(
                 f"{op!r} on {dtype_of_code(cc)} is not covered by the CUDA "
@@ -598,7 +616,15 @@ class Emitter:
             "expression kernel")
 
 
-_ARITH = ("add", "sub", "mul", "div", "floordiv", "mod", "pow", "neg")
+#: operators on booleans computed as their plain forms compute them (+
+#: is or, * is and): the form's value in i32 tested against 0
+_BOOL_LOGIC = ("add", "mul", "mad", "fma", "mad24", "mul24", "hadd")
+#: orders, compared on booleans as 0 and 1
+_BOOL_ORDER = ("lt", "le", "gt", "ge", "isgreater", "isgreaterequal",
+               "isless", "islessequal")
+#: operators PyTorch refuses on booleans
+_BOOL_REFUSED = ("sub", "neg", "mix", "fdim", "abs_diff", "rhadd", "sign",
+                 "smoothstep")
 
 
 def _divisor(em: Emitter, b: str, cc) -> str:
@@ -610,7 +636,7 @@ def _divisor(em: Emitter, b: str, cc) -> str:
     return em.define(f"tl.where({bad}, 1, {b})")
 
 
-def _floordiv(em: Emitter, args, cc) -> str:
+def _floordiv(em: Emitter, args, cc, rc=None) -> str:
     a, b = args
     if _is_float(cc):
         # jnp's _float_divmod: fmod-based, quotient rounded half away
@@ -634,7 +660,7 @@ def _floordiv(em: Emitter, args, cc) -> str:
             f"({b} == 0)), {q} - 1, {q})")
 
 
-def _mod(em: Emitter, args, cc) -> str:
+def _mod(em: Emitter, args, cc, rc=None) -> str:
     a, b = args
     if _is_float(cc):
         r = em.define(f"libdevice.fmod({a}, {b})")
@@ -647,26 +673,48 @@ def _mod(em: Emitter, args, cc) -> str:
     return f"tl.where(({r} != 0) & (({r} < 0) != ({b} < 0)), {r} + {b}, {r})"
 
 
-def _pow(em: Emitter, args, cc) -> str:
-    if not _is_float(cc):
-        raise NotImplementedError("integer pow is not covered by the CUDA "
-                                  "expression kernel")
-    return f"libdevice.pow({args[0]}, {args[1]})"
+def _pow(em: Emitter, args, cc, rc=None) -> str:
+    if _is_float(cc):
+        return f"libdevice.pow({args[0]}, {args[1]})"
+    return _ipow(em, args, cc)
 
 
-def _fmod(em: Emitter, args, cc) -> str:
+def _ipow(em: Emitter, args, cc) -> str:
+    """Integer a ** b as PyTorch's ``powi``: square and multiply over the
+    bits of b in the compute type (wrapping), the block looping while any
+    of its exponents has bits left; a negative b gives 1 for a == 1, +-1
+    for a == -1 by b's parity, else 0."""
+    a, b = args
+    ty = tl_type(cc)
+    zeros = f"tl.zeros([BLOCK], {ty})"
+    r = em.define(f"tl.full([BLOCK], 1, {ty})")
+    p = em.define(f"{a} + {zeros}")
+    e = em.define(f"{b} + {zeros}" if not _is_signed(cc)
+                  else f"tl.where({b} < 0, 0, {b}) + {zeros}")
+    em.lines += [f"while tl.max({e}, axis=0) > 0:",
+                 f"    {r} = tl.where(({e} & 1) != 0, {r} * {p}, {r})",
+                 f"    {p} = {p} * {p}",
+                 f"    {e} = ({e} >> 1).to({ty})"]
+    if not _is_signed(cc):
+        return r
+    neg = em.define(f"tl.where({a} == 1, 1, tl.where({a} == -1, "
+                    f"tl.where(({b} & 1) != 0, -1, 1), 0)).to({ty})")
+    return f"tl.where({b} < 0, {neg}, {r})"
+
+
+def _fmod(em: Emitter, args, cc, rc=None) -> str:
     if _is_float(cc):
         return f"libdevice.fmod({args[0]}, {args[1]})"
     # jnp.fmod takes an integer zero divisor as 1: fmod(x, 0) is 0
     return f"({args[0]} % {_divisor(em, args[1], cc)})"
 
 
-def _fmod_bool(em: Emitter, args, cc) -> str:
+def _fmod_bool(em: Emitter, args, cc, rc=None) -> str:
     # jnp.fmod of two booleans (in i32) keeps a zero divisor: lax.rem(x, 0)
     return f"tl.where({args[1]} != 0, 0, {args[0]})"
 
 
-def _sign(em: Emitter, args, cc) -> str:
+def _sign(em: Emitter, args, cc, rc=None) -> str:
     """jnp.sign of a real value: NaN at NaN, a zero with its sign."""
     x = args[0]
     if _is_float(cc):
@@ -678,44 +726,347 @@ def _sign(em: Emitter, args, cc) -> str:
 
 
 def _minmax(fn: str):
-    def form(em: Emitter, args, cc) -> str:
+    def form(em: Emitter, args, cc, rc=None) -> str:
+        if cc == "b1":
+            # booleans: the minimum is and, the maximum or
+            return f"({args[0]} {'&' if fn == 'minimum' else '|'} {args[1]})"
         nan = f", {_NAN_ALL}" if _is_float(cc) else ""
         return f"tl.{fn}({args[0]}, {args[1]}{nan})"
     return form
 
 
-def _max0(em: Emitter, args, cc) -> str:
+def _max0(em: Emitter, args, cc, rc=None) -> str:
     d = em.define(f"({args[0]} - {args[1]})")
     keep = f"({d} > 0) | ({d} != {d})" if _is_float(cc) else f"{d} > 0"
     return f"tl.where({keep}, {d}, 0)"
 
 
-def _clamp(em: Emitter, args, cc) -> str:
+def _clamp(em: Emitter, args, cc, rc=None) -> str:
     x, lo, hi = args
+    if cc == "b1":
+        return f"(({x} | {lo}) & {hi})"
     nan = f", {_NAN_ALL}" if _is_float(cc) else ""
     return f"tl.minimum(tl.maximum({x}, {lo}{nan}), {hi}{nan})"
 
 
 def _rounding(fn: str):
-    def form(em: Emitter, args, cc) -> str:
+    def form(em: Emitter, args, cc, rc=None) -> str:
         return f"libdevice.{fn}({args[0]})" if _is_float(cc) else args[0]
     return form
 
 
-def _zeros(em: Emitter, args, cc) -> str:
+def _zeros(em: Emitter, args, cc, rc=None) -> str:
     # jnp.imag of a real value
     return (em.zero(cc) if _is_float(cc)
             else f"tl.zeros_like({args[0]})")
 
 
+# -- the builtins' kernel forms --------------------------------------------
+
+_UINT = {8: "tl.uint8", 16: "tl.uint16", 32: "tl.uint32", 64: "tl.uint64"}
+_SINT = {32: "tl.int32", 64: "tl.int64"}
+
+
+def _word(x: str, cc: str) -> str:
+    """An integer of type cc as the i32 or i64 word libdevice's integer
+    functions take: its bits, zero-extended from 8 and 16 bits."""
+    w = _INT_WIDTH[cc]
+    if w < 32:
+        return f"{x}.to({_UINT[w]}, bitcast=True).to(tl.int32)"
+    return f"{x}.to({_SINT[w]}, bitcast=True)"
+
+
+def _popcount(em: Emitter, args, cc, rc) -> str:
+    return f"libdevice.popc({_word(args[0], cc)}).to({tl_type(rc)})"
+
+
+def _clz(em: Emitter, args, cc, rc) -> str:
+    # lax.clz counts within the type: a zero-extended 8- or 16-bit word
+    # has 32 - w more leading zeros
+    w = _INT_WIDTH[cc]
+    fix = f" - {32 - w}" if w < 32 else ""
+    return f"(libdevice.clz({_word(args[0], cc)}){fix}).to({tl_type(rc)})"
+
+
+def _rotate(em: Emitter, args, cc, rc) -> str:
+    """A left rotation by s modulo the width, logical, in the unsigned
+    word of the type (u32 for 8 and 16 bits)."""
+    x, s = args
+    w = _INT_WIDTH[cc]
+    uw = _UINT[w]
+    word = _UINT[max(w, 32)]
+    ux = em.define(f"{x}.to({uw}, bitcast=True).to({word})")
+    k = em.define(f"{s}.to({uw}, bitcast=True).to({word}) & {w - 1}")
+    r = em.define(f"({ux} << {k}) | ({ux} >> (({w} - {k}) & {w - 1}))")
+    return f"{r}.to({uw}).to({tl_type(rc)}, bitcast=True)"
+
+
+def _sat(sub: bool):
+    """add_sat, sub_sat: exact in a wider word and clamped, or (64 bits)
+    the wrapped sum corrected where it overflowed."""
+    def form(em: Emitter, args, cc, rc) -> str:
+        a, b = args
+        w = _INT_WIDTH[cc]
+        op = "-" if sub else "+"
+        if w < 64:
+            info = torch.iinfo(dtype_of_code(cc))
+            wide = "tl.int32" if w < 32 else "tl.int64"
+            v = em.define(f"{a}.to({wide}) {op} {b}.to({wide})")
+            return (f"tl.minimum(tl.maximum({v}, {info.min}), {info.max})"
+                    f".to({tl_type(rc)})")
+        s = em.define(f"{a} {op} {b}")
+        if cc == "u64":
+            if sub:
+                return f"tl.where({b} > {a}, tl.zeros_like({s}), {s})"
+            return f"tl.where({s} < {a}, ~tl.zeros_like({s}), {s})"
+        if sub:
+            up = f"({a} >= 0) & ({b} < 0) & ({s} < 0)"
+            dn = f"({a} < 0) & ({b} > 0) & ({s} >= 0)"
+        else:
+            up = f"({a} > 0) & ({b} > 0) & ({s} < 0)"
+            dn = f"({a} < 0) & ({b} < 0) & ({s} >= 0)"
+        return (f"tl.where({up}, {(1 << 63) - 1}, tl.where({dn}, "
+                f"{-(1 << 63)}, {s}))")
+    return form
+
+
+def _mulhi(em: Emitter, a: str, b: str, cc: str) -> str:
+    """The high half of a * b in type cc: libdevice's mulhi for 32 and
+    64 bits, a product in 32 bits for 8 and 16."""
+    w = _INT_WIDTH[cc]
+    if w >= 32:
+        return em.define(f"libdevice.mulhi({a}, {b})")
+    wide = "tl.int32" if _is_signed(cc) else "tl.uint32"
+    return em.define(f"(({a}.to({wide}) * {b}.to({wide})) >> {w})"
+                     f".to({tl_type(cc)})")
+
+
+def _mul_hi(em: Emitter, args, cc, rc) -> str:
+    return _mulhi(em, args[0], args[1], cc)
+
+
+def _mad_hi(em: Emitter, args, cc, rc) -> str:
+    # OpenCL: mul_hi(a, b) + c, wrapping
+    return f"({_mulhi(em, args[0], args[1], cc)} + {args[2]})"
+
+
+def _mad_sat(em: Emitter, args, cc, rc) -> str:
+    """a * b + c on the exact product, saturated: in i64 for up to 32
+    bits (u32 in u64, where the sum may carry), from mulhi's high word
+    for 64."""
+    a, b, c = args
+    w = _INT_WIDTH[cc]
+    info = torch.iinfo(dtype_of_code(cc))
+    if w < 32 or cc == "i32":
+        v = em.define(f"{a}.to(tl.int64) * {b}.to(tl.int64) + "
+                      f"{c}.to(tl.int64)")
+        return (f"tl.minimum(tl.maximum({v}, {info.min}), {info.max})"
+                f".to({tl_type(rc)})")
+    if cc == "u32":
+        p = em.define(f"{a}.to(tl.uint64) * {b}.to(tl.uint64)")
+        s = em.define(f"{p} + {c}.to(tl.uint64)")
+        return (f"tl.where(({s} < {p}) | ({s} > {info.max}), {info.max}, "
+                f"{s}).to(tl.uint32)")
+    hi = _mulhi(em, a, b, cc)
+    p = em.define(f"{a} * {b}")
+    s = em.define(f"{p} + {c}")
+    if cc == "u64":
+        return (f"tl.where(({hi} != 0) | ({s} < {p}), ~tl.zeros_like({s}), "
+                f"{s})")
+    carry = em.define(f"({s}.to(tl.uint64, bitcast=True) < "
+                      f"{p}.to(tl.uint64, bitcast=True)).to(tl.int64)")
+    top = em.define(f"{hi} + ({c} >> 63) + {carry}")
+    return (f"tl.where({top} == ({s} >> 63), {s}, tl.where({top} < 0, "
+            f"{info.min}, {info.max}))")
+
+
+def _upsample(em: Emitter, args, cc, rc) -> str:
+    hi, lo = args
+    w, ty = _INT_WIDTH[cc], tl_type(rc)
+    return f"(({hi}.to({ty}) << {w}) | {lo}.to({ty}))"
+
+
+def _msb(em: Emitter, args, cc, rc) -> str:
+    x = args[0]
+    if cc == "b1" or not (_is_float(cc) or _is_signed(cc)):
+        return f"tl.zeros_like({x}).to(tl.int32)"
+    return f"({x} < 0).to(tl.int32)"
+
+
+def _step(em: Emitter, args, cc, rc) -> str:
+    e, x = args
+    if cc == "b1":
+        e, x = f"{e}.to(tl.int32)", f"{x}.to(tl.int32)"
+    return f"tl.where({x} < {e}, 0, 1).to({tl_type(rc)})"
+
+
+def _magnitude(ge: bool):
+    def form(em: Emitter, args, cc, rc) -> str:
+        a, b = args
+        if cc == "b1":
+            return f"({a} {'|' if ge else '&'} {b})"
+        if _is_float(cc) or _is_signed(cc):
+            ma, mb = f"tl.abs({a})", f"tl.abs({b})"
+        else:
+            ma, mb = a, b
+        return f"tl.where({ma} {'>=' if ge else '<='} {mb}, {a}, {b})"
+    return form
+
+
+def _smoothstep(em: Emitter, args, cc, rc) -> str:
+    # the differences in the operands' type (integers wrap), the rest in
+    # the result's
+    e0, e1, x = args
+    z, one = em.constant(0.0, rc), em.constant(1.0, rc)
+    ty = tl_type(rc)
+    t = em.define(f"libdevice.div_rn(({x} - {e0}).to({ty}), "
+                  f"({e1} - {e0}).to({ty}))")
+    t = em.define(f"tl.minimum(tl.maximum({t}, {z}, {_NAN_ALL}), {one}, "
+                  f"{_NAN_ALL})")
+    return f"{t} * {t} * (3.0 - 2.0 * {t})"
+
+
+def _fract(em: Emitter, args, cc, rc) -> str:
+    x = args[0]
+    below = em.constant(1.0 - torch.finfo(dtype_of_code(cc)).eps / 2, cc)
+    return f"tl.minimum({x} - libdevice.floor({x}), {below}, {_NAN_ALL})"
+
+
+def _ilogb(em: Emitter, args, cc, rc) -> str:
+    # libdevice's ilogb: INT_MIN at 0 and NaN, INT_MAX at infinity
+    return f"libdevice.ilogb({args[0]})"
+
+
+#: (mantissa bits, exponent mask, bias of frexp's exponent, int type)
+_FREXP = {"f32": (23, 0xFF, 126, "tl.int32"),
+          "f64": (52, 0x7FF, 1022, "tl.int64")}
+
+
+def _frexp(em: Emitter, x: str, cc: str):
+    """(mantissa, exponent as i32) of frexp(x) from x's bits: a subnormal
+    scaled by 2^(bits + 1) first; 0, infinities and NaN as they are with
+    exponent 0."""
+    key = ("frexp", x)
+    if key in em.temps:
+        return em.temps[key]
+    bits, emask, bias, it = _FREXP["f64" if cc == "f*" else cc]
+    scale = em.constant(float(2 ** (bits + 1)), cc)
+    e = em.define(f"({x}.to({it}, bitcast=True) >> {bits}) & {emask}")
+    sub = em.define(f"({e} == 0) & ({x} != 0)")
+    xs = em.define(f"tl.where({sub}, {x} * {scale}, {x})")
+    b = em.define(f"{xs}.to({it}, bitcast=True)")
+    es = em.define(f"(({b} >> {bits}) & {emask}) - tl.where({sub}, "
+                   f"{bias + bits + 1}, {bias})")
+    special = em.define(f"({x} == 0) | ({e} == {emask})")
+    clear = ~(emask << bits)
+    mant = em.define(f"(({b} & {clear}) | ({bias} << {bits}))"
+                     f".to({tl_type(cc)}, bitcast=True)")
+    em.temps[key] = (em.define(f"tl.where({special}, {x}, {mant})"),
+                     em.define(f"tl.where({special}, 0, {es}).to(tl.int32)"))
+    return em.temps[key]
+
+
+def _frexp_mant(em: Emitter, args, cc, rc) -> str:
+    return _frexp(em, args[0], cc)[0]
+
+
+def _frexp_exp(em: Emitter, args, cc, rc) -> str:
+    return _frexp(em, args[0], cc)[1]
+
+
+def _gamma_sign(em: Emitter, args, cc, rc) -> str:
+    x = args[0]
+    return (f"tl.where(({x} > 0) | (libdevice.floor({x} * 0.5) * 2 == "
+            f"libdevice.floor({x})), 1, -1).to(tl.int64)")
+
+
+def _nan(em: Emitter, args, cc, rc) -> str:
+    return em.constant(float("nan"), "f32")
+
+
+def _ldexp(em: Emitter, args, cc, rc) -> str:
+    # the exponent arrives as i64; beyond +-100000 every result is 0 or
+    # infinite, so it is clamped into i32 first
+    x, n = args
+    return (f"libdevice.ldexp({x}, tl.minimum(tl.maximum({n}, -100000), "
+            f"100000).to(tl.int32))")
+
+
+def _pi(fn: str, inverse: bool):
+    """sin(pi x), cos(pi x), tan(pi x) (``pi:fn``) and asin(x) / pi ...
+    (``/pi:fn``), spelled as their plain forms: pi rounded to the compute
+    type."""
+    def form(em: Emitter, args, cc, rc) -> str:
+        pi = em.constant(math.pi, cc)
+        if inverse:
+            return (f"libdevice.div_rn(libdevice.{fn}("
+                    f"{', '.join(args)}), {pi})")
+        return f"libdevice.{fn}({pi} * {args[0]})"
+    return form
+
+
+def _scaled(factor: float):
+    def form(em: Emitter, args, cc, rc) -> str:
+        return f"({args[0]} * {em.constant(factor, cc)})"
+    return form
+
+
+def _signbit(em: Emitter, args, cc, rc) -> str:
+    x = args[0]
+    if _is_float(cc):
+        return f"(libdevice.signbit({x}) != 0)"
+    if _is_signed(cc):
+        return f"({x} < 0)"
+    return f"(tl.zeros_like({x}) != 0)"
+
+
+def _isnormal(em: Emitter, args, cc, rc) -> str:
+    x = args[0]
+    if _is_float(cc):
+        return f"((tl.abs({x}) < float('inf')) & ({x} != 0))"
+    return f"({x} != 0)"
+
+
+def _rootn(em: Emitter, args, cc, rc) -> str:
+    x, n = args
+    one = em.constant(1.0, cc)
+    s = em.define(_sign(em, [x], cc))
+    return (f"{s} * libdevice.pow(tl.abs({x}), "
+            f"libdevice.div_rn({one}, {n}))")
+
+
+def _tgamma(em: Emitter, args, cc, rc) -> str:
+    """exp(lgamma(x)) for x > 0, else the reflection formula."""
+    x = args[0]
+    pi, one = em.constant(math.pi, cc), em.constant(1.0, cc)
+    pos = em.define(f"libdevice.exp(libdevice.lgamma({x}))")
+    den = em.define(f"libdevice.sin({pi} * {x}) * "
+                    f"libdevice.exp(libdevice.lgamma({one} - {x}))")
+    return f"tl.where({x} > 0, {pos}, libdevice.div_rn({pi}, {den}))"
+
+
 _NAMED = {
-    "real": lambda em, args, cc: args[0],
-    "conj": lambda em, args, cc: args[0], "imag": _zeros,
+    "real": lambda em, args, cc, rc=None: args[0],
+    "conj": lambda em, args, cc, rc=None: args[0], "imag": _zeros,
     "floordiv": _floordiv, "mod": _mod, "pow": _pow, "fmod": _fmod,
     "fmod_bool": _fmod_bool, "sign": _sign,
     "min": _minmax("minimum"), "max": _minmax("maximum"), "max0": _max0,
     "clamp": _clamp, "floor": _rounding("floor"), "ceil": _rounding("ceil"),
     "trunc": _rounding("trunc"), "rint": _rounding("rint"),
+    "popcount": _popcount, "clz": _clz, "rotate": _rotate,
+    "add_sat": _sat(False), "sub_sat": _sat(True), "mul_hi": _mul_hi,
+    "mad_hi": _mad_hi, "mad_sat": _mad_sat, "upsample": _upsample,
+    "msb": _msb, "step": _step, "maxmag": _magnitude(True),
+    "minmag": _magnitude(False), "smoothstep": _smoothstep,
+    "fract": _fract, "ilogb": _ilogb, "frexp_mant": _frexp_mant,
+    "frexp_exp": _frexp_exp, "gamma_sign": _gamma_sign, "nan": _nan,
+    "ldexp": _ldexp, "isnormal": _isnormal, "signbit": _signbit,
+    "rootn": _rootn,
+    "tgamma": _tgamma, "degrees": _scaled(180.0 / math.pi),
+    "radians": _scaled(math.pi / 180.0),
+    **{f"pi:{fn}": _pi(fn, False) for fn in ("sin", "cos", "tan")},
+    **{f"/pi:{fn}": _pi(fn, True) for fn in ("asin", "acos", "atan",
+                                            "atan2")},
 }
 
 
@@ -914,7 +1265,8 @@ class _AssignKernel:
     constexpr values, so a call costs its arguments and one launch."""
 
     def __init__(self, src: str, name: str = "assign_kernel",
-                 tiled: bool = False, complex_: bool = False):
+                 tiled: bool = False, complex_: bool = False,
+                 shape: Tuple[int, int] = (ASSIGN_BLOCK, 4)):
         from .._build import TritonLauncher, triton_module
 
         if config.show_kernels:
@@ -927,13 +1279,13 @@ class _AssignKernel:
             tu, tl_, warps = ASSIGN_TILE
             self.consts = (tu, tl_, tu * tl_)       # TU, TL, BLOCK
         else:
-            self.consts, warps = (ASSIGN_BLOCK,), 4
+            self.consts, warps = (shape[0],), shape[1]
         self.launcher = TritonLauncher(getattr(triton_module(src), name),
                                        warps)
 
     def launch(self, outs: Sequence[torch.Tensor], leaves: Sequence,
                n: int, programs: int = 0) -> None:
-        grid = (programs,) if self.tiled else (-(-n // ASSIGN_BLOCK),)
+        grid = (programs,) if self.tiled else (-(-n // self.consts[0]),)
         self.launcher(grid, [*map(tensor_arg, outs), *launch_args(leaves)],
                       (n,), self.consts, outs[0].device)
 
@@ -988,6 +1340,23 @@ def launch_key(exprs: Sequence[Expr], analysis: Analysis, out_dtypes):
     return ("assign", form) + kernel_key(analysis, tuple(out_dtypes)), tile
 
 
+def launch_shape(exprs: Sequence[Expr]) -> Tuple[int, int]:
+    """(BLOCK, warps) of the assignment kernel of ``exprs``: the first
+    ``Expr.kernel_shape`` a node of the trees gives, in preorder, else
+    ``ASSIGN_BLOCK`` elements over 4 warps.  A function of the trees'
+    structure, so of the kernel's key."""
+    seen, stack = set(), list(reversed(exprs))
+    while stack:
+        node = stack.pop()
+        if id(node) in seen:
+            continue
+        seen.add(id(node))
+        if node.kernel_shape is not None:
+            return node.kernel_shape
+        stack.extend(reversed(node.children))
+    return ASSIGN_BLOCK, 4
+
+
 def _launch(exprs: Sequence[Expr], analysis: Analysis, types, leaves,
             outs: Sequence[torch.Tensor], keyed=None) -> None:
     key, tile = keyed or launch_key(exprs, analysis,
@@ -1002,7 +1371,8 @@ def _launch(exprs: Sequence[Expr], analysis: Analysis, types, leaves,
         # the emitter has typed every node of the trees by now
         cplx = any(c in COMPLEX_CODES for c in [*codes, *types.values()])
         if tile is None:
-            return _AssignKernel(src, complex_=cplx)
+            return _AssignKernel(src, complex_=cplx,
+                                 shape=launch_shape(exprs))
         return _AssignKernel(src, "assign_tiled_kernel", tiled=True,
                              complex_=cplx)
 

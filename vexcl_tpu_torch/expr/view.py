@@ -13,9 +13,11 @@ context (V1, the assignment kernel with indexed loads).
 * ``SliceTerminal``, ``MultiSliceView`` and ``ReshapeView`` are affine:
   the index into the inner expression is ``base + sum_e i_e * coef_e``
   over the coordinates ``i_e`` of the view's output axes (an integer key
-  drops an axis and moves the base; an index-array key reads the array at
-  its axis's coordinate, as the JAX package's gather: negatives wrap, the
-  rest clamp).
+  drops an axis and moves the base; index-array keys, numpy's advanced
+  indexing, share one output axis, placed where they stand when they are
+  adjacent and first when a slice separates them, and read each array at
+  that axis's coordinate, as the JAX package's gather: negatives wrap,
+  the rest clamp).
 * ``PermutationView`` (and ``pointer.PointerDeref``) read the index from
   an expression, as ``jnp.take`` of its int32 cast: negatives wrap, an
   index still out of range reads NaN (the least signed or the largest
@@ -25,7 +27,7 @@ context (V1, the assignment kernel with indexed loads).
 
 A view's numbers (bases, coefficients, counts, lengths) are runtime
 integer leaves of the tree, so its signature holds only its structure:
-rank, which keys are slices, integers or arrays.  A loop over
+rank, which keys are slices and how the arrays group.  A loop over
 ``indices[i]`` compiles one kernel.  Every view computes its plain
 PyTorch value from the same description (``plain_index``), flat, as the
 kernel reads it.
@@ -151,6 +153,8 @@ class _View(Expr):
 
     _size_transparent = False
     extent: int = 0
+    #: the children read at the element's own index, not beneath the view
+    own_children: Tuple[int, ...] = ()
 
     def _sig(self, ctx) -> str:
         ctx.indexed = True
@@ -205,34 +209,54 @@ class _View(Expr):
 
 class _AffineView(_View):
     """A view whose index is ``base + sum_e i_e * coef_e`` over the
-    coordinates of its output axes, row-major; an axis keyed by an index
-    array adds the array's (wrapped and clamped) value at the coordinate
-    times the axis's stride instead."""
+    coordinates of its output axes, row-major.  An axis keyed by index
+    arrays (numpy's advanced indexing: one array, or several broadcast
+    together) adds, for each array, its (wrapped and clamped) value at
+    the axis's coordinate (at 0 for an array of one element) times its
+    dimension's stride instead."""
 
     def _build(self, inner: Any, extent: int, base: int, axes) -> None:
-        """``axes``: (count, coef, index expression or None, dim) each."""
+        """``axes``: (count, coef, arrays, dim) each, where ``arrays`` is
+        None for a slice, or a tuple of (index expression, coef, dim,
+        its length) for an advanced axis (whose own coef and dim are
+        unused)."""
         self.extent = int(extent)
         self.base = int(base)
-        self.axes = [(int(c), int(coef), a, int(d)) for c, coef, a, d in axes]
+        self.axes = [(int(c), int(coef), None if g is None else tuple(
+            (a, int(k), int(dk), int(n)) for a, k, dk, n in g), int(d))
+            for c, coef, g, d in axes]
         self.count = int(np.prod([a[0] for a in self.axes], dtype=np.int64))
         # one element broadcasts to every element of the assignment
         self.broadcast = self.count == 1
-        arrays = [a for _, _, a, _ in self.axes if a is not None]
+        arrays = [a for _, _, g, _ in self.axes if g for a, _, _, _ in g]
         params = [self.base]
-        for e, (c, coef, a, d) in enumerate(self.axes):
-            params += ([c] if e else []) + [coef] + ([d] if a is not None
-                                                    else [])
+        for e, (c, coef, g, d) in enumerate(self.axes):
+            params += [c] if e else []
+            if g is None:
+                params.append(coef)
+            else:
+                for _, k, dk, _ in g:
+                    params += [k, dk]
         self._p0 = 1 + len(arrays)
         self.children = (as_expr(inner), *arrays,
                          *(ScalarTerminal(int(p)) for p in params))
 
     def _struct(self) -> str:
-        """Per axis: ``x`` an index-array key, ``u`` a slice read with
-        coefficient 1 (the kernels add its coordinate unscaled, so Triton
-        sees the contiguity), ``a`` another slice."""
-        return "".join("x" if a is not None else "u" if coef == 1 else "a"
-                       for _, coef, a, _ in self.axes) + (
-            "|b" if self.broadcast else "")
+        """Per axis: ``x`` an axis keyed by one index array of its
+        length, ``[...]`` by several (``x`` each, ``x1`` one of one
+        element), ``u`` a slice read with coefficient 1 (the kernels add
+        its coordinate unscaled, so Triton sees the contiguity), ``a``
+        another slice."""
+        out = []
+        for c, coef, g, _ in self.axes:
+            if g is None:
+                out.append("u" if coef == 1 else "a")
+            elif len(g) == 1 and g[0][3] == c:
+                out.append("x")
+            else:
+                out.append("[" + "".join("x1" if n == 1 and c != 1 else "x"
+                                         for _, _, _, n in g) + "]")
+        return "".join(out) + ("|b" if self.broadcast else "")
 
     def tiled_axis(self) -> Optional[int]:
         """The axis a tiled assignment kernel loads along
@@ -242,7 +266,7 @@ class _AffineView(_View):
         index-array key or fewer than two axes, or reads its innermost
         axis contiguously."""
         if self.broadcast or len(self.axes) < 2 or any(
-                a is not None for _, _, a, _ in self.axes):
+                g is not None for _, _, g, _ in self.axes):
             return None
         unit = [coef == 1 for _, coef, _, _ in self.axes]
         if unit[-1]:
@@ -252,7 +276,7 @@ class _AffineView(_View):
 
     def child_sizes(self, m):
         sizes = [self.extent]
-        sizes += [c for c, _, a, _ in self.axes if a is not None]
+        sizes += [n for _, _, g, _ in self.axes if g for _, _, _, n in g]
         return sizes + [m] * (len(self.children) - len(sizes))
 
     def size_hint(self) -> Optional[int]:
@@ -268,28 +292,39 @@ class _AffineView(_View):
         coords = _unravel_plain(torch.arange(self.count, device=device),
                                 [c for c, _, _, _ in self.axes])
         k = 1
-        for (c, coef, a, d), i in zip(self.axes, coords):
-            if a is None:
+        for (c, coef, g, _), i in zip(self.axes, coords):
+            if g is None:
                 idx += i * coef
                 continue
-            v = torch.broadcast_to(self.children[k].emit_cached(env),
-                                   (c,)).to(torch.int64)
-            k += 1
-            v = torch.where(v < 0, v + d, v).clamp(0, d - 1)
-            idx += v[i] * coef
+            for _, kcoef, d, n in g:
+                v = torch.broadcast_to(self.children[k].emit_cached(env),
+                                       (n,)).to(torch.int64)
+                k += 1
+                v = torch.where(v < 0, v + d, v).clamp(0, d - 1)
+                idx += (v[i] if n == c else v[0]) * kcoef
         return idx, None
 
     def emit_params(self, em):
         """(base, counts (None for the outermost axis), coefficients,
-        index-array lengths (None for slices)): the view's runtime
-        integers as variables in the index type."""
+        index-array lengths): the view's runtime integers as variables in
+        the index type; for an axis keyed by index arrays, its
+        coefficients and lengths are lists (one an array), for a slice
+        the length is None."""
         ps = iter(self.children[self._p0:])
         base = em.param(next(ps))
         counts, coefs, dims = [], [], []
-        for e, (_, _, a, _) in enumerate(self.axes):
+        for e, (_, _, g, _) in enumerate(self.axes):
             counts.append(em.param(next(ps)) if e else None)
-            coefs.append(em.param(next(ps)))
-            dims.append(em.param(next(ps)) if a is not None else None)
+            if g is None:
+                coefs.append(em.param(next(ps)))
+                dims.append(None)
+                continue
+            cs, ds = [], []
+            for _ in g:
+                cs.append(em.param(next(ps)))
+                ds.append(em.param(next(ps)))
+            coefs.append(cs)
+            dims.append(ds)
         return base, counts, coefs, dims
 
     def emit_index(self, em):
@@ -308,19 +343,21 @@ class _AffineView(_View):
         else:
             coords = em.unravel(em.index(), counts)
         k = 1
-        for (_, coef_v, a, _), i, coef, d in zip(self.axes, coords, coefs,
+        for (c, coef_v, g, _), i, coef, d in zip(self.axes, coords, coefs,
                                                  dims):
-            if a is None:
+            if g is None:
                 j = em.define(f"{j} + {i}" if coef_v == 1
                               else f"{j} + {i} * {coef}")
                 continue
-            v = em.value(self.children[k], (i, mask))
-            k += 1
-            v = em.define(f"{v}.to(tl.int64)")
-            v = em.define(f"tl.where({v} < 0, {v} + {d}, {v})")
-            v = em.define(f"tl.minimum(tl.maximum({v}, 0), {d} - 1)"
-                          f".to({em.ity})")
-            j = em.define(f"{j} + {v} * {coef}")
+            for (_, _, _, n), kc, kd in zip(g, coef, d):
+                at = i if n == c else em.define(f"{i} * 0")
+                v = em.value(self.children[k], (at, mask))
+                k += 1
+                v = em.define(f"{v}.to(tl.int64)")
+                v = em.define(f"tl.where({v} < 0, {v} + {kd}, {v})")
+                v = em.define(f"tl.minimum(tl.maximum({v}, 0), {kd} - 1)"
+                              f".to({em.ity})")
+                j = em.define(f"{j} + {v} * {kc}")
         return j, mask, None
 
 
@@ -346,8 +383,8 @@ class SliceTerminal(_AffineView):
             self._build(inner, n, _clamp_index(k, n), [])
         else:
             a = _index_leaf(k)
-            self._build(inner, n, 0, [(_sized(a, "an index array"), 1, a,
-                                       n)])
+            m = _sized(a, "an index array")
+            self._build(inner, n, 0, [(m, 0, ((a, 1, n, m),), 0)])
 
     def extra_sig(self) -> str:
         return self._struct()
@@ -356,9 +393,11 @@ class SliceTerminal(_AffineView):
 class MultiSliceView(_AffineView):
     """N-D strided view of a flat expression: ``slicer(dims)[key](x)``
     (gslice/slicer, vector_view.hpp:264-560), ``x.reshape(dims)[key]``
-    flattened.  One index-array key may stand among slices; an array
-    beside an integer or another array (numpy's advanced indexing, which
-    moves axes) raises."""
+    flattened.  Index arrays in the key are numpy's advanced indexing:
+    they broadcast together (each of one element or of the common
+    length) with the integers beside them, into one output axis that
+    stands where they stand when they are adjacent, and first when a
+    slice separates them."""
 
     _opname = "gslice"
 
@@ -370,26 +409,36 @@ class MultiSliceView(_AffineView):
                              "dimensions")
         key = key + (slice(None),) * (len(self.dims) - len(key))
         self._static_key = key
-        arrays = [k for k in key
-                  if not isinstance(k, slice) and not _is_int(k)]
-        if arrays and (len(arrays) > 1 or any(_is_int(k) for k in key)):
-            raise NotImplementedError(
-                "a slicer key with an index array beside an integer or "
-                "another array is not covered by the port")
-        base, axes = 0, []
-        stride = int(np.prod(self.dims, dtype=np.int64))
-        for d, k in zip(self.dims, key):
+        strides, stride = [], int(np.prod(self.dims, dtype=np.int64))
+        for d in self.dims:
             stride //= d
+            strides.append(stride)
+        arrays = {e: _index_leaf(k) for e, k in enumerate(key)
+                  if not isinstance(k, slice) and not _is_int(k)}
+        # with an index array, the integers are advanced indices too
+        adv = [e for e, k in enumerate(key)
+               if e in arrays or (arrays and _is_int(k))]
+        lens = {e: _sized(a, "an index array") for e, a in arrays.items()}
+        count = max(lens.values(), default=1)
+        if any(n not in (1, count) for n in lens.values()):
+            raise IndexError("index arrays of lengths "
+                             f"{sorted(set(lens.values()))} do not "
+                             "broadcast together")
+        base, axes = 0, []
+        group = tuple((arrays[e], strides[e], self.dims[e], lens[e])
+                      for e in adv if e in arrays)
+        at = (adv[0] if adv == list(range(adv[0], adv[-1] + 1)) else 0) \
+            if adv else None
+        for e, (d, k) in enumerate(zip(self.dims, key)):
+            if e == at:
+                axes.append((count, 0, group, 0))
             if isinstance(k, slice):
                 start, _, step = k.indices(d)
-                axes.append((len(range(*k.indices(d))), step * stride, None,
-                             d))
-                base += start * stride
+                axes.append((len(range(*k.indices(d))), step * strides[e],
+                             None, d))
+                base += start * strides[e]
             elif _is_int(k):
-                base += _clamp_index(k, d) * stride
-            else:
-                a = _index_leaf(k)
-                axes.append((_sized(a, "an index array"), stride, a, d))
+                base += _clamp_index(k, d) * strides[e]
         self._build(inner, int(np.prod(self.dims, dtype=np.int64)), base,
                     axes)
 
@@ -460,6 +509,7 @@ class PermutationView(_View):
     index, the inner's length."""
 
     _opname = "perm"
+    own_children = (1,)
 
     def __init__(self, index: Any, inner: Any):
         inner = as_expr(inner)
