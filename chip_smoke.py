@@ -129,7 +129,23 @@ plain form and ``grid_sample`` on the normalised grid (the library
 column), its bound the image, X, Y and z moved once at the card's
 memory rate (``stream_bound_ms``: at the rate of a 2^26 f32 copy
 measured in the same process); ``svm_vector``'s map/unmap
-and ``Filter.Exclusive`` on the card.  Last, after
+and ``Filter.Exclusive`` on the card; (16) gradients through the
+generator's kernels: ``LorenzEnsemble(2^22)`` as phase 12 builds it, in
+f32 and f64, ``torch.autograd.grad`` of sum(w (x_T + y_T + z_T)) after
+4 steps of ``_step.as_function()`` in x0, y0, z0 and R (one backward
+launch a step, by the counter; one kernel a backward call, by the
+profiler) against the same adjoint trees' plain forms stepped back from
+the plain forward and against PyTorch's autograd over the forward's
+plain forms; the backward kernel of one step alone (events on prepared
+arguments and through the API, device and host µs, its plain version,
+PyTorch's autograd over one step's plain forms for scale); a second
+derivative (x and a 0-d a, f64, 2^20) against the second backward
+kernel's plain forms; ``torch.func.vmap`` over a (4, 2^20) batch (one
+launch, the four unbatched calls' bits); every float and complex type
+cast into every integer type at 2^20 values with NaN, the infinities,
+the limits and their neighbours (one K1 launch a source type, bitwise
+against the plain forms); and ``z_i32[:] = x_f32`` at 2^24 in turns
+with the unsaturated store and ``Tensor.to``.  Last, after
 every solver phase (so that no solver follows
 these timings' profiler session or cuSPARSE call), the device time per
 call by the profiler of the map-reduce, the compaction (one and two
@@ -208,7 +224,10 @@ Phase 2 holds the generated kernel's integer ``//``, ``%`` and ``fmod``
 with zero divisors bitwise against their plain forms.  Phase 15: each
 builtin's kernel form within 8e-6 of the largest magnitude of its plain
 form (f32; integer and boolean results, nearest samples and advanced
-keys bitwise), non-finite values equal.
+keys bitwise), non-finite values equal.  Phase 16: the Lorenz
+gradients within 1e-5 (f32) and 1e-12 (f64) of the largest magnitude of
+both oracles (FMA contraction; 4 steps), the second derivative 1e-12
+(1e-10 for the 0-d sum), vmap and the casts bitwise.
 
 Any failed check raises, and the script exits non-zero without the
 result line; it also fails when no CUDA device is visible and when the
@@ -280,6 +299,7 @@ PROFILE_LOST: list = []
 HOST_CALLS = 200              # calls timed on the host clock, no sync
 HBM_BYTES_S = 3.35e12         # H100 SXM: NVIDIA's data sheet
 F32_OPS_S = 67e12
+F64_OPS_S = 34e12             # FP64 outside the tensor cores, the same sheet
 # H100 SXM: 132 SMs, each issuing at most 4 warp instructions (128 thread
 # instructions) a clock.  Integer work spreads over the 64-lane INT32 pipe
 # and the FMA pipe (IMAD), so 64 lanes a clock is no ceiling for it
@@ -302,6 +322,10 @@ LORENZ_N = 1 << 22            # the bench's ensemble (bench.py:721)
 LORENZ_STEPS = 100
 LORENZ_TOL = {"f32": (1e-5, 1e-4), "f64": (1e-12, 1e-10)}  # 1, 100 steps
 MULTI_N = 1 << 24
+GRAD_STEPS = 4                # phase 16: steps of the Lorenz gradient
+GRAD_TOL = {"f32": 1e-5, "f64": 1e-12}   # of the largest magnitude
+GRAD_N = 1 << 20              # the second derivative's and vmap's size
+CAST_N = 1 << 20              # the saturating casts' bitwise check
 #: phase 14's transforms at the bench's sizes (bench.py:793-875): name,
 #: shape, transformed axes (None: all), type; the ct engine runs on FFT_CT
 FFT_CASES = [("fft_2^10", (1 << 10,), None, "c64"),
@@ -389,6 +413,21 @@ def axpy(x_ptr, y_ptr, out_ptr, n, BLOCK: tl.constexpr):
     m = offs < n
     x = tl.load(x_ptr + offs, mask=m)
     tl.store(out_ptr + offs, 2.0 * x + tl.load(y_ptr + offs, mask=m), mask=m)
+"""
+
+
+# the unsaturated f32 -> i32 store, for the cost of the saturating one:
+# the assignment kernel's shape (BLOCK 1024, 4 warps) with a plain .to()
+RAW_CAST = """import triton
+import triton.language as tl
+
+
+@triton.jit
+def cast_f32_i32(x_ptr, out_ptr, n, BLOCK: tl.constexpr):
+    offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    m = offs < n
+    tl.store(out_ptr + offs, tl.load(x_ptr + offs, mask=m).to(tl.int32),
+             mask=m)
 """
 
 
@@ -750,6 +789,8 @@ def main() -> int:
     from vexcl_tpu_torch.ops.cuda_mba import mba_eval, mba_plain
     from vexcl_tpu_torch.ops.cufft import execute as cufft_execute
     from vexcl_tpu_torch.ops.triton_reduce import map_reduce_complex
+    from vexcl_tpu_torch import generator as tgen
+    from vexcl_tpu_torch.generator import backward as generator_backward
 
     results = {"seed": args.seed}
     start_s = time.perf_counter()
@@ -770,7 +811,8 @@ def main() -> int:
                 "reduce_complex": map_reduce_complex,
                 "mba": mba_eval, "mba_tree": assign_indexed,
                 "cufft": cufft_execute, "builtins": assign, "ipow": assign,
-                "advanced_index": assign_indexed, "image": assign_indexed}
+                "advanced_index": assign_indexed, "image": assign_indexed,
+                "backward": generator_backward}
     main_launches = {}
 
     def counted(keys, fn):
@@ -3463,6 +3505,235 @@ def main() -> int:
         report("builtins_images", rec)
     builtins_images_phase()
 
+    # -- phase 16: gradients and vmap through the generator's kernels, and
+    # the saturating float-to-integer casts ---------------------------------
+    def autodiff_phase():
+        """Phase 16, in a scope of its own."""
+        t16 = time.perf_counter()
+        rec = {}
+        rows = {}
+        # LorenzEnsemble(2^22) as phase 12 builds it: the gradient of
+        # sum(w (x_T + y_T + z_T)) after GRAD_STEPS steps of
+        # as_function() in x0, y0, z0 and R, one backward launch a step
+        for dname, npdt in (("f32", np.float32), ("f64", np.float64)):
+            ens = LorenzEnsemble(LORENZ_N, dtype=npdt, context=ctx,
+                                 seed=args.seed)
+            step = ens._step
+            fn = step.as_function()
+            dt = ens.x.storage.dtype
+            w = torch.rand(LORENZ_N, generator=gen, device=dev, dtype=dt)
+            x0 = [v.storage.clone() for v in (ens.x, ens.y, ens.z, ens.R)]
+            ins = [t.clone().requires_grad_() for t in x0]
+
+            def loss(f, xs):
+                x, y, z, R = xs
+                for _ in range(GRAD_STEPS):
+                    x, y, z = f(x, y, z, R)
+                return (w * (x + y + z)).sum()
+
+            def gradients():
+                return torch.autograd.grad(loss(fn, ins), ins)
+
+            t = time.perf_counter()
+            gradients()
+            torch.cuda.synchronize()
+            rec[f"{dname}_first_call_s"] = time.perf_counter() - t
+            got, launches = counted(("backward", "multi"), gradients)
+            add_launches({"backward": launches["backward"]})
+            check(launches["backward"] == GRAD_STEPS
+                  and launches["multi"] == 2 * GRAD_STEPS,
+                  f"Lorenz gradient {dname}: {launches} for {GRAD_STEPS} "
+                  "steps (one forward and one backward launch a step)")
+            # the plain version: the same adjoint trees through their plain
+            # forms, step by step back from the plain forward's states
+            with torch.no_grad():
+                states = [tuple(x0[:3])]
+                for _ in range(GRAD_STEPS):
+                    states.append(step.plain(*states[-1], x0[3]))
+                cots, g_r = [w, w, w], torch.zeros_like(w)
+                for st in reversed(states[:-1]):
+                    bk = step.backward_kernel([*st, x0[3]], cots, [True] * 4)
+                    *cots, g = bk.plain(*st, x0[3], *cots)
+                    g_r = g_r + g
+            plain = [*cots, g_r]
+            # a second oracle: PyTorch's autograd over the forward's plain
+            # forms (the Lorenz tree has no kink)
+            ref_ins = [t.clone().requires_grad_() for t in x0]
+            auto = torch.autograd.grad(loss(step.plain, ref_ins), ref_ins)
+            for name, g, p_, a in zip(("x0", "y0", "z0", "R"), got, plain,
+                                      auto):
+                check(g.dtype == dt, f"gradient {name} {dname}: {g.dtype}")
+                _, rel_p = errors(g, p_)
+                _, rel_a = errors(g, a)
+                check(rel_p <= GRAD_TOL[dname] and rel_a <= GRAD_TOL[dname],
+                      f"Lorenz gradient {name} {dname}: rel err {rel_p} "
+                      f"(plain), {rel_a} (autograd over the plain forms)")
+                rec[f"{dname}_{name}_rel_err_plain"] = rel_p
+                rec[f"{dname}_{name}_rel_err_autograd"] = rel_a
+            del got, plain, auto, ref_ins, ins
+            # the backward kernel alone, on the last step's inputs and
+            # three cotangents of their own (one tensor thrice would be
+            # read from memory once)
+            st = states[GRAD_STEPS - 1]
+            cs = [torch.rand(LORENZ_N, generator=gen, device=dev, dtype=dt)
+                  for _ in range(3)]
+            bk = step.backward_kernel([*st, x0[3]], cs, [True] * 4)
+            bkf = bk.as_function()
+            bargs = (*st, x0[3], *cs)
+            kout, pout = bkf(*bargs), bk.plain(*bargs)
+            err = max(errors(k_, p_)[0] for k_, p_ in zip(kout, pout))
+            e, an, ty, lv = bk.prepare_function(*bargs)
+            ko = [torch.empty_like(o) for o in kout]
+            ms = cuda_ms(lambda: assign_multi(e, an, ty, lv, ko),
+                         KERNEL_REPS)
+            api_ms = cuda_ms(lambda: bkf(*bargs), KERNEL_REPS)
+            plain_ms = cuda_ms(lambda: bk.plain(*bargs))
+            per_kernel, _ = profile_call(lambda: bkf(*bargs), KERNEL_REPS)
+            check(len(per_kernel) == 1
+                  and "assign_kernel" in next(iter(per_kernel)),
+                  f"a backward call is not one kernel: {per_kernel}")
+            # PyTorch's autograd over one step's plain forms, for scale
+            ps = [t.clone().requires_grad_() for t in (*st, x0[3])]
+            pouts = step.plain(*ps)
+            autograd_ms = cuda_ms(lambda: torch.autograd.grad(
+                pouts, ps, cs, retain_graph=True))
+            itemsize = np.dtype(npdt).itemsize
+            row = kernel_row(err, ms, plain_ms, 11 * LORENZ_N * itemsize,
+                             dag_ops(e) * LORENZ_N, None,
+                             F32_OPS_S if dname == "f32" else F64_OPS_S)
+            row.update(api_events_ms=api_ms,
+                       device_us=next(iter(per_kernel.values())),
+                       host_us=host_us(lambda: bkf(*bargs)),
+                       autograd_plain_ms=autograd_ms, dag_ops=dag_ops(e))
+            rows[dname] = row
+            report(f"lorenz_backward_{dname}", row)
+            del ens, step, fn, w, x0, states, cots, g_r, bk, bkf, bargs, cs
+            del kout, pout, e, an, ty, lv, ko, ps, pouts
+            torch.cuda.empty_cache()
+        kernels["backward"] = dict(
+            rows["f32"], others={"f64": rows["f64"]},
+            workload=f"the backward of one LorenzEnsemble(2^22) RK4 step "
+            "(x, y, z, R and three cotangents in, four gradients out), f32")
+
+        # a second derivative on a small tree, a vector x and a 0-d a: the
+        # backward of the backward against the same trees' plain forms
+        params = [tgen.symbolic() for _ in range(2)]
+        out = tgen.symbolic()
+        out[:] = vex.sin(params[0]) * params[1] + params[0] * params[0] \
+            * params[0]
+        small = tgen.build_kernel("second", [out], params)
+        x = torch.rand(GRAD_N, generator=gen, device=dev,
+                       dtype=torch.float64).requires_grad_()
+        a = torch.tensor(1.5, device=dev, dtype=torch.float64,
+                         requires_grad=True)
+        c1, v = (torch.rand(GRAD_N, generator=gen, device=dev,
+                            dtype=torch.float64) for _ in range(2))
+        s = torch.tensor(0.7, device=dev, dtype=torch.float64)
+        (y,) = small.as_function()(x, a)
+        gx, ga = torch.autograd.grad(y, (x, a), c1, create_graph=True)
+        hxx, hxa = torch.autograd.grad((gx * v).sum() + ga * s, (x, a))
+        bk1 = small.backward_kernel([x, a], [c1], [True, True])
+        bk2 = bk1.backward_kernel([x, a, c1], [v, s], [True, True, False])
+        with torch.no_grad():
+            pxx, pxa = bk2.plain(x, a, c1, v, s)
+        _, rel_xx = errors(hxx, pxx)
+        _, rel_xa = errors(hxa.reshape(1), pxa.reshape(1))
+        check(rel_xx <= GRAD_TOL["f64"] and rel_xa <= 1e-10,
+              f"second derivative: rel err {rel_xx}, {rel_xa}")
+        rec.update(second_rel_err_xx=rel_xx, second_rel_err_xa=rel_xa)
+        del x, a, c1, v, y, gx, ga, hxx, hxa, pxx, pxa
+
+        # vmap over a (4, 2^20) batch: one launch, the four unbatched
+        # calls' bits
+        ens = LorenzEnsemble(GRAD_N, context=ctx, seed=args.seed)
+        fn = ens._step.as_function()
+        ys, zs, rs = (t.storage for t in (ens.y, ens.z, ens.R))
+        xb = torch.rand(4, GRAD_N, generator=gen, device=dev)
+        got, launches = counted(("multi",), lambda: torch.func.vmap(
+            lambda u: fn(u, ys, zs, rs))(xb))
+        check(launches["multi"] == 1 and got[0].shape == (4, GRAD_N),
+              f"vmap: {launches}, shape {tuple(got[0].shape)}")
+        for i in range(4):
+            check(all(torch.equal(g[i], o) for g, o in zip(
+                got, fn(xb[i], ys, zs, rs))), f"vmap row {i} differs")
+        del ens, fn, ys, zs, rs, xb, got
+
+        # the saturating casts: every float (and complex) type into every
+        # integer type in one K1 launch a source type, bitwise against the
+        # plain forms, at CAST_N values with NaN, the infinities, each
+        # limit and its neighbours, and values beyond every range
+        targets = [torch.int8, torch.int16, torch.int32, torch.int64,
+                   torch.uint8, torch.uint16, torch.uint32, torch.uint64]
+        limits = torch.tensor([float(v) for t in targets for v in (
+            torch.iinfo(t).min, torch.iinfo(t).max)], dtype=torch.float64,
+            device=dev)
+        for src in (torch.float16, torch.bfloat16, torch.float32,
+                    torch.float64, torch.complex64, torch.complex128):
+            real = src.to_real() if src.is_complex else src
+            lim = limits.to(real)
+            inf = torch.full_like(lim, float("inf"))
+            special = torch.cat([torch.tensor(
+                [float("nan"), float("inf"), -float("inf"), -0.5, 3.7, -3.7],
+                device=dev, dtype=real), lim, torch.nextafter(lim, inf),
+                torch.nextafter(lim, -inf)])
+            mag = torch.rand(CAST_N - special.numel(), generator=gen,
+                             device=dev, dtype=torch.float64)
+            sgn = torch.rand(mag.shape, generator=gen, device=dev) < 0.5
+            wide = torch.where(sgn, -1.0, 1.0) * 2.0 ** (72 * mag - 2)
+            xs = torch.cat([special, wide.to(real)])
+            if src.is_complex:
+                xs = torch.complex(xs, xs.flip(0))
+            xv = vex.vector(data=xs, context=ctx)
+            e, an, ty, lv = prepare_multi([vex.cast(t, xv) for t in targets],
+                                          CAST_N, dev)
+            ko = [torch.empty(CAST_N, dtype=t, device=dev) for t in targets]
+            po = [torch.empty_like(o) for o in ko]
+            assign_multi(e, an, ty, lv, ko)
+            assign_multi_plain(e, an, ty, lv, po)
+            for t, k_, p_ in zip(targets, ko, po):
+                check(torch.equal(k_, p_), f"saturating cast {src} -> {t}: "
+                      "the kernel differs from its plain form")
+        rec["casts_checked"] = 6 * len(targets)
+        del xs, xv, e, an, ty, lv, ko, po
+        # its cost: z_i32[:] = x_f32 at 2^24 through the API (the
+        # saturating store) in turns with the unsaturated store and
+        # Tensor.to(torch.int32)
+        xf = rand(N_VEC, torch.float32)
+        xf[:] = (xf - 0.5) * 6e9            # a share beyond the i32 range
+        zi = vex.vector(N_VEC, dtype=torch.int32, context=ctx)
+        zi[:] = xf
+        raw = triton_module(RAW_CAST).cast_f32_i32
+        zr = torch.empty(N_VEC, dtype=torch.int32, device=dev)
+
+        def unsaturated():
+            raw[(N_VEC // 1024,)](xf.storage, zr, N_VEC, BLOCK=1024,
+                                  num_warps=4)
+
+        e, an, ty, lv = prepare(vex.as_expr(xf), N_VEC, dev)
+        zp = torch.empty_like(zr)
+        assign_plain(e, an, ty, lv, zp)
+        check(torch.equal(zi.storage, zp), "z_i32[:] = x_f32: the kernel "
+              "differs from its plain form")
+        inside = xf.storage.abs() < 2.0 ** 31
+        unsaturated()
+        check(torch.equal(zr[inside], zp[inside]),
+              "the unsaturated store differs inside the i32 range")
+        turns = in_turns({"saturating": lambda: zi.assign(xf),
+                          "unsaturated": unsaturated,
+                          "library": lambda: xf.storage.to(torch.int32)})
+        rec.update(cast_f32_i32_ms=turns["saturating"]["ms"],
+                   cast_f32_i32_ms_range=turns["saturating"]["ms_range"],
+                   cast_f32_i32_unsaturated_ms=turns["unsaturated"]["ms"],
+                   cast_f32_i32_unsaturated_ms_range=turns[
+                       "unsaturated"]["ms_range"],
+                   cast_f32_i32_library_ms=turns["library"]["ms"],
+                   cast_f32_i32_bound_ms=bound(8 * N_VEC)[0])
+        del xf, zi, zr, zp, e, an, ty, lv, inside
+        torch.cuda.empty_cache()
+        rec["phase_s"] = time.perf_counter() - t16
+        report("autodiff_casts", rec)
+    autodiff_phase()
+
     # last, after every solver phase, so that no solver's ms per iteration
     # (compared between versions of this script) follows these timings'
     # profiler session or cuSPARSE call: the
@@ -3612,6 +3883,10 @@ def main() -> int:
          "vexcl_tpu/expr/view.py:217-224", "advanced_index"),
         ("image_sample", "triton", "vexcl_tpu_torch/ops/image.py",
          "vexcl_tpu/ops/image.py:47-89", "image"),
+        ("generator_backward", "triton",
+         "vexcl_tpu_torch/expr/adjoint.py, "
+         "vexcl_tpu_torch/expr/triton_emit.py",
+         "none (XLA autodiff of vexcl_tpu/generator.py:175-206)", "backward"),
     ]
     check("jax" not in sys.modules and "vexcl_tpu" not in sys.modules,
           "the port imported jax or vexcl_tpu")

@@ -30,12 +30,15 @@ import torch
 
 import vexcl_tpu_torch as vex
 from vexcl_tpu_torch.expr.builtins import KERNEL_BUILTINS
-from vexcl_tpu_torch.expr.compile import prepare
-from vexcl_tpu_torch.expr.triton_emit import assign, assign_plain
+from vexcl_tpu_torch.expr.compile import prepare, prepare_multi
+from vexcl_tpu_torch.expr.triton_emit import (assign, assign_multi,
+                                              assign_multi_plain,
+                                              assign_plain)
 from vexcl_tpu_torch.ops.triton_reduce import map_reduce, map_reduce_plain
 from vexcl_tpu_torch.sparse.cuda_dia import dia_matvec, dia_matvec_plain
 from vexcl_tpu_torch.types import dtype_of_code
 from chip_smoke import BUILTIN_DOMAIN, BUILTIN_INTEGER
+from _grad_tables import GRAD_DOMAIN, NOT_DIFFERENTIABLE
 
 pytestmark = pytest.mark.cuda
 
@@ -3811,3 +3814,173 @@ def test_image_sample_types_kernel_matches_plain(gpu, table):
                            torch.float32])
             else:
                 _close(k, p, 4 * RTOL[torch.float32])
+
+
+# -- saturating float-to-integer casts, and the generator's backward kernel
+
+_CAST_SOURCES = [torch.float16, torch.bfloat16, torch.float32, torch.float64,
+                 torch.complex64, torch.complex128]
+_CAST_TARGETS = [torch.int8, torch.int16, torch.int32, torch.int64,
+                 torch.uint8, torch.uint16, torch.uint32, torch.uint64]
+
+
+def _cast_values(src, n=(1 << 14) + 77):
+    """Values of type src: NaN, the infinities, -0.5, +-3.7, every integer
+    type's limits with their neighbours in the source type, and random
+    values spread over +-2^70 (each sign, every scale)."""
+    real = src.to_real() if src.is_complex else src
+    rng = np.random.default_rng(40)
+    lims = []
+    for t in _CAST_TARGETS:
+        info = torch.iinfo(t)
+        lims += [float(info.min), float(info.max)]
+    lims = torch.tensor(lims, dtype=torch.float64).to(real)
+    inf = torch.full_like(lims, float("inf"))
+    special = torch.cat([torch.tensor([float("nan"), float("inf"),
+                                       -float("inf"), -0.5, 3.7, -3.7, 0.0,
+                                       -0.0], dtype=real), lims,
+                         torch.nextafter(lims, inf),
+                         torch.nextafter(lims, -inf)])
+    wide = torch.from_numpy(rng.choice([-1.0, 1.0], n) * 2.0 ** rng.uniform(
+        -2, 70, n)).to(real)
+    x = torch.cat([special, wide])
+    if src.is_complex:
+        x = torch.complex(x, x.flip(0))
+    return x
+
+
+@pytest.mark.parametrize("src", _CAST_SOURCES)
+def test_saturating_casts_kernel_bitwise(gpu, src):
+    """Every float (and complex) type into every integer type, through
+    ``cast`` and through the store of an assignment, in one k-output
+    kernel: the kernel's clamps equal the plain form's bit for bit."""
+    x = _vec(gpu, _cast_values(src).to(gpu.device))
+    n = x.size
+    for make in (lambda t: vex.cast(t, x), lambda t: vex.as_expr(x)):
+        exprs = [make(t) for t in _CAST_TARGETS]
+        e, an, ty, lv = prepare_multi(exprs, n, gpu.device)
+        k = [torch.empty(n, dtype=t, device=gpu.device)
+             for t in _CAST_TARGETS]
+        p = [torch.empty_like(o) for o in k]
+        assign_multi(e, an, ty, lv, k)
+        assign_multi_plain(e, an, ty, lv, p)
+        torch.cuda.synchronize()
+        for t, a, b in zip(_CAST_TARGETS, k, p):
+            assert torch.equal(a.cpu(), b.cpu()), (src, t)
+
+
+def _grad_kernel(name, nargs):
+    """The kernel ``y = name(p0, ..)`` of the generator and its params."""
+    from vexcl_tpu_torch import generator as tgen
+
+    params = [tgen.symbolic() for _ in range(nargs)]
+    y = tgen.symbolic()
+    y[:] = vex.BUILTINS[name](*params)
+    return tgen.build_kernel(name, [y], params)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(set(vex.BUILTINS)
+                                        - NOT_DIFFERENTIABLE))
+def test_backward_kernel_matches_plain(gpu, name, dt):
+    """Each differentiable builtin's backward kernel (the adjoint tree in
+    one K1 launch) against its plain version, element by element, and
+    the gradients through autograd equal to the kernel's."""
+    rng = np.random.default_rng(41)
+    kernel = _grad_kernel(name, vex.BUILTINS[name].nargs)
+    lo, hi = GRAD_DOMAIN.get(name, (-3.0, 3.0))
+    args = [torch.from_numpy(rng.uniform(lo, hi, N)).to(gpu.device, dt)
+            for _ in range(vex.BUILTINS[name].nargs)]
+    if name == "ldexp":
+        args[1] = torch.from_numpy(rng.integers(-20, 20, N)).to(
+            gpu.device, torch.int32)
+    cot = torch.from_numpy(rng.uniform(0.5, 1.5, N)).to(gpu.device, dt)
+    needs = [a.dtype.is_floating_point for a in args]
+    bk = kernel.backward_kernel(args, [cot], needs)
+    got = bk.as_function()(*args, cot)
+    want = bk.plain(*args, cot)
+    for g, w in zip(got, want):
+        _close_each(g, w, 4 * RTOL[dt])
+    ts = [a.clone().requires_grad_(need) for a, need in zip(args, needs)]
+    (out,) = kernel.as_function()(*ts)
+    auto = torch.autograd.grad(out, [t for t in ts if t.requires_grad], cot)
+    for g, a in zip(got, auto):
+        assert torch.equal(g, a)
+
+
+def test_backward_is_one_launch_a_call(gpu):
+    """A backward call of the Lorenz step is one launch of the backward
+    kernel (the counter and the profiler); with a 0-d parameter, two: K1
+    for the vectors' gradients, K2 for the 0-d one's."""
+    from vexcl_tpu_torch import generator as tgen
+    from vexcl_tpu_torch.models import LorenzEnsemble
+    from vexcl_tpu_torch.ops.triton_reduce import map_reduce_multi
+
+    ens = LorenzEnsemble(1 << 16, context=gpu)
+    fn = ens._step.as_function()
+    xs = [v.storage.clone().requires_grad_() for v in (ens.x, ens.y, ens.z,
+                                                       ens.R)]
+    w = torch.rand(1 << 16, device=gpu.device)
+
+    def grads():
+        x, y, z, R = xs
+        for _ in range(3):
+            x, y, z = fn(x, y, z, R)
+        return torch.autograd.grad((w * (x + y + z)).sum(), xs)
+
+    grads()
+    tgen.backward.launches = assign_multi.launches = 0
+    grads()
+    torch.cuda.synchronize()
+    assert tgen.backward.launches == 3 and assign_multi.launches == 6
+    # the backward kernel alone: one kernel a call
+    out = fn(*xs)
+    launched = _kernels_launched(lambda: torch.autograd.grad(
+        out, xs, [w, w, w], retain_graph=True), reps=2)
+    assert [c for k, c in launched if "assign_kernel" in k] == [2], launched
+    # a 0-d parameter: K1 and K2
+    x = torch.rand(1 << 16, device=gpu.device, requires_grad=True)
+    a = torch.tensor(1.5, device=gpu.device, requires_grad=True)
+    kernel = _grad_kernel("mad", 3)
+    (y,) = kernel.as_function()(x, a, x)
+    tgen.backward.launches = map_reduce_multi.launches = 0
+    assign_multi.launches = 0
+    gx, ga = torch.autograd.grad(y, (x, a), w)
+    torch.cuda.synchronize()
+    assert tgen.backward.launches == 2 and map_reduce_multi.launches == 1
+    assert assign_multi.launches == 1
+    assert torch.equal(gx, w * a.detach() + w)
+    _close(ga.reshape(1), (w * x.detach()).sum().reshape(1), 1e-5)
+
+
+def test_vmap_kernel_matches_unbatched_calls(gpu):
+    """torch.func.vmap over a (4, n) batch is one launch and equals four
+    unbatched calls bit for bit."""
+    from vexcl_tpu_torch.models import LorenzEnsemble
+
+    ens = LorenzEnsemble(1 << 16, context=gpu)
+    fn = ens._step.as_function()
+    y, z, R = (v.storage for v in (ens.y, ens.z, ens.R))
+    xb = torch.rand(4, 1 << 16, device=gpu.device)
+    assign_multi.launches = 0
+    got = torch.func.vmap(lambda u: fn(u, y, z, R))(xb)
+    assert assign_multi.launches == 1
+    for i in range(4):
+        one = fn(xb[i], y, z, R)
+        for g, o in zip(got, one):
+            assert torch.equal(g[i], o)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_digamma_kernel_matches_plain(gpu, dt):
+    """lgamma's derivative (``builtins.DIGAMMA``): the kernel form against
+    torch.digamma, at the poles and zeros too."""
+    from vexcl_tpu_torch.expr.builtins import DIGAMMA
+
+    rng = np.random.default_rng(42)
+    x = np.concatenate([[0.0, -0.0, -1.0, -2.0, 10.0, float("inf"),
+                         -float("inf"), float("nan"), 1e18, 1e-30],
+                        rng.uniform(-6.0, 12.0, N)])
+    v = _vec(gpu, torch.from_numpy(x).to(dt))
+    k, p = _both(vex.as_expr(DIGAMMA(v)), v.size, dt, gpu.device)
+    _close_each(k, p, 4 * RTOL[dt])

@@ -17,11 +17,17 @@ takes the expected values and types from ``vexcl_tpu``:
 * the result types of ``pow``/``pown``/``powr`` of integers and of
   ``rint``, ``nearbyint``, ``exp10``, ``sinpi``, ``cospi``, ``tanpi`` and
   ``rootn`` of integers, alone and beside an f32 vector (weak and strong
-  results), values within 1e-12.
+  results), values within 1e-12;
+* float-to-integer conversion, through ``cast`` and through an
+  assignment into an integer vector: every float type (and the real part
+  of a complex one) into every integer type, at NaN, the infinities,
+  each limit of the target and its neighbours in the source type, -0.5
+  and +-3.7: ``lax.convert_element_type``'s saturating values, exact.
 """
 
 import numpy as np
 import pytest
+import torch
 
 import vexcl_tpu as vex
 import vexcl_tpu_torch as vt
@@ -214,3 +220,68 @@ def test_integer_result_types_match_jax(ctx1, tctx, rng, name, dt):
         assert tr.dtype == jr.dtype, (name, f.__name__)
         np.testing.assert_allclose(tr, jr, rtol=1e-12 if jr.dtype
                                    == np.float64 else 1e-6, atol=1e-12)
+
+
+CAST_SOURCES = ["float16", "bfloat16", "float32", "float64", "complex64",
+                "complex128"]
+CAST_TARGETS = [np.int8, np.int16, np.int32, np.int64, np.uint8, np.uint16,
+                np.uint32, np.uint64]
+
+
+def _cast_inputs(src: str, tgt) -> torch.Tensor:
+    """Values of type ``src`` at the edges of ``tgt``'s range: NaN, the
+    infinities, -0.5, +-3.7, values beyond the range, and each limit
+    rounded to the source type with its neighbours there (a complex
+    source: these as its real parts)."""
+    real = {"complex64": torch.float32,
+            "complex128": torch.float64}.get(src, getattr(torch, src))
+    info = np.iinfo(tgt)
+    inf = float("inf")
+    lims = torch.tensor([float(info.min), float(info.max)],
+                        dtype=torch.float64).to(real)
+    x = torch.cat([torch.tensor([float("nan"), inf, -inf, -0.5, 3.7, -3.7,
+                                 0.0, -0.0, 1e10, -1e10, 3e9], dtype=real),
+                   lims, torch.nextafter(lims, torch.full_like(lims, inf)),
+                   torch.nextafter(lims, torch.full_like(lims, -inf))])
+    return torch.complex(x, x.flip(0)) if src.startswith("complex") else x
+
+
+@pytest.mark.parametrize("tgt", CAST_TARGETS)
+@pytest.mark.parametrize("src", CAST_SOURCES)
+def test_float_to_integer_conversion_saturates_as_jax(ctx1, tctx, src, tgt):
+    """``cast(tgt, x)`` and ``y[:] = x`` into a ``tgt`` vector give
+    ``lax.convert_element_type``'s values: truncation, NaN 0, saturation
+    at the limits (f32 2147483648.0 is INT32_MAX), negatives 0 unsigned."""
+    import jax.numpy as jnp
+
+    x = _cast_inputs(src, tgt)
+    arr = (x.float().numpy().astype(jnp.bfloat16) if src == "bfloat16"
+           else x.numpy())
+    jv, tv = vex.vector(data=arr, context=ctx1), vt.vector(data=x,
+                                                           context=tctx)
+    jr = np.asarray(vex.eval(vex.cast(tgt, jv)))
+    tr = np.asarray(vt.eval(vt.cast(tgt, tv)))
+    assert tr.dtype == jr.dtype == tgt
+    np.testing.assert_array_equal(tr, jr)
+    ja = vex.vector(len(arr), dtype=tgt, context=ctx1)
+    ta = vt.vector(len(arr), dtype=tgt, context=tctx)
+    ja[:] = jv
+    ta[:] = tv
+    np.testing.assert_array_equal(ta.to_numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(ta.to_numpy(), jr)
+
+
+def test_float_to_int32_saturating_values(ctx1, tctx):
+    """f32 at and beyond the i32 range into i32 through ``cast`` and an
+    assignment, as vexcl_tpu gives them."""
+    a = np.array([1e10, -1e10, np.nan, np.inf, -np.inf, 3.7, -3.7, 3e9],
+                 np.float32)
+    want = [2147483647, -2147483648, 0, 2147483647, -2147483648, 3, -3,
+            2147483647]
+    tv = vt.vector(data=a, context=tctx)
+    assert vt.eval(vt.cast(np.int32, tv)).tolist() == want
+    out = vt.vector(8, dtype=np.int32, context=tctx)
+    out[:] = tv
+    assert out.to_numpy().tolist() == want
+    assert np.asarray(vex.eval(vex.cast(np.int32, vex.vector(
+        data=a, context=ctx1)))).tolist() == want

@@ -185,8 +185,16 @@ def test_lorenz_source_defines_each_node_once(tctx):
     assert kernel_key(analysis, None) == kernel_key(analysis2, None)
 
 
-def test_kernel_as_function(tctx):
-    m = LorenzEnsemble(64, dtype=np.float64, context=tctx)
+def test_kernel_as_function(ctx1, tctx):
+    """The functional form chains as the steps do, and differentiates: the
+    gradient of sum(x_T) after 3 steps in (x0, R), against jax.grad of
+    vexcl_tpu's kernel from the same state."""
+    import jax
+    import jax.numpy as jnp
+
+    jm = JLorenz(64, dtype=np.float64, context=ctx1)
+    state = [np.array(np.asarray(v)) for v in (*jm.state(), jm.R)]
+    m = LorenzEnsemble.from_arrays(*state, context=tctx)
     x, y, z, R = (v.storage.clone() for v in (m.x, m.y, m.z, m.R))
     fn = m._step.as_function()
     for _ in range(3):
@@ -194,5 +202,19 @@ def test_kernel_as_function(tctx):
     m.step(3)
     for a, v in zip((x, y, z), (m.x, m.y, m.z)):
         assert torch.equal(a, v.storage)
-    with pytest.raises(NotImplementedError, match="backward"):
-        fn(x.requires_grad_(), y, z, R)
+    jfn = jm._step.as_function()
+
+    def loss(x, y, z, R):
+        for _ in range(3):
+            x, y, z = jfn(x, y, z, R)
+        return jnp.sum(x)
+
+    want = jax.grad(loss, argnums=(0, 3))(*map(jnp.asarray, state))
+    ts = [torch.tensor(s, requires_grad=i in (0, 3))
+          for i, s in enumerate(state)]
+    x, y, z, R = ts
+    for _ in range(3):
+        x, y, z = fn(x, y, z, R)
+    got = torch.autograd.grad(x.sum(), (ts[0], ts[3]))
+    for g, w in zip(got, want):
+        _close(g.numpy(), np.asarray(w), 1e-10)

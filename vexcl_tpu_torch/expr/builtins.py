@@ -72,9 +72,9 @@ from typing import Optional
 import torch
 
 from ..types import code_of, dtype_of_code, scalar_code
-from .node import (_BINOPS, _CARRIER, _I64_MIN, _INT_WIDTH, Expr, FuncCall,
-                   _carried, _lshr64, _ult64, as_expr, fmod, plain_apply,
-                   sign)
+from .node import (_BINOPS, _CARRIER, _I64_MIN, _INT_WIDTH, BinOp,
+                   ConstantTerminal, Expr, FuncCall, Where, _carried, _lshr64,
+                   _ult64, as_expr, fmod, plain_apply, sign)
 
 __all__ = ["builtin", "BUILTINS"]
 
@@ -783,3 +783,175 @@ def shuffle2(x, y, mask):
 __all__ += ["dot", "length", "distance", "normalize", "cross",
             "fast_length", "fast_distance", "fast_normalize",
             "shuffle", "shuffle2"]
+
+
+# -- hidden helpers of the derivative rules: not catalog entries (the JAX
+# package has no such builtins), each with a plain and a kernel form -------
+
+#: digamma, the derivative of lgamma (``torch.digamma``; the kernel form
+#: is the same recurrence and asymptotic series, ``triton_emit._digamma``)
+DIGAMMA = builtin("digamma", ("inexact", torch.digamma, "digamma"))
+#: the largest value below 1 of x's type (fract's bound), as a value of
+#: x's shape
+ONE_BELOW = builtin("one_below", ("join", lambda x: torch.full_like(
+    x, _one_below(x.dtype)), "one_below"))
+
+
+# -- derivative rules (``expr/adjoint.py``) --------------------------------
+# One rule per catalog entry with a float result, as JAX differentiates
+# the JAX package's form of it (jax/_src/lax/lax.py's jvp rules), at the
+# kinks too: fabs is 1 at 0, a tie of fmin/fmax splits the gradient.  A
+# rule takes the adjoint g of the call's value, the call node itself
+# (its value, ``ans`` in JAX's rules) and the operands, each already cast
+# to its compute type, and gives one contribution per operand (None where
+# none flows); a rule marked ``typed`` takes the operands' own codes
+# first.  A rule marked ``expands`` instead gives the composition the JAX
+# package computes (``sinpi`` is sin(pi x), ``clamp`` jnp.clip's maximum
+# and minimum, ``tgamma`` the reflection formula), which the adjoint
+# differentiates node by node.  Each rule is an expression over catalog
+# entries, so it runs through the plain forms and the emitter.  An entry
+# without a derivative (``nextafter``, which JAX does not differentiate)
+# has a string instead: the reason, which a gradient through it raises.
+
+
+def _k(value: float) -> ConstantTerminal:
+    """A float constant baked into the kernel, weakly typed (rounded to
+    the type of the operand it meets, as JAX's ``_const(x, value)``)."""
+    return ConstantTerminal(float(value))
+
+
+def _expands(fn):
+    fn.expands = True
+    return fn
+
+
+def _zero(g, out, *args):
+    return (None,) * len(args)
+
+
+def _balanced(x, z, y):
+    """JAX's ``_balanced_eq``: 1 where x is the extreme z alone, 1/2 on a
+    tie with y, else 0."""
+    return Where(x == z, Where(y == z, _k(0.5), _k(1.0)), _k(0.0))
+
+
+def _extreme(g, out, a, b):
+    return g * _balanced(a, out, b), g * _balanced(b, out, a)
+
+
+@_typed
+def _pow(codes, g, out, a, b):
+    """lax.pow: y x^(y - 1) (0 where an integer y is 0) and, for a float
+    exponent, log(x) x^y (x = 0 taken as 1)."""
+    jac = b * BinOp("pow", a, b - _k(1.0))
+    if not dtype_of_code(codes[1]).is_floating_point:
+        return g * Where(b == _k(0.0), _k(0.0), jac), None
+    one_for_zero = Where(a == _k(0.0), _k(1.0), a)
+    return g * jac, g * (_B["log"](one_for_zero) * out)
+
+
+def _times(factor):
+    """The rule of a function of one operand whose derivative is
+    ``factor(x, out)``: g * factor."""
+    return lambda g, out, x: (g * factor(x, out),)
+
+
+def _smoothstep_tree(e0, e1, x):
+    # jnp.clip(t, 0.0, 1.0): minimum(1, maximum(0, t))
+    t = _B["fmin"](_k(1.0), _B["fmax"](_k(0.0), (x - e0) / (e1 - e0)))
+    return t * t * (_k(3.0) - _k(2.0) * t)
+
+
+def _abs_rule(g, out, x):
+    return (Where(x >= _k(0.0), g, -g),)
+
+
+_B = BUILTINS
+_PI = _k(math.pi)
+_SQRT_PI_2 = 2.0 / math.sqrt(math.pi)
+_ONE = _k(1.0)
+
+GRADIENTS = {
+    "sin": _times(lambda x, o: _B["cos"](x)),
+    "cos": lambda g, o, x: (-(g * _B["sin"](x)),),
+    "tan": _times(lambda x, o: _ONE + o * o),
+    "asin": _times(lambda x, o: _B["rsqrt"](_ONE - x * x)),
+    "acos": _times(lambda x, o: -_B["rsqrt"](_ONE - x * x)),
+    "atan": lambda g, o, x: (g / (_ONE + x * x),),
+    "atan2": lambda g, o, y, x: (g * (x / (y * y + x * x)),
+                                 g * (-y / (y * y + x * x))),
+    "sinpi": _expands(lambda x: _B["sin"](_PI * x)),
+    "cospi": _expands(lambda x: _B["cos"](_PI * x)),
+    "tanpi": _expands(lambda x: _B["tan"](_PI * x)),
+    "asinpi": _expands(lambda x: _B["asin"](x) / _PI),
+    "acospi": _expands(lambda x: _B["acos"](x) / _PI),
+    "atanpi": _expands(lambda x: _B["atan"](x) / _PI),
+    "atan2pi": _expands(lambda y, x: _B["atan2"](y, x) / _PI),
+    "sinh": _times(lambda x, o: _B["cosh"](x)),
+    "cosh": _times(lambda x, o: _B["sinh"](x)),
+    "tanh": lambda g, o, x: ((g + g * o) * (_ONE - o),),
+    "asinh": _times(lambda x, o: _B["rsqrt"](x * x + _ONE)),
+    "acosh": _times(lambda x, o: _B["rsqrt"](x * x - _ONE)),
+    "atanh": lambda g, o, x: ((_ONE / (_ONE + x)) * (g / (_ONE - x)),),
+    "exp": _times(lambda x, o: o),
+    "exp2": lambda g, o, x: (_k(math.log(2.0)) * (g * o),),
+    "exp10": _expands(lambda x: BinOp("pow", _k(10.0), x)),
+    "expm1": _times(lambda x, o: o + _ONE),
+    "log": lambda g, o, x: (g / x,),
+    # jnp: log(x) / log(2), log(x) / log(10)
+    "log2": lambda g, o, x: ((g / _k(math.log(2.0))) / x,),
+    "log10": lambda g, o, x: ((g / _k(math.log(10.0))) / x,),
+    "log1p": lambda g, o, x: (g / (x + _ONE),),
+    "pow": _pow, "powr": _pow, "pown": _pow,
+    "sqrt": _times(lambda x, o: _k(0.5) / o),
+    "rsqrt": _times(lambda x, o: _k(-0.5) * (o / x)),
+    # lax.cbrt: 1/3 ans^-2
+    "cbrt": _times(lambda x, o: _k(1.0 / 3.0) * (_ONE / (o * o))),
+    "rootn": _expands(lambda x, n: sign(x) * BinOp("pow", _B["fabs"](x),
+                                                   _ONE / n)),
+    "hypot": lambda g, o, a, b: (g * (a / o), g * (b / o)),
+    **dict.fromkeys(("logb", "ceil", "floor", "trunc", "round", "rint",
+                     "nearbyint", "sign", "step", "imag", "nan"), _zero),
+    "fabs": _abs_rule, "abs": _abs_rule,
+    # lax.rem: 1 and -sign(x/y) floor|x/y|
+    "fmod": lambda g, o, a, b: (g, -(g * (sign(a / b) * _B["floor"](
+        _B["fabs"](a / b))))),
+    "remainder": _expands(lambda x, y: x - _B["rint"](x / y) * y),
+    "copysign": _expands(lambda a, b: Where(
+        _B["signbit"](b), -_B["fabs"](a), _B["fabs"](a))),
+    "nextafter": "JAX defines no derivative of nextafter",
+    "fdim": _expands(lambda a, b: _B["fmax"](a - b, _k(0.0))),
+    "abs_diff": _expands(lambda a, b: _B["fabs"](a - b)),
+    **dict.fromkeys(("fmin", "fmax", "min", "max"), _extreme),
+    # jnp.clip: maximum(lo, x), then minimum(hi, that)
+    "clamp": _expands(lambda x, lo, hi: _B["fmin"](hi, _B["fmax"](lo, x))),
+    "mix": _expands(lambda x, y, a: x + (y - x) * a),
+    "smoothstep": _expands(_smoothstep_tree),
+    "maxmag": _expands(lambda a, b: Where(_B["fabs"](a) >= _B["fabs"](b),
+                                          a, b)),
+    "minmag": _expands(lambda a, b: Where(_B["fabs"](a) <= _B["fabs"](b),
+                                          a, b)),
+    **dict.fromkeys(("mad", "fma", "mad24"),
+                    _expands(lambda a, b, c: a * b + c)),
+    "mul24": _expands(lambda a, b: a * b),
+    "erf": lambda g, o, x: (_k(_SQRT_PI_2) * (g * _B["exp"](-(x * x))),),
+    "erfc": lambda g, o, x: (_k(-_SQRT_PI_2) * (g * _B["exp"](-(x * x))),),
+    "lgamma": _times(lambda x, o: DIGAMMA(x)),
+    "tgamma": _expands(lambda x: Where(
+        x > _k(0.0), _B["exp"](_B["lgamma"](x)),
+        _PI / (_B["sin"](_PI * x) * _B["exp"](_B["lgamma"](_ONE - x))))),
+    "degrees": _times(lambda x, o: _k(180.0 / math.pi)),
+    "radians": _times(lambda x, o: _k(math.pi / 180.0)),
+    # jnp.ldexp: x1 itself at 0 and the infinities, else m 2^e of frexp
+    "ldexp": lambda g, o, x, n: (Where(_B["isinf"](x) | (x == _k(0.0)), g,
+                                       _B["ldexp"](g, n)), None),
+    "select": _expands(lambda a, b, c: Where(c, b, a)),
+    "real": lambda g, o, x: (g,),
+    "conj": lambda g, o, x: (g,),
+    "fract": _expands(lambda x: _B["fmin"](x - _B["floor"](x),
+                                           ONE_BELOW(x))),
+    # jnp.frexp's custom jvp: the mantissa's derivative is 2^-e
+    "frexp_mant": lambda g, o, x: (_B["ldexp"](g, -_B["frexp_exp"](x)),),
+    "digamma": "its derivative (trigamma) has no kernel form",
+    "one_below": _zero,
+}

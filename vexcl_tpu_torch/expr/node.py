@@ -42,8 +42,51 @@ __all__ = [
     "TaggedTerminal", "Temporary", "CastExpr", "element_index", "tag",
     "make_temp", "constant", "cast", "if_else", "as_expr", "EmitEnv",
     "Analysis", "analyze", "infer_types", "LazyTypes",
-    "expression_properties",
+    "expression_properties", "convert", "int_edges",
 ]
+
+
+def int_edges(dtype: torch.dtype) -> Tuple[float, float]:
+    """(lo, top) of an integer type: its least value and the power of two
+    above its largest, both exact in every float type that reaches them
+    (a float at or beyond either saturates)."""
+    info = torch.iinfo(dtype)
+    return float(info.min), 2.0 ** (info.bits - (1 if info.min else 0))
+
+
+def convert(t: torch.Tensor, code: str) -> torch.Tensor:
+    """``t`` in type ``code`` as ``lax.convert_element_type`` converts it.
+    A float (or a complex value's real part) becomes an integer by
+    truncation toward zero, saturating: NaN gives 0, values at or beyond
+    the type's range and infinities its least or largest value (0 for a
+    negative value in an unsigned type).  The limits are compared before
+    the conversion, in f64, where every float type and every edge is
+    exact.  Everything else is ``Tensor.to``: integers wrap, a float or
+    complex value becomes a boolean by ``x != 0``."""
+    dt = dtype_of_code(code)
+    if t.dtype == dt:
+        return t
+    if t.is_complex() and not dt.is_complex and dt != torch.bool:
+        t = t.real                  # astype of a complex value to a real type
+    if not t.dtype.is_floating_point or dt.is_floating_point \
+            or dt.is_complex or dt == torch.bool:
+        return t.to(dt)
+    w = t.to(torch.float64)
+    lo, top = int_edges(dt)
+    high, low = w >= top, (w <= lo) | torch.isnan(w)
+    # every value left converts exactly: |trunc(w)| < 2^63, or (u64)
+    # w - 2^63 does
+    safe = torch.where(high | low, 0.0, w)
+    if dt == torch.uint64:
+        big = safe >= 2.0 ** 63
+        v = torch.where(big, safe - 2.0 ** 63, safe).to(torch.int64)
+        v = torch.where(big, v ^ _I64_MIN, v)
+        return torch.where(high, -1, v).view(torch.uint64)
+    info = torch.iinfo(dt)
+    v = torch.where(high, info.max, safe.to(torch.int64))
+    # NaN gives 0: the least value only where w is not NaN
+    v = torch.where(low & ~torch.isnan(w), info.min, v)
+    return v.to(dt)
 
 
 class EmitEnv:
@@ -64,7 +107,7 @@ class EmitEnv:
         self.temps: Dict[Any, Any] = {}
 
     def cast(self, node: "Expr", code: str) -> torch.Tensor:
-        return node.emit_cached(self).to(dtype_of_code(code))
+        return convert(node.emit_cached(self), code)
 
     def leaf(self, node: "Expr") -> torch.Tensor:
         """A leaf's value as a tensor: a scalar payload (a Python number,
@@ -729,7 +772,7 @@ def plain_apply(op: str, entry, vals: List[torch.Tensor],
     rule, fn = entry[0], entry[1]
     cc, rc = _result_code(rule, codes)
     acs = _arg_codes(rule, codes, cc)
-    args = [v.to(dtype_of_code(c)) for v, c in zip(vals, acs)]
+    args = [convert(v, c) for v, c in zip(vals, acs)]
     out = dtype_of_code(rc)
     if getattr(fn, "typed", False):
         return fn(acs, rc, *args)

@@ -62,7 +62,13 @@ bit for bit.  Every other operation on a complex value raises
 Every node is cast to the type the port inferred for it (``types.py``
 follows the JAX package's promotion, not Triton's), scalar leaves are
 passed in their own type (a Python float is passed as its 64 bits, since
-Triton would pass it as f32), and integer ``//`` and ``%`` are corrected
+Triton would pass it as f32), a float becomes an integer as
+``node.convert`` and the JAX package convert it (truncated, NaN 0,
+saturated at the type's limits, which ``Emitter._saturate`` compares
+before the conversion: LLVM's ``fptosi`` is undefined out of range; a
+memory-bound store of 2^24 f32 into i32 takes the plain ``.to()``'s time
+within 1% on an H100, ``chip_smoke.py`` phase 16), and integer ``//``
+and ``%`` are corrected
 to floor semantics (Triton's are C's).  Integer ``**`` is PyTorch's
 ``powi``: square and multiply over the exponent's bits in the compute
 type, wrapping, while any exponent of the block has bits left.  Booleans compute what PyTorch
@@ -98,7 +104,7 @@ from ..types import (COMPLEX_CODES, code_of, dtype_of_code, real_code,
                      scalar_code)
 from .node import (_INT_WIDTH, Analysis, ArrayTerminal, BinOp, CastExpr,
                    ConstantTerminal, EmitEnv, Expr, ScalarTerminal, UnOp,
-                   VectorTerminal)
+                   VectorTerminal, convert, int_edges)
 
 __all__ = ["Emitter", "assign_source", "assign_multi_source", "assign",
            "assign_plain", "assign_multi", "assign_multi_plain",
@@ -327,7 +333,35 @@ class Emitter:
             return var
         if to == "b1":
             return f"({var} != 0)"
+        if _is_float(frm) and not _is_float(to):
+            return self._saturate(var, frm, to)
         return f"{var}.to({tl_type(to)})"
+
+    def _saturate(self, var: str, frm: str, to: str) -> str:
+        """A float of type ``frm`` as the integer type ``to``, as
+        ``node.convert`` computes it: truncated, NaN 0, saturated at and
+        beyond the type's range.  The limits are compared first (in f32,
+        or f64 for f64; both exact there), and only a value inside them
+        is converted, so the answer never rests on ``fptosi``'s undefined
+        range."""
+        src = "f64" if dtype_of_code(frm) == torch.float64 else "f32"
+        x = self.define(var if dtype_of_code(frm) == dtype_of_code(src)
+                        else f"{var}.to({tl_type(src)})")
+        dt = dtype_of_code(to)
+        lo, top = int_edges(dt)
+        high = self.define(f"{x} >= {self.constant(top, src)}")
+        under = self.define(f"{x} <= {self.constant(lo, src)}")
+        safe = self.define(f"tl.where({high} | {under} | ({x} != {x}), "
+                           f"{self.zero(src)}, {x})")
+        v = self.define(f"{safe}.to({tl_type(to)})")
+        info = torch.iinfo(dt)
+        top_v = (self.define(f"tl.full([BLOCK], -1, tl.int64).to(tl.uint64, "
+                             "bitcast=True)") if dt == torch.uint64
+                 else self.constant(info.max, to))
+        v = self.define(f"tl.where({high}, {top_v}, {v})")
+        if not info.min:
+            return v            # under the range: 0, as the safe value is
+        return f"tl.where({under}, {self.constant(info.min, to)}, {v})"
 
     def _cast_complex(self, var, frm: str, to: str):
         rf, rt = real_code(frm), real_code(to)
@@ -1045,7 +1079,55 @@ def _tgamma(em: Emitter, args, cc, rc) -> str:
     return f"tl.where({x} > 0, {pos}, libdevice.div_rn({pi}, {den}))"
 
 
+#: the asymptotic series of digamma (PyTorch's calc_digamma, Cephes)
+_DIGAMMA_A = (8.33333333333333333333E-2, -2.10927960927960927961E-2,
+              7.57575757575757575758E-3, -4.16666666666666666667E-3,
+              3.96825396825396825397E-3, -8.33333333333333333333E-3,
+              8.33333333333333333333E-2)
+
+
+def _digamma(em: Emitter, args, cc, rc) -> str:
+    """digamma as PyTorch's CUDA ``calc_digamma`` computes it (the
+    derivative of lgamma, ``builtins.DIGAMMA``): +-inf at -+0, NaN at the
+    negative integers, the reflection -pi / tan(pi r) (r the fraction of
+    x, in f64) for x < 0 with x taken to 1 - x, 1/x subtracted while x is
+    below 10 (at most 10 rounds), then psi(10) exactly at 10, else log x -
+    1/(2x) - the series in 1/x^2 (its terms dropped from 1e17)."""
+    x = args[0]
+    d, ty = em.define, tl_type(cc)
+    one, zero = em.constant(1.0, cc), em.zero(cc)
+    neg = d(f"{x} < 0")
+    r = d(f"({x} - libdevice.trunc({x})).to(tl.float64)")
+    pi = math.pi
+    acc = d(f"tl.where({neg}, (-{pi!r} / libdevice.tan({pi!r} * {r}))"
+            f".to({ty}), {zero})")
+    y = d(f"tl.where({neg}, {one} - {x}, {x})")
+    for _ in range(10):
+        small = d(f"{y} < 10.0")
+        acc = d(f"tl.where({small}, {acc} - libdevice.div_rn({one}, {y}), "
+                f"{acc})")
+        y = d(f"tl.where({small}, {y} + {one}, {y})")
+    z = d(f"libdevice.div_rn({one}, {y} * {y})")
+    poly = zero
+    for a in _DIGAMMA_A:
+        poly = d(f"{poly} * {z} + {em.constant(a, cc)}")
+    series = d(f"tl.where({y} < 1.0e17, {z} * {poly}, {zero})")
+    far = d(f"libdevice.log({y}) - libdevice.div_rn("
+            f"{em.constant(0.5, cc)}, {y}) - {series} + {acc}")
+    v = d(f"tl.where({y} == 10.0, {acc} + "
+          f"{em.constant(2.25175258906672110764, cc)}, {far})")
+    v = d(f"tl.where({neg} & ({x} == libdevice.trunc({x})), "
+          f"{em.constant(float('nan'), cc)}, {v})")
+    # +-0 gives -+inf (the sign read from the bits: -x may be 0 - x)
+    inf = em.constant(float("inf"), cc)
+    return (f"tl.where({x} == 0, tl.where(libdevice.signbit({x}) != 0, "
+            f"{inf}, -{inf}), {v})")
+
+
 _NAMED = {
+    "digamma": _digamma,
+    "one_below": lambda em, args, cc, rc=None: em.constant(
+        1.0 - torch.finfo(dtype_of_code(cc)).eps / 2, cc),
     "real": lambda em, args, cc, rc=None: args[0],
     "conj": lambda em, args, cc, rc=None: args[0], "imag": _zeros,
     "floordiv": _floordiv, "mod": _mod, "pow": _pow, "fmod": _fmod,
@@ -1308,8 +1390,9 @@ def plain_value(expr: Expr, analysis: Analysis, types, leaves, n: int,
 def assign_plain(expr: Expr, analysis: Analysis, types, leaves,
                  out: torch.Tensor) -> None:
     """The kernel's plain PyTorch version."""
-    out.copy_(plain_value(expr, analysis, types, leaves, out.numel(),
-                          out.device))
+    out.copy_(convert(plain_value(expr, analysis, types, leaves,
+                                  out.numel(), out.device),
+                      code_of(out.dtype)))
 
 
 def assign_multi_plain(exprs: Sequence[Expr], analysis: Analysis, types,
@@ -1324,7 +1407,7 @@ def assign_multi_plain(exprs: Sequence[Expr], analysis: Analysis, types,
     vals = [v.clone() if v.untyped_storage().data_ptr() in mem else v
             for v in vals]
     for o, v in zip(outs, vals):
-        o.copy_(v)
+        o.copy_(convert(v, code_of(o.dtype)))
 
 
 def launch_key(exprs: Sequence[Expr], analysis: Analysis, out_dtypes):
@@ -1581,7 +1664,8 @@ def _host_scalar(value: Expr, analysis: Analysis, types, leaves,
         v = leaves[analysis.slot_of[id(value.children[0])]]
         if isinstance(v, (int, float, np.integer, np.floating)) \
                 and not isinstance(v, bool):
-            return np.asarray(v).astype(np_type)[()]
+            return convert(torch.from_numpy(np.asarray(v)),
+                           code_of(dtype)).numpy()[()]
     stack = [value]
     while stack:
         e = stack.pop()
@@ -1592,7 +1676,8 @@ def _host_scalar(value: Expr, analysis: Analysis, types, leaves,
         stack.extend(e.children)
     env = EmitEnv({nid: leaves[s] for nid, s in analysis.slot_of.items()},
                   types, 1, torch.device("cpu"))
-    return torch.as_tensor(value.emit_cached(env)).to(dtype).numpy()[()]
+    return convert(torch.as_tensor(value.emit_cached(env)),
+                   code_of(dtype)).numpy()[()]
 
 
 def _leaf_tensor(node: Expr, analysis: Analysis, leaves, n: int, dtypes,
