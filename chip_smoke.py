@@ -122,13 +122,19 @@ each through the API) in turns with ``torch.where`` and ``torch.pow``;
 five advanced slicer keys (an index array beside an integer, two arrays
 adjacent and separated, a broadcast array of one element; one V1 launch
 each, bitwise against the plain form) and ``slicer((4096, 4096))[i,
-j](x)`` at 2^24 in turns with PyTorch's advanced indexing; ``z[:] =
-img(X, Y)`` of a 4096^2 f32 ``image2d`` at 2^24 points drawn uniformly
-over it, bilinear and nearest (one V1 launch each), in turns with its
-plain form and ``grid_sample`` on the normalised grid (the library
-column), its bound the image, X, Y and z moved once at the card's
-memory rate (``stream_bound_ms``: at the rate of a 2^26 f32 copy
-measured in the same process); ``svm_vector``'s map/unmap
+j](x)`` at 2^24 alone (one call of the fused variant of the gather form
+of ``csrc/gather.cu``, no V1 launch; bitwise against the plain form, V1
+forced and PyTorch's advanced indexing, in turns with both; the
+``advanced_index`` row is V1's, the fused variant's is under
+``gather_coords``); ``z[:] = img(X, Y)`` of a 4096^2 f32 ``image2d`` at
+2^24 points drawn uniformly over it: bilinear through the patch table
+(one V1 launch, the table's build timed, in turns with the four taps,
+the parent's form), nearest through the fused variant (in turns with
+V1), each in turns with its plain form and ``grid_sample`` on the
+normalised grid (the library column), its bound the image, X, Y and z
+moved once at the card's memory rate (``stream_bound_ms``: at the rate
+of a 2^26 f32 copy measured in the same process); ``svm_vector``'s
+map/unmap
 and ``Filter.Exclusive`` on the card; (16) gradients through the
 generator's kernels: ``LorenzEnsemble(2^22)`` as phase 12 builds it, in
 f32 and f64, ``torch.autograd.grad`` of sum(w (x_T + y_T + z_T)) after
@@ -812,6 +818,7 @@ def main() -> int:
                 "mba": mba_eval, "mba_tree": assign_indexed,
                 "cufft": cufft_execute, "builtins": assign, "ipow": assign,
                 "advanced_index": assign_indexed, "image": assign_indexed,
+                "gather_coords": cuda_gather.gather_coords,
                 "backward": generator_backward}
     main_launches = {}
 
@@ -3244,11 +3251,20 @@ def main() -> int:
     # generated kernels, advanced slicer keys, images ----------------------
     def builtins_images_phase():
         """Phase 15, in a scope of its own."""
+        from vexcl_tpu_torch.expr import triton_emit
         from vexcl_tpu_torch.expr.builtins import KERNEL_BUILTINS
+        from vexcl_tpu_torch.ops import image as image_mod
+        from vexcl_tpu_torch.ops.image import patch_table
         from vexcl_tpu_torch.types import dtype_of_code
 
         t15 = time.perf_counter()
         rec = {}
+
+        def bitwise(a, b):
+            bits = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+                    8: torch.int64}[a.element_size()]
+            return (a.dtype == b.dtype and a.shape == b.shape
+                    and torch.equal(a.view(bits), b.view(bits)))
 
         def uniform(n, lo, hi, dt=torch.float32):
             return vex.vector(data=lo + (hi - lo) * torch.rand(
@@ -3409,18 +3425,96 @@ def main() -> int:
             add_launches(got)
             k, p, _ = kernel_and_plain(view, out.size)
             rel_err(f"advanced key {tag}", k, p)
+        def forced(module, name, value, fn):
+            """fn() with module.name set to value (a route's force)."""
+            setattr(module, name, value)
+            try:
+                return fn()
+            finally:
+                setattr(module, name, None)
+
+        def gather_form_row(tag, expr, out, library, nbytes,
+                            exact_library):
+            """One API assignment of a gather at the flat index of two
+            coordinate arrays (``expr`` alone): one call of the gather
+            form's fused variant, no other gather call, no V1 launch;
+            bitwise against its plain form, V1 forced (the parent's form)
+            and, where ``exact_library``, the library call; in turns the
+            fused variant, V1, the plain form and the library call;
+            device µs by kernel and host µs a call of each form.  Returns
+            (the fused variant's row, V1's row)."""
+            _, got = counted(("gather_coords",), lambda: out.assign(expr))
+            others = {k_: counters[k_].launches
+                      for k_ in ("gather_ranges", "indexed")}
+            check(got == {"gather_coords": 1} and not any(others.values()),
+                  f"{tag}: launches {got}, {others}")
+            add_launches(got)
+            e, an, ty, lv = prepare(expr, out.size, dev)
+            k = out.storage.clone()
+            p = torch.empty_like(k)
+            assign_plain(e, an, ty, lv, p)
+            v1 = torch.empty_like(k)
+
+            def form():
+                assign(e, an, ty, lv, k)
+
+            def v1_form():
+                forced(triton_emit, "INDEX_GATHER", "v1",
+                       lambda: assign(e, an, ty, lv, v1))
+            v1_form()
+            lib = library()
+            check(bitwise(k, p) and bitwise(v1, p)
+                  and (not exact_library or bitwise(lib.reshape(-1), p)),
+                  f"{tag}: the forms, the plain form or the library call "
+                  "differ")
+            lib_diff = (lib.reshape(-1).double() - p.double()).abs().max()
+            turns = in_turns({"kernel": form, "v1": v1_form,
+                              "plain": lambda: assign_plain(e, an, ty, lv,
+                                                            p),
+                              "library": library})
+            per = {name: profile_call(fn, KERNEL_REPS)[0] for name, fn in (
+                ("kernel", form), ("v1", v1_form))}
+            common = dict(library_ms_range=turns["library"]["ms_range"],
+                          plain_ms_range=turns["plain"]["ms_range"],
+                          library_max_abs_diff=lib_diff.item())
+            row = dict(kernel_row(
+                0.0, turns["kernel"]["ms"], turns["plain"]["ms"], nbytes, 0,
+                turns["library"]["ms"]),
+                ms_range=turns["kernel"]["ms_range"],
+                device_us=sum(per["kernel"].values()),
+                device_us_by_kernel=per["kernel"],
+                host_us=host_us(lambda: out.assign(expr)),
+                form="gather_coords (the fused variant of csrc/gather.cu)",
+                Gsamples_s=out.size / (turns["kernel"]["ms"] * 1e-3) / 1e9,
+                **common)
+            v1_row = dict(kernel_row(
+                0.0, turns["v1"]["ms"], turns["plain"]["ms"], nbytes, 0,
+                turns["library"]["ms"]),
+                ms_range=turns["v1"]["ms_range"],
+                device_us=sum(v for n_, v in per["v1"].items()
+                              if "assign_kernel" in n_),
+                host_us=host_us(lambda: forced(
+                    triton_emit, "INDEX_GATHER", "v1",
+                    lambda: out.assign(expr))),
+                form="V1 (the assignment kernel's indexed loads), forced",
+                **common)
+            report(tag, row)
+            report(f"{tag}_v1", v1_row)
+            return row, v1_row
+
+        # slicer((4096, 4096))[i, j] at 2^24 keys alone: the fused variant,
+        # in turns with V1 and PyTorch's x[i, j]; the advanced_index row
+        # is V1's (the forced [i, j]; on the main path the five forms
+        # above), the fused variant's is under gather_coords
         gi, gj = ints(n, 0, g), ints(n, 0, g)
         gi64, gj64 = gi.storage.long(), gj.storage.long()
         grid2 = xg.storage.view(g, g)
         zg = vex.vector(n, dtype=torch.float32, context=ctx)
         view = vex.slicer((g, g))[gi, gj](xg)
-        kernels["advanced_index"], k = timed(
-            "advanced_index_2^24_f32", view, zg,
-            lambda: grid2[gi64, gj64], (4 + 4 + 4) * n + 4 * g * g,
-            key="advanced_index")
-        check(torch.equal(k, grid2[gi64, gj64]),
-              "advanced index: differs from PyTorch's indexing")
-        kernels["advanced_index"]["workload"] = (
+        ij_fused, kernels["advanced_index"] = gather_form_row(
+            "advanced_index_2^24_f32", view, zg, lambda: grid2[gi64, gj64],
+            (4 + 4 + 4) * n + 4 * g * g, True)
+        ij_fused["workload"] = kernels["advanced_index"]["workload"] = (
             "z[:] = slicer((4096, 4096))[i, j](x), 2^24 random (i, j), "
             "f32; the library call reads i64 indices")
         rec["advanced_forms_checked"] = len(forms)
@@ -3428,11 +3522,14 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         # images: a 4096^2 f32 image, 2^24 f32 points drawn uniformly
-        # over it, nearest and bilinear, in turns with the plain form and
-        # grid_sample (the same function on the normalised grid, padding
-        # "border": a yardstick of time, not the oracle); the bound reads
-        # X, Y, z and the image once at the card's memory rate, and
-        # stream_bound_ms at the copy's rate measured above
+        # over it, beside grid_sample (the same function on the normalised
+        # grid, padding "border": a yardstick of time, not the oracle);
+        # the bound reads X, Y, z and the image once at the card's memory
+        # rate, and stream_bound_ms at the copy's rate measured above.
+        # Bilinear: the patch table (one V1 launch), in turns with the
+        # four taps (the parent's form), the plain form and grid_sample;
+        # nearest: the gather form's fused variant, in turns with V1 (the
+        # parent's form; its row under the image sample's kernel)
         w = h = IMG_GRID
         img = torch.rand(h, w, generator=gen, device=dev)
         X, Y = uniform(n, 0.0, w - 1.0), uniform(n, 0.0, h - 1.0)
@@ -3441,51 +3538,84 @@ def main() -> int:
         inp = img.view(1, 1, h, w)
         z = vex.vector(n, dtype=torch.float32, context=ctx)
         nbytes = 3 * 4 * n + 4 * h * w
-        image_rows = {}
-        for filt, mode in (("linear", "bilinear"), ("nearest", "nearest")):
-            im = vex.image2d(img, filter=filt, context=ctx)
-            expr = im(X, Y)
-            _, got = counted(("image",), lambda: z.assign(expr))
-            check(got["image"] == 1, f"image {filt}: launches {got}")
-            add_launches(got)
-            k, p, (e, an, ty, lv) = kernel_and_plain(expr, n)
-            err = rel_err(f"image {filt}", k, p)
-            check(err <= (0.0 if filt == "nearest" else BUILTIN_TOL),
-                  f"image {filt}: rel err {err}")
 
-            def gs(mode=mode):
-                return torch.nn.functional.grid_sample(
-                    inp, grid, mode=mode, padding_mode="border",
-                    align_corners=True)
+        def gs(mode):
+            return lambda: torch.nn.functional.grid_sample(
+                inp, grid, mode=mode, padding_mode="border",
+                align_corners=True)
 
-            gs_diff = (gs().view(-1) - k).abs().max().item()
-            turns = in_turns({
-                "kernel": lambda: assign(e, an, ty, lv, k),
-                "plain": lambda: assign_plain(e, an, ty, lv, p),
-                "grid_sample": gs})
-            per_kernel, _ = profile_call(lambda: assign(e, an, ty, lv, k),
-                                         KERNEL_REPS)
-            row = dict(kernel_row(
-                (k.double() - p.double()).abs().max().item(),
-                turns["kernel"]["ms"], turns["plain"]["ms"], nbytes, 0,
-                turns["grid_sample"]["ms"]),
-                stream_bound_ms=nbytes / stream_bytes_s * 1e3,
-                ms_range=turns["kernel"]["ms_range"],
-                library_ms_range=turns["grid_sample"]["ms_range"],
-                plain_ms_range=turns["plain"]["ms_range"],
-                device_us=sum(v for n_, v in per_kernel.items()
-                              if "assign_kernel" in n_),
-                host_us=host_us(lambda: z.assign(expr)), max_rel_err=err,
-                grid_sample_max_abs_diff=gs_diff,
-                Gsamples_s=n / (turns["kernel"]["ms"] * 1e-3) / 1e9)
-            report(f"image2d_{filt}_2^24_f32", row)
-            image_rows[filt] = row
-            del im, expr, e, lv, k, p
+        im = vex.image2d(img, filter="linear", context=ctx)
+        t = time.perf_counter()
+        expr = im(X, Y)
+        torch.cuda.synchronize()
+        first_sample_s = time.perf_counter() - t
+        check(expr.patched, "image linear: the route did not take the "
+              "patch table")
+        _, got = counted(("image",), lambda: z.assign(expr))
+        check(got["image"] == 1, f"image linear: launches {got}")
+        add_launches(got)
+        k, p, (e, an, ty, lv) = kernel_and_plain(expr, n)
+        err = rel_err("image linear", k, p)
+        check(err <= BUILTIN_TOL, f"image linear: rel err {err}")
+        table = im.patch()
+        check(bitwise(table, patch_table(img)),
+              "image linear: the patch table differs from a fresh build")
+        build_ms = cuda_ms(lambda: patch_table(img, table), 10)
+        taps = forced(image_mod, "FORCE", "taps", lambda: im(X, Y))
+        check(not taps.patched, "image linear: the taps were not forced")
+        kt, pt, (et, ant, tyt, lvt) = kernel_and_plain(taps, n)
+        check(bitwise(pt, p), "image linear: the plain forms of the table "
+              "and of the taps differ")
+        err_t = rel_err("image linear taps", kt, pt)
+        check(err_t <= BUILTIN_TOL, f"image linear taps: rel err {err_t}")
+        turns = in_turns({
+            "kernel": lambda: assign(e, an, ty, lv, k),
+            "taps": lambda: assign(et, ant, tyt, lvt, kt),
+            "plain": lambda: assign_plain(e, an, ty, lv, p),
+            "grid_sample": gs("bilinear")})
+        per_kernel, _ = profile_call(lambda: assign(e, an, ty, lv, k),
+                                     KERNEL_REPS)
+        per_taps, _ = profile_call(lambda: assign(et, ant, tyt, lvt, kt),
+                                   KERNEL_REPS)
+        row = dict(kernel_row(
+            (k.double() - p.double()).abs().max().item(),
+            turns["kernel"]["ms"], turns["plain"]["ms"], nbytes, 0,
+            turns["grid_sample"]["ms"]),
+            stream_bound_ms=nbytes / stream_bytes_s * 1e3,
+            ms_range=turns["kernel"]["ms_range"],
+            library_ms_range=turns["grid_sample"]["ms_range"],
+            plain_ms_range=turns["plain"]["ms_range"],
+            taps_ms=turns["taps"]["ms"],
+            taps_ms_range=turns["taps"]["ms_range"],
+            table_build_ms=build_ms, first_sample_s=first_sample_s,
+            device_us=sum(v for n_, v in per_kernel.items()
+                          if "assign_kernel" in n_),
+            taps_device_us=sum(v for n_, v in per_taps.items()
+                               if "assign_kernel" in n_),
+            host_us=host_us(lambda: z.assign(expr)),
+            taps_host_us=host_us(lambda: z.assign(taps)),
+            max_rel_err=err, taps_max_rel_err=err_t,
+            grid_sample_max_abs_diff=(gs("bilinear")().view(-1) - k).abs()
+            .max().item(), form="patch table, one 16-byte row a point",
+            Gsamples_s=n / (turns["kernel"]["ms"] * 1e-3) / 1e9)
+        report("image2d_linear_2^24_f32", row)
+        del im, expr, taps, e, lv, et, lvt, k, p, kt, pt, table
+        torch.cuda.empty_cache()
+        im = vex.image2d(img, filter="nearest", context=ctx)
+        near, near_v1 = gather_form_row(
+            "image2d_nearest_2^24_f32", im(X, Y), z, gs("nearest"), nbytes,
+            False)
+        for r_ in (near, near_v1):
+            r_["stream_bound_ms"] = nbytes / stream_bytes_s * 1e3
         kernels["image"] = dict(
-            image_rows["linear"], others={"nearest": image_rows["nearest"]},
+            row, others={"nearest_v1": near_v1},
             workload="z[:] = img(X, Y), bilinear, 4096^2 f32 image, 2^24 "
             "f32 points uniform over it")
-        del img, X, Y, grid, inp, z
+        kernels["gather_coords"] = dict(
+            near, others={"advanced_index": ij_fused},
+            workload="z[:] = img(X, Y), nearest, 4096^2 f32 image, 2^24 f32 "
+            "points uniform over it; the library call is grid_sample")
+        del im, img, X, Y, grid, inp, z
         torch.cuda.empty_cache()
 
         # svm_vector's map/unmap on the card, and Filter.Exclusive's lock
@@ -3881,8 +4011,11 @@ def main() -> int:
          "vexcl_tpu/expr/node.py:356", "ipow"),
         ("advanced_index", "triton", "vexcl_tpu_torch/expr/view.py",
          "vexcl_tpu/expr/view.py:217-224", "advanced_index"),
-        ("image_sample", "triton", "vexcl_tpu_torch/ops/image.py",
+        ("image_sample_patch", "triton", "vexcl_tpu_torch/ops/image.py",
          "vexcl_tpu/ops/image.py:47-89", "image"),
+        ("gather_coords", "cuda", "vexcl_tpu_torch/csrc/gather.cu",
+         "vexcl_tpu/ops/image.py:57-60, vexcl_tpu/expr/view.py:217-224",
+         "gather_coords"),
         ("generator_backward", "triton",
          "vexcl_tpu_torch/expr/adjoint.py, "
          "vexcl_tpu_torch/expr/triton_emit.py",

@@ -1,6 +1,6 @@
 """The catalog's differentiable entries and the domains where the gradient
 tests sample them (``test_torch_autodiff.py`` against JAX on the CPU,
-``test_torch_cuda.py``'s backward kernels against their plain forms on
+``test_torch_cuda_builtins.py``'s backward kernels against their plain forms on
 the card)."""
 
 from chip_smoke import BUILTIN_DOMAIN, BUILTIN_INTEGER

@@ -4,7 +4,7 @@ The same inputs, made from a numpy seed, go through both packages'
 public APIs (``vex.eval``, assignment, compound assignment); results and
 result dtypes must agree.  On CPU tensors the port runs each kernel's
 plain PyTorch version; the kernels themselves are checked on the card by
-tests/test_torch_cuda.py.
+tests/test_torch_cuda_*.py.
 
 Tolerances are normwise, relative to the largest magnitude of the JAX
 result: 1e-12 in f64, 1e-5 in f32 (XLA's CPU math and PyTorch's differ by

@@ -7,7 +7,7 @@ arithmetic: 1e-6 relative (f32).  BiCGStab follows the JAX package's
 recurrences, with its scalars in f64 on the host: x within 1e-9 in the
 2-norm (f64), the same iteration count.  The user CUDA and Triton routes
 have no plain form; on the CPU they raise, and the card tests
-(``test_torch_cuda.py``) launch them.
+(``test_torch_cuda_runtime.py``) launch them.
 """
 
 import numpy as np

@@ -7,7 +7,7 @@ one program, and every partial combined exactly once.  V1's tiled form
 exactly the trees whose view reads with coefficient 1 on an axis before
 its innermost one.  Every generated source of both kernels must be
 Python that parses (the kernels themselves build and run only on the
-card: ``tests/test_torch_cuda.py``).
+card: ``tests/test_torch_cuda_views.py``).
 """
 
 import ast

@@ -38,7 +38,8 @@ from .config import config
 
 __all__ = ["cuda_library", "build_cuda_libraries", "cuda_cubin",
            "triton_module", "import_triton", "TritonLauncher",
-           "arg_classes", "Pointer", "NVCC_FLAGS", "CUBIN_FLAGS", "LIBRARIES"]
+           "arg_classes", "Pointer", "written", "NVCC_FLAGS", "CUBIN_FLAGS",
+           "LIBRARIES"]
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 
@@ -198,6 +199,16 @@ def triton_module(src: str):
         spec.loader.exec_module(mod)
         _modules[name] = mod
         return mod
+
+
+def written(*tensors: torch.Tensor) -> None:
+    """Move the ``_version`` of tensors that a kernel wrote in place, as
+    PyTorch's in-place operations move it (a write through ``data_ptr``
+    does not): what keys on the version, such as an image's patch table
+    (``ops/image.py``) and autograd's saved tensors, then sees the port's
+    own writes.  Each wrapper that writes into a tensor it was given calls
+    this on it after the launch."""
+    torch.autograd.graph.increment_version(tensors)
 
 
 class Pointer:

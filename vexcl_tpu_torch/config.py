@@ -9,7 +9,8 @@ and an assignment writes into the destination tensor in place.
 
 ``build_dir`` replaces the XLA cache directory: the CUDA libraries built
 by ``_build.py`` and the generated Triton sources live there.
-``ccsr_cache_mb`` is the JAX package's ``VEXTPU_CCSR_CACHE_MB`` budget.
+``ccsr_cache_mb`` is the JAX package's ``VEXTPU_CCSR_CACHE_MB`` budget,
+``img_patch_mb`` its ``VEXTPU_IMG_PATCH_MB``.
 """
 
 from __future__ import annotations
@@ -52,6 +53,14 @@ class _Config:
         #: admits the 256^3 Poisson matrix (7 bf16 planes, 224 MiB).
         self.ccsr_cache_mb: int = int(
             os.environ.get("VEXTPU_CCSR_CACHE_MB", "256"))
+
+        #: Device memory (MiB) up to which a linearly sampled ``image2d``
+        #: keeps its bilinear patch table, four texels a row
+        #: (VEXTPU_IMG_PATCH_MB, the JAX package's budget): 1024 admits
+        #: 4 x 4096^2 f64 texels (512 MiB); the default is the sweep's
+        #: (``scripts/torch_image_turns.py --sweep``, PERF.md §6).
+        self.img_patch_mb: int = int(
+            os.environ.get("VEXTPU_IMG_PATCH_MB", "1024"))
 
 
 config = _Config()

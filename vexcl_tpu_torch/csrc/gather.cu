@@ -11,6 +11,13 @@
 // still out of range reads the fill (NaN, the least signed integer),
 // whose bits the wrapper passes.
 //
+// The same kernels serve gathers at the flat index of two coordinate
+// arrays, always in range: a nearest 2-D image sample and slicer[i, j]
+// (vexcl_tpu/ops/image.py:57-60, vexcl_tpu/expr/view.py:217-224), through
+// vex_gather_coords, whose partition computes the index itself
+// (CoordPair).  A generated pass that wrote the i32 index first, for
+// vex_gather_ranges to read, cost 22% of that two-pass call (PERF.md §6).
+//
 // What bounds the single pass on this card: each random 4-byte load pulls
 // its own 32-byte sector, and a source larger than the 50 MB L2 (2^24
 // f32 is 64 MB) misses it: 537 MB of sectors for 2^24 loads, which arrive
@@ -108,6 +115,83 @@ __device__ __forceinline__ bool warp_uniform(const int (&b)[K]) {
   return __all_sync(kFull, same);
 }
 
+// Where (1) takes each entry's source index from: an index array, by
+// jnp.take's rule (IndexArray), or two coordinate arrays that (1) turns
+// into a flat index itself (CoordPair: the fused variant).  Each gives
+// kVec entries a 16-byte load (load, at) where the arrays are 16-byte
+// aligned (aligned), else one entry at a time (one).
+template <typename I>
+struct IndexArray {
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(I));
+  struct Pack {
+    uint4 q;
+  };
+  const I* idx;
+  int N;
+  __device__ bool aligned() const {
+    return (reinterpret_cast<uintptr_t>(idx) & 15) == 0;
+  }
+  __device__ Pack load(int64_t i) const {
+    return {__ldcs(reinterpret_cast<const uint4*>(idx + i))};
+  }
+  __device__ int at(const Pack& p, int c) const {
+    return source_index(reinterpret_cast<const I*>(&p.q)[c], N);
+  }
+  __device__ int one(int64_t i) const { return source_index(idx[i], N); }
+};
+
+// a coordinate of a CoordPair before its clamp: a float rounded half to
+// even and converted saturating, NaN 0 (cvt.rni: an image's nearest
+// sample, as Emitter.cast converts it), an integer key wrapped once by +d
+// (a slicer's index-array key)
+__device__ __forceinline__ int64_t raw_coord(float v, int) {
+  return __float2int_rn(v);
+}
+__device__ __forceinline__ int64_t raw_coord(double v, int) {
+  return __double2int_rn(v);
+}
+__device__ __forceinline__ int64_t raw_coord(int v, int d) {
+  return v < 0 ? static_cast<int64_t>(v) + d : v;
+}
+__device__ __forceinline__ int64_t raw_coord(long long v, int d) {
+  return v < 0 ? v + d : v;
+}
+
+// j = base + c0 * s0 + c1 * s1, each coordinate clamped into [0, d): in
+// range by construction
+template <typename T>
+struct CoordPair {
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  struct Pack {
+    uint4 a, b;
+  };
+  const T* a;
+  const T* b;
+  int64_t base, s0, s1;
+  int d0, d1;
+  __device__ bool aligned() const {
+    return ((reinterpret_cast<uintptr_t>(a) |
+             reinterpret_cast<uintptr_t>(b)) & 15) == 0;
+  }
+  __device__ Pack load(int64_t i) const {
+    return {__ldcs(reinterpret_cast<const uint4*>(a + i)),
+            __ldcs(reinterpret_cast<const uint4*>(b + i))};
+  }
+  __device__ static int64_t clamped(T v, int d) {
+    const int64_t c = raw_coord(v, d);
+    return c < 0 ? 0 : (c >= d ? d - 1 : c);
+  }
+  __device__ int index(T va, T vb) const {
+    return static_cast<int>(base + clamped(va, d0) * s0 +
+                            clamped(vb, d1) * s1);
+  }
+  __device__ int at(const Pack& p, int c) const {
+    return index(reinterpret_cast<const T*>(&p.a)[c],
+                 reinterpret_cast<const T*>(&p.b)[c]);
+  }
+  __device__ int one(int64_t i) const { return index(a[i], b[i]); }
+};
+
 // shared memory of (1): the tile's source indices in destination order
 // (i32), the sorted order's offsets (u16), a counter a bucket
 __host__ __device__ constexpr int partition_smem(int tile, int buckets) {
@@ -118,11 +202,10 @@ __host__ __device__ constexpr int partition_smem(int tile, int buckets) {
 // sorted order (row ranges + 1: the tile's length); sidx, soff: the tile's
 // entries in bucket order, each's index within its range (0 out of range)
 // and its destination's offset in the tile
-template <typename I>
+template <typename P>
 __global__ void __launch_bounds__(kPartThreads)
-    partition_kernel(const I* __restrict__ idx, int64_t n, int N, int log_s,
-                     int ranges, int tile, int tiles,
-                     uint32_t* __restrict__ starts,
+    partition_kernel(P ix, int64_t n, int log_s, int ranges, int tile,
+                     int tiles, uint32_t* __restrict__ starts,
                      uint16_t* __restrict__ sidx,
                      uint16_t* __restrict__ soff) {
   extern __shared__ __align__(16) unsigned char psmem[];
@@ -137,34 +220,31 @@ __global__ void __launch_bounds__(kPartThreads)
   const int t = blockIdx.x;
   const int64_t begin = static_cast<int64_t>(t) * tile;
   const int len = static_cast<int>(n - begin < tile ? n - begin : tile);
-  // the indices: kPartUnroll 16-byte loads in flight a thread where the
-  // index is 16-byte aligned (a tile starts at a multiple of 8), the rest
-  // one index a load; each round's bounds are the block's, so that every
-  // lane of a warp takes part in warp_uniform
-  constexpr int kVec = 16 / static_cast<int>(sizeof(I));
+  // the indices: kPartUnroll 16-byte loads (of each array) in flight a
+  // thread where the arrays are 16-byte aligned (a tile starts at a
+  // multiple of 8), the rest one entry a load; each round's bounds are the
+  // block's, so that every lane of a warp takes part in warp_uniform
+  constexpr int kVec = P::kVec;
   int from = 0;
-  if ((reinterpret_cast<uintptr_t>(idx) & 15) == 0) {
+  if (ix.aligned()) {
     const int whole = len / kVec * kVec;
     for (int e0 = 0; e0 < whole; e0 += kPartThreads * kVec * kPartUnroll) {
-      uint4 q[kPartUnroll];
+      typename P::Pack q[kPartUnroll];
 #pragma unroll
       for (int u = 0; u < kPartUnroll; ++u) {
         const int e = e0 + (u * kPartThreads + threadIdx.x) * kVec;
-        if (e < whole) {
-          q[u] = __ldcs(reinterpret_cast<const uint4*>(idx + begin + e));
-        }
+        if (e < whole) q[u] = ix.load(begin + e);
       }
       int b[kPartUnroll * kVec];
       uint32_t mine = 0;
 #pragma unroll
       for (int u = 0; u < kPartUnroll; ++u) {
         const int e = e0 + (u * kPartThreads + threadIdx.x) * kVec;
-        const I* raw = reinterpret_cast<const I*>(&q[u]);
 #pragma unroll
         for (int c = 0; c < kVec; ++c) {
           b[u * kVec + c] = -1;
           if (e < whole) {
-            const int j = source_index(raw[c], N);
+            const int j = ix.at(q[u], c);
             sj[e + c] = j;
             b[u * kVec + c] = bucket_of(j, ranges, log_s);
           }
@@ -185,7 +265,7 @@ __global__ void __launch_bounds__(kPartThreads)
     from = whole;
   }
   for (int e = from + threadIdx.x; e < len; e += kPartThreads) {
-    const int j = source_index(idx[begin + e], N);
+    const int j = ix.one(begin + e);
     sj[e] = j;
     atomicAdd(&cnt[bucket_of(j, ranges, log_s)], 1u);
   }
@@ -461,7 +541,6 @@ struct Args {
   void* out;
   const void* src;
   int N;
-  const void* idx;
   int64_t n;
   unsigned long long fill_bits;
   int log_s, ranges, tile, tiles;
@@ -472,18 +551,39 @@ struct Args {
   cudaStream_t st;
 };
 
-template <typename I>
-int partition(const Args& a) {
+template <typename P>
+int partition(const Args& a, const P& ix) {
   static int configured[kMaxDevices] = {};
   const int smem = partition_smem(a.tile, a.ranges + 1);
-  int rc = allow_smem(reinterpret_cast<const void*>(&partition_kernel<I>),
+  int rc = allow_smem(reinterpret_cast<const void*>(&partition_kernel<P>),
                       smem, configured);
   if (rc != 0) return rc;
-  partition_kernel<I><<<static_cast<unsigned>(a.tiles), kPartThreads, smem,
-                        a.st>>>(static_cast<const I*>(a.idx), a.n, a.N,
-                                a.log_s, a.ranges, a.tile, a.tiles, a.starts,
-                                a.sidx, a.soff);
+  partition_kernel<P><<<static_cast<unsigned>(a.tiles), kPartThreads, smem,
+                        a.st>>>(ix, a.n, a.log_s, a.ranges, a.tile, a.tiles,
+                                a.starts, a.sidx, a.soff);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int partition_coords(const Args& a, const void* ca, const void* cb,
+                     long long base, long long s0, long long s1, int d0,
+                     int d1) {
+  return partition(a, CoordPair<T>{static_cast<const T*>(ca),
+                                   static_cast<const T*>(cb), base, s0, s1,
+                                   d0, d1});
+}
+
+// the cut's limits (see vex_gather_ranges)
+bool takes(int elem_bytes, int N, int64_t n, int log_s, int ranges,
+           int tile, int tiles) {
+  return (elem_bytes == 4 || elem_bytes == 8) && N > 0 && n > 0 &&
+         log_s >= 4 && log_s <= kMaxLogS &&
+         gather_smem(elem_bytes, log_s) <= kMaxSmem && ranges > 0 &&
+         ranges <= kMaxRanges &&
+         (static_cast<int64_t>(ranges) << log_s) >= N && tile > 0 &&
+         tile <= kMaxTile && tile % 8 == 0 && tile * elem_bytes <= kMaxSmem &&
+         partition_smem(tile, ranges + 1) <= kMaxSmem && tiles > 0 &&
+         static_cast<int64_t>(tiles) * tile >= n;
 }
 
 template <typename V>
@@ -529,22 +629,59 @@ int vex_gather_ranges(void* out, const void* src, int elem_bytes, int N,
                       unsigned long long fill_bits, int log_s, int ranges,
                       int tile, int tiles, void* starts, void* sidx,
                       void* soff, void* sval, void* stream) {
-  if ((elem_bytes != 4 && elem_bytes != 8) || N <= 0 || n <= 0 ||
-      log_s < 4 || log_s > kMaxLogS ||
-      gather_smem(elem_bytes, log_s) > kMaxSmem ||
-      ranges <= 0 || ranges > kMaxRanges ||
-      (static_cast<int64_t>(ranges) << log_s) < N || tile <= 0 ||
-      tile > kMaxTile || tile % 8 != 0 || tile * elem_bytes > kMaxSmem ||
-      partition_smem(tile, ranges + 1) > kMaxSmem || tiles <= 0 ||
-      static_cast<int64_t>(tiles) * tile < n) {
+  if (!takes(elem_bytes, N, n, log_s, ranges, tile, tiles)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Args a{out, src, N, idx, n, fill_bits, log_s, ranges, tile, tiles,
+  Args a{out, src, N, n, fill_bits, log_s, ranges, tile, tiles,
          static_cast<uint32_t*>(starts), static_cast<uint16_t*>(sidx),
          static_cast<uint16_t*>(soff), sval,
          static_cast<cudaStream_t>(stream)};
   // i64 indices as long long, the type CUDA's load intrinsics name
-  int rc = idx64 ? partition<long long>(a) : partition<int>(a);
+  int rc = idx64 ? partition(a, IndexArray<long long>{
+                                    static_cast<const long long*>(idx), N})
+                 : partition(a, IndexArray<int>{
+                                    static_cast<const int*>(idx), N});
+  if (rc != 0) return rc;
+  return elem_bytes == 4 ? gather_restore<unsigned int>(a)
+                         : gather_restore<unsigned long long>(a);
+}
+
+// The fused variant: out[i] = src[j], j = base + c0 * s0 + c1 * s1 from
+// the coordinate arrays ca and cb (n elements each, of coord_type: 0 f32,
+// 1 f64, 2 i32, 3 i64), each coordinate clamped into [0, d0) and [0, d1)
+// (CoordPair); base + (d0 - 1) s0 + (d1 - 1) s1 < N.  The cut and the
+// scratch as vex_gather_ranges.
+int vex_gather_coords(void* out, const void* src, int elem_bytes, int N,
+                      const void* ca, const void* cb, int coord_type,
+                      long long base, long long s0, long long s1, int d0,
+                      int d1, int64_t n, unsigned long long fill_bits,
+                      int log_s, int ranges, int tile, int tiles,
+                      void* starts, void* sidx, void* soff, void* sval,
+                      void* stream) {
+  if (!takes(elem_bytes, N, n, log_s, ranges, tile, tiles) || d0 <= 0 ||
+      d1 <= 0 || base < 0 || s0 < 0 || s1 < 0 ||
+      base + (d0 - 1) * s0 + (d1 - 1) * s1 >= N || coord_type < 0 ||
+      coord_type > 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args a{out, src, N, n, fill_bits, log_s, ranges, tile, tiles,
+         static_cast<uint32_t*>(starts), static_cast<uint16_t*>(sidx),
+         static_cast<uint16_t*>(soff), sval,
+         static_cast<cudaStream_t>(stream)};
+  int rc;
+  switch (coord_type) {
+    case 0:
+      rc = partition_coords<float>(a, ca, cb, base, s0, s1, d0, d1);
+      break;
+    case 1:
+      rc = partition_coords<double>(a, ca, cb, base, s0, s1, d0, d1);
+      break;
+    case 2:
+      rc = partition_coords<int>(a, ca, cb, base, s0, s1, d0, d1);
+      break;
+    default:
+      rc = partition_coords<long long>(a, ca, cb, base, s0, s1, d0, d1);
+  }
   if (rc != 0) return rc;
   return elem_bytes == 4 ? gather_restore<unsigned int>(a)
                          : gather_restore<unsigned long long>(a);

@@ -96,7 +96,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from .._build import Pointer
+from .._build import Pointer, written
 from ..cache import kernel_cache
 from ..config import config
 from ..ops import cuda_gather, cuda_scatter
@@ -471,6 +471,24 @@ class Emitter:
             self.lines.append(f"{var} = tl.load(p{slot} + {idx}, mask={mask})")
             self._slots[key] = var
         return self._slots[key]
+
+    def load_quad(self, node: Expr, row: str, mask: str) -> List[str]:
+        """Row ``row`` of a tensor leaf read as rows of 4 elements (the
+        image's patch table): one (BLOCK, 4) load, each lane's elements
+        contiguous and 4-aligned, so that the card moves a 4-byte row in
+        one 16-byte load (an 8-byte one in two), split into 4 variables."""
+        slot = self.analysis.slot_of[id(node)]
+        tl_type(self.types[id(node)])
+        var = f"x{slot}_{self._n}"
+        self._n += 1
+        self.lines += [
+            f"{var} = tl.load(p{slot} + ({row} * 4)[:, None] "
+            f"+ tl.arange(0, 4)[None, :], mask={mask}[:, None])",
+            # (BLOCK, 2, 2): [:, :, 0] holds elements 0 and 2
+            f"{var}_a, {var}_b = tl.split(tl.reshape({var}, (BLOCK, 2, 2)))",
+            f"{var}_0, {var}_2 = tl.split({var}_a)",
+            f"{var}_1, {var}_3 = tl.split({var}_b)"]
+        return [f"{var}_{k}" for k in range(4)]
 
     def _load_complex(self, slot: int, leaf: torch.Tensor):
         """A complex leaf, a pointer to its real type: (re, im) variables.
@@ -1370,6 +1388,7 @@ class _AssignKernel:
         grid = (programs,) if self.tiled else (-(-n // self.consts[0]),)
         self.launcher(grid, [*map(tensor_arg, outs), *launch_args(leaves)],
                       (n,), self.consts, outs[0].device)
+        written(*outs)
 
 
 def plain_values(exprs: Sequence[Expr], analysis: Analysis, types, leaves,
@@ -1489,12 +1508,75 @@ def _gather_operands(expr: Expr, analysis: Analysis, types, leaves,
     return None if src is None else (idx, src)
 
 
+#: the form of an assignment that is exactly a gather at the flat index of
+#: two coordinate arrays (``_View.flat_coords``), forced: "fused" the
+#: gather form's fused variant (raising where it does not take the table
+#: or the coordinates), "v1" V1; None leaves it to
+#: ``cuda_gather.index_route``
+INDEX_GATHER = None
+
+
+def _index_gather_operands(expr: Expr, analysis: Analysis, types, leaves,
+                           out: torch.Tensor):
+    """(table, coordinates) where ``expr`` is exactly a gather at the flat
+    index of two coordinate arrays (``_View.flat_coords``: a nearest 2-D
+    image sample, ``slicer[i, j]``), of ``out``'s type from a contiguous
+    1-D leaf table of that type, the coordinates leaves the fused variant
+    takes (``_fused_coords``), and ``cuda_gather.index_route`` (or
+    ``INDEX_GATHER``) sends it to the gather form's fused variant; else
+    None.  Every index is in range by construction."""
+    from .view import _View
+
+    if INDEX_GATHER == "v1" or not isinstance(expr, _View) \
+            or expr.flat_coords() is None:
+        return None
+    n = out.numel()
+    src_len = expr.child_sizes(n)[0]
+    table = _leaf_tensor(expr.children[0], analysis, leaves, src_len,
+                         (out.dtype,), out.device)
+    if dtype_of_code(types[id(expr)]) != out.dtype:
+        table = None
+    coords = _fused_coords(expr, analysis, leaves, out)
+    if INDEX_GATHER is None:
+        taken = table is not None and coords is not None \
+            and cuda_gather.index_route(out.dtype, src_len, n)
+        return (table, coords) if taken else None
+    if table is None or not cuda_gather.takes(out.dtype, src_len, n):
+        raise NotImplementedError(
+            f"the gather form does not take {out.dtype} tables of "
+            f"{src_len} elements into {n}")
+    if coords is None:
+        raise NotImplementedError(
+            "the fused gather takes two leaf coordinate arrays of one type")
+    return table, coords
+
+
+def _fused_coords(view: Expr, analysis: Analysis, leaves,
+                  out: torch.Tensor):
+    """The fused variant's ``cuda_gather.Coords`` where ``view``'s flat
+    index is that of two contiguous leaf arrays of one type of
+    ``cuda_gather.COORD_TYPES`` (float coordinates of an image, integer
+    keys of a slicer: ``_View.flat_coords``); else None."""
+    a, b, dims, strides, base, rounded = view.flat_coords()
+    n = out.numel()
+    types = [t for t in cuda_gather.COORD_TYPES
+             if t.is_floating_point == rounded]
+    ta = _leaf_tensor(a, analysis, leaves, n, types, out.device)
+    tb = None if ta is None else _leaf_tensor(b, analysis, leaves, n,
+                                              (ta.dtype,), out.device)
+    if tb is None:
+        return None
+    return cuda_gather.Coords(ta, tb, tuple(dims), tuple(strides), base)
+
+
 def assign(expr: Expr, analysis: Analysis, types, leaves,
            out: torch.Tensor) -> None:
     """Write the elementwise ``expr`` into ``out`` (1-D, contiguous): a
     gather through a permutation that ``cuda_gather.route`` takes in one
-    call of the CUDA form (``_gather_operands``), else in one launch of
-    the generated kernel."""
+    call of the CUDA form (``_gather_operands``); a gather at the flat
+    index of two coordinate arrays that ``cuda_gather.index_route`` takes
+    in one call of the form's fused variant (``_index_gather_operands``);
+    else in one launch of the generated kernel."""
     if out.device.type == "cpu":
         assign_plain(expr, analysis, types, leaves, out)
         return
@@ -1505,6 +1587,11 @@ def assign(expr: Expr, analysis: Analysis, types, leaves,
     ops = _gather_operands(expr, analysis, types, leaves, out)
     if ops is not None:
         cuda_gather.gather_ranges(out, *ops)
+        return
+    ops = _index_gather_operands(expr, analysis, types, leaves, out)
+    if ops is not None:
+        table, coords = ops
+        cuda_gather.gather_coords(out, coords, table)
         return
     if _launch([expr], analysis, types, leaves, [out]).complex:
         assign_complex.launches += 1

@@ -197,6 +197,15 @@ class _View(Expr):
         ``_AffineView.tiled_axis``)."""
         return None
 
+    def flat_coords(self):
+        """(a, b, dims, strides, base, rounded) where the view reads its
+        table (its first child) at the flat index of two coordinate
+        expressions a and b, in range by construction
+        (``cuda_gather.Coords``: the gather form's fused variant's
+        operands; ``rounded``: float coordinates rounded, else integer
+        keys wrapped); else None."""
+        return None
+
     # the subclasses give the index: (index, valid lanes or None)
     def plain_index(self, env: EmitEnv):
         raise NotImplementedError
@@ -444,6 +453,17 @@ class MultiSliceView(_AffineView):
 
     def extra_sig(self) -> str:
         return f"{len(self.dims)}|{self._struct()}"
+
+    def flat_coords(self):
+        """A key of two index arrays of the view's length alone (one axis,
+        its index wrapped and clamped on every dimension)."""
+        if len(self.axes) != 1 or self.axes[0][2] is None:
+            return None
+        count, _, group, _ = self.axes[0]
+        if len(group) != 2 or any(n != count for _, _, _, n in group):
+            return None
+        (a, ka, da, _), (b, kb, db, _) = group
+        return a, b, (da, db), (ka, kb), self.base, False
 
 
 class slicer:

@@ -176,6 +176,10 @@ class _Binding(NamedTuple):
     keyed: tuple
     #: the outputs' types
     dtypes: List[torch.dtype]
+    #: the slots of leaves brought up to date before every launch (an
+    #: image's patch table, whose ``vex_refresh`` rebuilds a stale one in
+    #: place)
+    refresh: List[int]
 
 
 def _binding_class(arg) -> tuple:
@@ -291,8 +295,10 @@ class Kernel:
                 if isinstance(t, torch.Tensor):
                     analysis.leaves[s] = torch.empty(
                         t.shape, dtype=t.dtype, device="meta")
+            refresh = [s for s, t in enumerate(leaves)
+                       if hasattr(t, "vex_refresh")]
             rec = _Binding(exprs, analysis, types, leaves, slots, keyed,
-                           out_dtypes)
+                           out_dtypes, refresh)
         self._bindings[key] = rec
         return rec
 
@@ -320,11 +326,14 @@ class Kernel:
 
     @staticmethod
     def _leaves(rec: _Binding, args) -> list:
-        """The record's leaves with ``args`` put into their slots."""
+        """The record's leaves with ``args`` put into their slots, and its
+        patch tables brought up to date."""
         leaves = list(rec.leaves)
         for s, i in rec.slots:
             a = args[i]
             leaves[s] = a.storage if isinstance(a, vector) else a
+        for s in rec.refresh:
+            leaves[s].vex_refresh()
         return leaves
 
     def as_function(self) -> Callable:

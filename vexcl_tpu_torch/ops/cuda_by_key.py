@@ -51,6 +51,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from .._build import written
 from .cuda_compact import compact_plain
 from .cuda_scan import (_DTYPE_CODE, _MONOIDS, _OPS, _carry_dtype,
                         _check_mono, _identity, segscan_plain)
@@ -408,6 +409,7 @@ def scan_by_key_apply(keys: Sequence[torch.Tensor], x: torch.Tensor,
     mode = (2 if exclusive else 0) + (init is not None)
     _launch(code, mono, mode, keys, (), x, out, _init_bits(init, x.dtype),
             None, "keyed scan")
+    written(out)
     scan_by_key_apply.launches += 1
     return out
 

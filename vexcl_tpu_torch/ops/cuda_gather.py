@@ -23,7 +23,13 @@ a CUDA tensor the kernels launch or the call raises.
 
 ``route(dtype, src_len, n, index_dtype)`` is the pure choice between the
 form and V1's single pass, from thresholds a sweep on the card set
-(``scripts/torch_gather_turns.py --sweep``; PERF.md §6).
+(``scripts/torch_gather_turns.py --sweep``; PERF.md §6).  The form also
+serves gathers at the flat index of two coordinate arrays (a nearest
+2-D image sample, ``slicer[i, j]``) through its fused variant,
+``gather_coords``, whose partition computes the index;
+``index_route(dtype, src_len, n)`` chooses for them, from
+``scripts/torch_image_turns.py --sweep``.  ``takes`` is what the kernels
+take.
 ``ranges_mirror`` is the form's plan in tensor code (the tiles' bucket
 starts, the sorted indices and offsets, the values, the restore) for the
 CPU tests.  Scratch is allocated by the wrapper with ``torch.empty`` a
@@ -33,14 +39,16 @@ call.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from .._build import written
 from .cuda_scatter import _SIZE, _on, _raise
 
-__all__ = ["route", "gather_plan", "GatherPlan", "gather_ranges",
-           "gather_plain", "ranges_mirror", "fill_bits"]
+__all__ = ["route", "index_route", "takes", "gather_plan", "Coords",
+           "coords_index", "gather_coords", "COORD_TYPES", "GatherPlan",
+           "gather_ranges", "gather_plain", "ranges_mirror", "fill_bits"]
 
 _BITS = {4: torch.int32, 8: torch.int64}
 
@@ -77,6 +85,24 @@ _WALK_BYTES = (2 * 1024 + 1) * 4
 #: the least source bytes, and destinations a source element by width
 MIN_SOURCE_BYTES = 1 << 26
 MIN_PER_ELEMENT = {4: 1 / 4, 8: 1}
+# The index route's thresholds (the fused variant, its partition
+# computing the index, against V1's single pass that computes the index
+# and loads it), from scripts/torch_image_turns.py --sweep (nearest
+# samples and [i, j] of f32, f64 and i32 tables of 2^14 to 2^28 bytes,
+# 1/16 to 16 points an element, uniform and clustered, each form forced,
+# events ms a call on an H100 80GB HBM3 at 700 W; PERF.md §6).  With
+# uniform points the fused variant took 0.59-0.72x V1's time from a point
+# an element of 4-byte tables of 64 MB and a quarter from 128 MB, and
+# 0.78-0.94x from a point an element of 8-byte tables of 64 MB.  Below,
+# V1 wins 1.1-3x: L2 serves its loads, and the form's launches cost host
+# time.  Clustered points lose 1.5-3.7x; the route sees sizes and types
+# only.
+#: element width -> ((least table bytes, least points a table element),
+#: ...): the route takes a gather meeting any pair
+INDEX_ROUTE = {
+    4: ((1 << 26, 1), (1 << 27, 1 / 4)),
+    8: ((1 << 26, 1),),
+}
 
 
 class GatherPlan(NamedTuple):
@@ -111,18 +137,74 @@ def _fits(plan: GatherPlan, itemsize: int) -> bool:
                     6 * plan.tile + 4 * (plan.ranges + 1)) <= SMEM_BYTES)
 
 
+def takes(dtype: torch.dtype, src_len: int, n: int) -> bool:
+    """Whether the kernels take ``n`` destinations of a ``dtype`` source
+    of ``src_len`` elements (types, sizes and the plan's memory)."""
+    if dtype not in _SIZE or n <= 0 or src_len <= 0 \
+            or max(n, src_len) >= 1 << 31:
+        return False
+    return _fits(gather_plan(src_len, n, _SIZE[dtype]), _SIZE[dtype])
+
+
 def route(dtype: torch.dtype, src_len: int, n: int,
           index_dtype: torch.dtype) -> bool:
     """True where the form takes ``n`` destinations gathered through an
     ``index_dtype`` index from a ``dtype`` source of ``src_len``
     elements, False where V1's single pass keeps them."""
-    if dtype not in _SIZE or index_dtype not in (torch.int32, torch.int64) \
-            or n <= 0 or src_len <= 0 or max(n, src_len) >= 1 << 31:
+    if index_dtype not in (torch.int32, torch.int64) \
+            or not takes(dtype, src_len, n):
         return False
     size = _SIZE[dtype]
     return (src_len * size >= MIN_SOURCE_BYTES
-            and n >= MIN_PER_ELEMENT[size] * src_len
-            and _fits(gather_plan(src_len, n, size), size))
+            and n >= MIN_PER_ELEMENT[size] * src_len)
+
+
+def index_route(dtype: torch.dtype, src_len: int, n: int) -> bool:
+    """True where a gather at the flat index of two coordinate arrays (a
+    nearest 2-D image sample, ``slicer[i, j]``) of ``n`` destinations
+    from a ``dtype`` table of ``src_len`` elements takes the fused
+    variant (``gather_coords``); False where V1's single pass keeps
+    it."""
+    if not takes(dtype, src_len, n):
+        return False
+    size = _SIZE[dtype]
+    return any(src_len * size >= least and n >= per * src_len
+               for least, per in INDEX_ROUTE[size])
+
+
+#: the coordinate types of the fused variant (``gather_coords``), by the
+#: code ``vex_gather_coords`` takes
+COORD_TYPES = {torch.float32: 0, torch.float64: 1, torch.int32: 2,
+               torch.int64: 3}
+
+
+class Coords(NamedTuple):
+    """Two coordinate arrays and the flat index they give, the fused
+    variant's operand: j = base + c0 * strides[0] + c1 * strides[1], each
+    c clamped into [0, dims[k]): a float rounded half to even and
+    converted to i32 saturating (NaN 0: a nearest image sample), an
+    integer wrapped once by +dims[k] (a slicer's index-array key)."""
+
+    a: torch.Tensor
+    b: torch.Tensor
+    dims: Tuple[int, int]
+    strides: Tuple[int, int]
+    base: int
+
+
+def coords_index(c: Coords) -> torch.Tensor:
+    """The flat index (i64) of ``c`` in tensor code: the fused variant's
+    plain version of the index."""
+    j = torch.full(c.a.shape, c.base, dtype=torch.int64, device=c.a.device)
+    for v, d, s in zip((c.a, c.b), c.dims, c.strides):
+        if v.is_floating_point():
+            w = torch.round(v.double()).clamp(-2.0 ** 31, 2.0 ** 31 - 1)
+            k = torch.where(torch.isnan(w), 0.0, w).to(torch.int64)
+        else:
+            k = v.to(torch.int64)
+            k = torch.where(k < 0, k + d, k)
+        j += k.clamp(0, d - 1) * s
+    return j
 
 
 def _sources(idx: torch.Tensor, src_len: int):
@@ -205,7 +287,11 @@ def _lib():
         lib.vex_gather_ranges.argtypes = [
             ptr, ptr, i32, i32, ptr, i32, i64, ctypes.c_ulonglong, i32, i32,
             i32, i32, ptr, ptr, ptr, ptr, ptr]
-        for f in (lib.vex_gather_ranges, lib.vex_gather_max_ranges):
+        lib.vex_gather_coords.argtypes = [
+            ptr, ptr, i32, i32, ptr, ptr, i32, i64, i64, i64, i32, i32, i64,
+            ctypes.c_ulonglong, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
+        for f in (lib.vex_gather_ranges, lib.vex_gather_coords,
+                  lib.vex_gather_max_ranges):
             f.restype = i32
         lib.vex_cuda_error_string.argtypes = [i32]
         lib.vex_cuda_error_string.restype = ctypes.c_char_p
@@ -216,19 +302,23 @@ def _lib():
     return lib
 
 
-def _check(out: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> None:
+def _check(out: torch.Tensor, src: torch.Tensor, keys, key_types,
+           what: str = "indices") -> None:
+    """The operands: ``keys`` (the index, or the coordinates) of
+    ``key_types``, one an output element."""
     if out.dtype not in _SIZE:
         raise NotImplementedError(f"no gather kernel for {out.dtype}")
-    if idx.dtype not in (torch.int32, torch.int64):
-        raise NotImplementedError(f"gather indices are i32 or i64, not "
-                                  f"{idx.dtype}")
+    if any(k.dtype not in key_types for k in keys):
+        raise NotImplementedError(
+            f"gather {what} are one of {[str(t) for t in key_types]}, not "
+            f"{[str(k.dtype) for k in keys]}")
     if src.dtype != out.dtype:
         raise ValueError("gather: a source of the output's type")
-    if any(t.ndim != 1 or not t.is_contiguous() for t in (out, idx, src)) \
-            or out.shape != idx.shape:
-        raise ValueError("gather: contiguous 1-D output, index and source, "
-                         "one index an output element")
-    if idx.device != out.device or src.device != out.device:
+    if any(t.ndim != 1 or not t.is_contiguous() for t in (out, src, *keys)) \
+            or any(k.shape != out.shape for k in keys):
+        raise ValueError(f"gather: contiguous 1-D output, {what} and "
+                         "source, one an output element")
+    if any(t.device != out.device for t in (src, *keys)):
         raise ValueError("gather operands on one device")
     if max(out.numel(), src.numel()) >= 1 << 31:
         raise NotImplementedError("the gather kernels take fewer than 2^31 "
@@ -239,10 +329,12 @@ _fill_bits: Dict[torch.dtype, int] = {}
 
 
 def _launch(out: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
-            plan: GatherPlan = None, keep: bool = False):
-    """The form's three launches on CUDA tensors; with ``keep``, returns
-    its scratch (starts, sidx, soff, sval)."""
-    n, src_len = idx.numel(), src.numel()
+            plan: GatherPlan = None, keep: bool = False,
+            coords: Coords = None):
+    """The form's three launches on CUDA tensors, the index read from
+    ``idx`` or computed from ``coords`` (the fused variant); with
+    ``keep``, returns its scratch (starts, sidx, soff, sval)."""
+    n, src_len = out.numel(), src.numel()
     size = src.element_size()
     if plan is None:
         plan = gather_plan(src_len, n, size)
@@ -262,11 +354,20 @@ def _launch(out: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
     scratch = torch.empty(at_idx + 2 * n, dtype=torch.uint8, device=dev)
     s = scratch.data_ptr()
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    args = (out.data_ptr(), src.data_ptr(), size, src_len, idx.data_ptr(),
-            int(idx.dtype == torch.int64), n, bits, plan.log_s, plan.ranges,
-            plan.tile, plan.tiles, s, s + at_idx, s + at_off, s + at_val,
-            stream)
-    _raise(lib, _on(dev, lib.vex_gather_ranges, args), "gather_ranges")
+    cut = (bits, plan.log_s, plan.ranges, plan.tile, plan.tiles, s,
+           s + at_idx, s + at_off, s + at_val, stream)
+    if coords is None:
+        args = (out.data_ptr(), src.data_ptr(), size, src_len,
+                idx.data_ptr(), int(idx.dtype == torch.int64), n, *cut)
+        _raise(lib, _on(dev, lib.vex_gather_ranges, args), "gather_ranges")
+    else:
+        c = coords
+        args = (out.data_ptr(), src.data_ptr(), size, src_len,
+                c.a.data_ptr(), c.b.data_ptr(), COORD_TYPES[c.a.dtype],
+                c.base, c.strides[0], c.strides[1], c.dims[0], c.dims[1], n,
+                *cut)
+        _raise(lib, _on(dev, lib.vex_gather_coords, args), "gather_coords")
+    written(out)
     if not keep:
         return None
     return {"starts": scratch[:4 * cells].view(torch.int32).view(
@@ -280,7 +381,7 @@ def gather_ranges(out: torch.Tensor, idx: torch.Tensor,
                   src: torch.Tensor) -> None:
     """``out[i] = src[idx[i]]`` by ``jnp.take``'s rule; see the module
     docstring."""
-    _check(out, idx, src)
+    _check(out, src, (idx,), (torch.int32, torch.int64))
     if out.device.type == "cpu":
         gather_plain(out, idx, src)
         return
@@ -296,3 +397,38 @@ def gather_ranges(out: torch.Tensor, idx: torch.Tensor,
 
 #: calls that launched the form's kernels (not of the plain version)
 gather_ranges.launches = 0
+
+
+def _check_coords(out: torch.Tensor, c: Coords, src: torch.Tensor) -> None:
+    if c.b.dtype != c.a.dtype:
+        raise NotImplementedError("the fused gather takes coordinates of "
+                                  "one type")
+    _check(out, src, (c.a, c.b), tuple(COORD_TYPES), "coordinates")
+    if min(c.dims) <= 0 or c.base < 0 or min(c.strides) < 0 or c.base + (
+            c.dims[0] - 1) * c.strides[0] + (c.dims[1] - 1) * c.strides[1] \
+            >= src.numel():
+        raise ValueError(f"gather: coordinates {c.dims} at strides "
+                         f"{c.strides} from {c.base} reach beyond the "
+                         f"source's {src.numel()} elements")
+
+
+def gather_coords(out: torch.Tensor, coords: Coords,
+                  src: torch.Tensor) -> None:
+    """``out[i] = src[j]``, j the flat index of ``coords`` (``Coords``; in
+    range by construction): the fused variant, whose partition computes
+    the index itself.  On a CPU tensor, the plain version
+    (``coords_index`` and ``gather_plain``)."""
+    _check_coords(out, coords, src)
+    if out.device.type == "cpu":
+        gather_plain(out, coords_index(coords), src)
+        return
+    if out.device.type != "cuda":
+        raise NotImplementedError(f"no gather kernel for {out.device}")
+    if out.numel() == 0:
+        return
+    _launch(out, None, src, coords=coords)
+    gather_coords.launches += 1
+
+
+#: calls that launched the fused variant's kernels
+gather_coords.launches = 0

@@ -37,6 +37,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from .._build import written
 from .cuda_scatter import _on, _raise
 
 __all__ = ["table", "mba_eval", "mba_plain"]
@@ -122,6 +123,7 @@ def mba_eval(out: torch.Tensor, coords: Sequence[torch.Tensor],
             torch._C._cuda_getCurrentRawStream(dev.index))
     lib = _lib()
     _raise(lib, _on(dev, lib.vex_mba_eval, args), "mba_eval")
+    written(out)
     mba_eval.launches += 1
 
 

@@ -41,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from .._build import written
 from .cuda_scratch import StreamScratch
 
 __all__ = ["scan_apply", "segscan_apply", "scan_plain", "segscan_plain",
@@ -270,6 +271,7 @@ def scan_apply(x: torch.Tensor, mono: str = "add",
         return out
     _launch("vex_scan", "scan", x, code, _MONOIDS[mono],
             x.data_ptr(), out.data_ptr())
+    written(out)
     scan_apply.launches += 1
     return out
 
@@ -298,6 +300,7 @@ def segscan_apply(heads: torch.Tensor, x: torch.Tensor, mono: str = "add",
         return out
     _launch("vex_segscan", "segmented scan", x, code,
             _MONOIDS[mono], heads.data_ptr(), x.data_ptr(), out.data_ptr())
+    written(out)
     segscan_apply.launches += 1
     return out
 

@@ -47,6 +47,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .._build import written
+
 __all__ = ["ROUTE_MODES", "route", "range_plan", "window_plan", "RangePlan",
            "scatter_ranges", "scatter_privatized", "scatter_plain",
            "ranges_mirror"]
@@ -388,6 +390,7 @@ def _ranges_launch(out: torch.Tensor, idx: torch.Tensor,
             w + 4 * (cells + plan.ranges), p,
             p + at if val is not None else None, stream)
     _raise(lib, _on(dev, lib.vex_scatter_ranges, args), "scatter_ranges")
+    written(out)
     if not keep:
         return None
     return {"counts": words[:cells],
@@ -451,6 +454,7 @@ def scatter_privatized(out: torch.Tensor, idx: torch.Tensor,
         _scalar_bits(scalar, out.dtype), _MODE_CODE[mode], window, windows,
         blocks, stream))
     _raise(lib, rc, "scatter_privatized")
+    written(out)
     scatter_privatized.launches += 1
 
 

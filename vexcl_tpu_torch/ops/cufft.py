@@ -28,6 +28,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .._build import written
 from .cuda_scatter import _on
 
 __all__ = ["layout", "execute"]
@@ -148,6 +149,7 @@ def execute(plan, x: torch.Tensor, out: torch.Tensor) -> None:
     _check(_on(dev, e.exec, (e.handle, x.data_ptr(), out.data_ptr(),
                              _INVERSE if plan.inverse else _FORWARD)),
            "exec")
+    written(out)
     execute.launches += 1
     if e.scale is not None:
         out.mul_(e.scale)

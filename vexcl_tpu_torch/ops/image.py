@@ -7,15 +7,30 @@ backend/cuda/texture_object.hpp, and vexcl/svm_vector.hpp).
   ``img(x)`` and ``img(x, y)``, nearest (``jnp.round``: half to even) or
   linear with clamp-to-edge addressing; a linear sample clamps its
   coordinates into the image first, as the JAX package does.  A sample
-  is one node over the flat table and the coordinates, whose kernel form
-  writes the clamps, the taps (loads of the table at computed indices)
-  and the lerp into the assignment kernel (V1), as MBA's taps were before
-  their CUDA kernel.  The reference binds a texture object; the port
-  reads the table through the L1 and L2 caches, which serve the same
-  purpose on the H100.  The JAX package's bilinear patch table (four
-  texels a row, one row gather a sample; ``VEXTPU_IMG_PATCH_MB``) is not
-  ported: it exists because TPU gathers are bound by the count of
-  indices, which the card's are not.
+  is one node over the table and the coordinates, whose kernel form
+  writes the clamps, the taps and the lerp into the assignment kernel
+  (V1).  The reference binds a texture object; the port reads the table
+  through the L1 and L2 caches.  On the H100 a scattered read costs its
+  32-byte sector, not its 4 bytes (``csrc/gather.cu``), and a 4096^2 f32
+  image (64 MB) is larger than the 50 MB L2, so a sample's time is set by
+  the sectors it touches.
+* A linear 2-D sample whose image ``patch_route`` takes reads the JAX
+  package's bilinear patch table (``image2d._ensure_patch``,
+  ``VEXTPU_IMG_PATCH_MB``, ``config.img_patch_mb``): row ``y*w + x``
+  holds the edge-clamped texels (I[y, x], I[y, x+1], I[y+1, x],
+  I[y+1, x+1]), 16 bytes of f32 (32 of f64) in one sector, read with one
+  16-byte load a lane (two for f64) where the four taps touch two rows'
+  sectors.  The table is built on the image's device by tensor copies at
+  the first such sample (construction, like a sparse format's), and
+  again where the image's tensor was written in place since
+  (``Tensor._version``); the lerp is the four-tap form's, term by term.
+  An image over the budget, or of another type, keeps the four taps.
+* A nearest 2-D sample alone in an assignment, of two leaf float
+  coordinate arrays of one type, goes through the gather form's fused
+  variant (``csrc/gather.cu``, ``cuda_gather.gather_coords``) where
+  ``cuda_gather.index_route`` takes it (``expr/triton_emit.py``,
+  ``_index_gather_operands``): its partition kernel computes the clamped
+  flat index ``flat_coords`` describes, and the table is read by ranges.
 * ``svm_vector``: a vector with the reference's map/unmap protocol over a
   host mirror: ``map()`` copies the vector to the host, ``unmap()`` writes
   the mirror back, and ``with v as host:`` does both.
@@ -28,13 +43,15 @@ from typing import Any, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..config import config
 from ..context import current_context
-from ..expr.node import ArrayTerminal, EmitEnv, as_expr
+from ..expr.node import ArrayTerminal, EmitEnv, as_expr, convert
 from ..expr.view import _View
 from ..types import COMPLEX_CODES, dtype_of_code, real_code
 from ..vector import vector
 
-__all__ = ["image1d", "image2d", "svm_vector"]
+__all__ = ["image1d", "image2d", "svm_vector", "patch_route",
+           "patch_table"]
 
 _FILTERS = ("nearest", "linear")
 #: the assignment kernel's (BLOCK, warps) over a linear sample: one
@@ -42,6 +59,62 @@ _FILTERS = ("nearest", "linear")
 #: 0.765 ms at this shape on an H100 SXM (700 W), 0.962 at the default
 #: (1024, 4); nearest ones gain 1% (``scripts/torch_image_shapes.py``)
 _LINEAR_SHAPE = (256, 8)
+
+#: the types the patch form takes: rows of 16 or 32 bytes, one sector
+PATCH_TAKES = (torch.float32, torch.float64, torch.int32, torch.int64)
+# The patch table's route, from scripts/torch_image_turns.py --sweep (f32,
+# f64 and i32 images of 2^14 to 2^28 bytes, 1/16 to 16 points a texel,
+# uniform and clustered points, events ms of the four taps and the table
+# forced, on an H100 80GB HBM3 at 700 W; PERF.md §6): from images of 64
+# MB, which overflow the 50 MB L2, the table took 0.54-0.81x the taps'
+# time for uniform points of every density (1.01 at 1/16 a texel of 64
+# MB of f32).  Below, the taps hit L2 where the 4x table does not
+# (1.12-1.36x at 16-32 MB), or the call's host time sets both.  Clustered
+# points lose 1.03-1.68x with the table (the taps then hit L1 and L2); the
+# route sees sizes and types only.
+#: the types whose linear 2-D samples read the patch table
+PATCH_TYPES = (torch.float32, torch.float64, torch.int32)
+#: the least image bytes for which the table is built
+PATCH_MIN_BYTES = 1 << 26
+
+#: the form of a linear 2-D sample made from now on, forced: "patch" or
+#: "taps" ("patch" on a type the table does not take raises); None
+#: leaves it to ``patch_route`` (the card's samples; a CPU image keeps
+#: the four taps)
+FORCE: Optional[str] = None
+
+
+def patch_route(dtype: torch.dtype, h: int, w: int, budget_mb: int) -> bool:
+    """True where a linear sample of an (h, w) image of ``dtype`` reads
+    the patch table: a type of ``PATCH_TYPES``, at least
+    ``PATCH_MIN_BYTES`` of image, at most ``budget_mb`` MiB of table, and
+    fewer than 2^31 table elements."""
+    table = 4 * h * w
+    return (dtype in PATCH_TYPES and h * w * dtype.itemsize
+            >= PATCH_MIN_BYTES and table * dtype.itemsize <= budget_mb << 20
+            and table < 1 << 31)
+
+
+def patch_table(data: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The JAX package's bilinear patch table of the 2-D ``data``
+    (``vexcl_tpu/ops/image.py``, ``image2d._ensure_patch``), flat on its
+    device: (h*w*4,), row ``y*w + x`` holding (I[y, x], I[y, x+1],
+    I[y+1, x], I[y+1, x+1]) with x+1 and y+1 clamped to the last column
+    and row; written into ``out`` where given.  The image is copied with
+    its last column and row repeated (P, (h+1, w+1)), and the table is one
+    copy of P's overlapping (h, w, 2, 2) view, written in order: it reads
+    the image about twice and writes the table once."""
+    h, w = data.shape
+    if out is None:
+        out = torch.empty(h * w * 4, dtype=data.dtype, device=data.device)
+    pad = torch.empty(h + 1, w + 1, dtype=data.dtype, device=data.device)
+    pad[:h, :w] = data
+    pad[:h, w] = data[:, -1]
+    pad[h] = pad[h - 1]
+    out.view(h, w, 2, 2).copy_(
+        pad.as_strided((h, w, 2, 2), (w + 1, 1, w + 1, 1)))
+    return out
 
 
 def _concrete(code: str) -> str:
@@ -64,12 +137,16 @@ class ImageSample(_View):
 
     def __init__(self, img: "_Image", *coords: Any):
         self.img = img
-        self.children = (img._table,) + tuple(as_expr(c) for c in coords)
+        #: the table child is the patch table (a linear 2-D sample)
+        self.patched = img._patch_form()
+        tab = img._patch_leaf() if self.patched else img._table
+        self.children = (tab,) + tuple(as_expr(c) for c in coords)
         if img.filter == "linear":
             self.kernel_shape = _LINEAR_SHAPE
 
     def extra_sig(self) -> str:
-        return f"{self.img.filter}:{self.img.shape}"
+        p = ":p" if self.patched else ""
+        return f"{self.img.filter}:{self.img.shape}{p}"
 
     def _infer(self, child_codes):
         if self.img.filter == "linear" and child_codes[0] == "b1":
@@ -77,7 +154,8 @@ class ImageSample(_View):
         return child_codes[0]
 
     def child_sizes(self, m):
-        return [int(self.img.data.numel())] + [m] * (len(self.children) - 1)
+        return [int(self.img.data.numel()) * (4 if self.patched else 1)] \
+            + [m] * (len(self.children) - 1)
 
     def size_hint(self) -> Optional[int]:
         for c in self.children[1:]:
@@ -92,9 +170,7 @@ class ImageSample(_View):
         coords = [self._coord(env, c) for c in self.children[1:]]
         dims = self.img.shape[::-1]           # x along the last axis
         if self.img.filter == "nearest":
-            idx = [torch.round(c).to(torch.int32) if c.is_floating_point()
-                   else c.to(torch.int32) for c in coords]
-            return _take(tab, self._flat(idx, dims))
+            return _take(tab, self._flat(self._nearest(coords), dims))
         rc = env.types[id(self)]
         code = env.types[id(self.children[0])]
         cdt = dtype_of_code(rc)
@@ -110,8 +186,12 @@ class ImageSample(_View):
                 real_code(rc))))
             i0.append(c0.to(torch.int32))
             i1.append(c0.to(torch.int32) + 1)
-        taps = [_take(tab, self._flat(ix, dims))
-                for ix in self._corners(i0, i1)]
+        if self.patched:
+            # the patch table's row at the first corner holds the four
+            taps = list(_take(tab.view(-1, 4), self._flat(i0, dims)).t())
+        else:
+            taps = [_take(tab, self._flat(ix, dims))
+                    for ix in self._corners(i0, i1)]
         if wide:
             taps = [v.view(torch.int64) if v.dtype == torch.uint64
                     else v.to(torch.int64) for v in taps]
@@ -120,6 +200,21 @@ class ImageSample(_View):
             return (out.view(torch.uint64) if cdt == torch.uint64
                     else out.to(cdt))
         return out
+
+    def flat_coords(self):
+        """A nearest 2-D sample's x and y (see ``_View.flat_coords``)."""
+        if self.img.filter != "nearest" or self.img.ndim != 2:
+            return None
+        h, w = self.img.shape
+        return (self.children[1], self.children[2], (w, h), (1, w), 0,
+                True)
+
+    @staticmethod
+    def _nearest(coords: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Each coordinate rounded half to even and converted to i32 as
+        ``astype`` converts it (a float saturating, NaN 0)."""
+        return [convert(torch.round(c), "i32") if c.is_floating_point()
+                else c.to(torch.int32) for c in coords]
 
     @staticmethod
     def _coord(env: EmitEnv, c) -> torch.Tensor:
@@ -159,17 +254,10 @@ class ImageSample(_View):
         tab = self.children[0]
         code = em.types[id(tab)]
         dims = self.img.shape[::-1]
-        coords = []
-        for c in self.children[1:]:
-            cc = em.types[id(c)]
-            coords.append((_var(em, em.cast(em.value(c), cc, _concrete(cc))),
-                           _concrete(cc)))
+        coords = self._coords_src(em)
         mask = em.at[1]
         if self.img.filter == "nearest":
-            terms = [self._index_src(em, em.define(
-                f"{self._round(em, v, c, 'rint')}.to(tl.int32)"), d, s)
-                for (v, c), d, s in zip(coords, dims, _strides(dims))]
-            return em.value(tab, (em.define(" + ".join(terms)), mask))
+            return em.value(tab, (self._nearest_src(em, coords), mask))
         rc = _concrete(em.types[id(self)])
         real = real_code(rc)
         i0, i1, t = [], [], []
@@ -184,9 +272,14 @@ class ImageSample(_View):
             t.append(_var(em, em.cast(_var(em, w), real_code(code), real)))
             j = em.define(f"{v0}.to(tl.int32)")
             i0.append(self._index_src(em, j, d, s))
-            i1.append(self._index_src(em, em.define(f"{j} + 1"), d, s))
-        taps = [em.cast(em.value(tab, (em.define(" + ".join(ix)), mask)),
-                        code, rc) for ix in self._corners(i0, i1)]
+            if not self.patched:
+                i1.append(self._index_src(em, em.define(f"{j} + 1"), d, s))
+        if self.patched:
+            taps = em.load_quad(tab, em.define(" + ".join(i0)), mask)
+        else:
+            taps = [em.value(tab, (em.define(" + ".join(ix)), mask))
+                    for ix in self._corners(i0, i1)]
+        taps = [em.cast(v, code, rc) for v in taps]
         one = em.constant(1, real)
         u = [em.define(f"{one} - {w}") for w in t]
         parts = 2 if rc in COMPLEX_CODES else 1
@@ -201,6 +294,23 @@ class ImageSample(_View):
                        f"{t[0]} * {t[1]}")
             out.append(em.define(src))
         return tuple(out) if parts == 2 else out[0]
+
+    def _coords_src(self, em):
+        """The coordinates' variables, each in its compute code."""
+        out = []
+        for c in self.children[1:]:
+            cc = em.types[id(c)]
+            out.append((_var(em, em.cast(em.value(c), cc, _concrete(cc))),
+                        _concrete(cc)))
+        return out
+
+    def _nearest_src(self, em, coords) -> str:
+        """``_nearest`` and ``_flat`` in the kernel: the flat index."""
+        dims = self.img.shape[::-1]
+        terms = [self._index_src(em, em.define(em.cast(
+            self._round(em, v, c, "rint"), c, "i32")), d, s)
+            for (v, c), d, s in zip(coords, dims, _strides(dims))]
+        return em.define(" + ".join(terms))
 
     @staticmethod
     def _round(em, v: str, code: str, fn: str) -> str:
@@ -274,6 +384,55 @@ class _Image:
         self.shape = tuple(data.shape)
         self.filter = filter
         self._table = ArrayTerminal(self.data.reshape(-1))
+        self._patch: Optional[torch.Tensor] = None
+        self._patch_version = -1
+        self._patch_terminal: Optional[_PatchTerminal] = None
+
+    def _patch_form(self) -> bool:
+        """Whether a sample made now reads the patch table (``FORCE``,
+        else ``patch_route`` on a CUDA image)."""
+        if self.filter != "linear" or self.ndim != 2 or FORCE == "taps":
+            return False
+        if FORCE == "patch":
+            if self.data.dtype not in PATCH_TAKES:
+                raise NotImplementedError(
+                    f"no patch table for {self.data.dtype} images")
+            return True
+        return self.data.device.type == "cuda" and patch_route(
+            self.data.dtype, *self.shape, config.img_patch_mb)
+
+    def patch(self) -> torch.Tensor:
+        """The patch table (``patch_table``), built at the first call and
+        rebuilt in place where the image's tensor was written in place
+        since (its ``_version`` moved)."""
+        version = self.data._version
+        if self._patch is None:
+            self._patch = patch_table(self.data)
+            # a generator kernel's record keeps the table as a leaf and
+            # calls this before each launch (``generator.Kernel._leaves``)
+            self._patch.vex_refresh = self.patch
+        elif version != self._patch_version:
+            patch_table(self.data, self._patch)
+        self._patch_version = version
+        return self._patch
+
+    def _patch_leaf(self) -> "_PatchTerminal":
+        if self._patch_terminal is None:
+            self._patch_terminal = _PatchTerminal(self)
+        self.patch()
+        return self._patch_terminal
+
+
+class _PatchTerminal(ArrayTerminal):
+    """An image's patch table as a leaf: every analysis reads it through
+    ``_Image.patch``, which rebuilds a stale one."""
+
+    def __init__(self, img: _Image):
+        self.img = img
+
+    @property
+    def array(self) -> torch.Tensor:
+        return self.img.patch()
 
 
 class image2d(_Image):

@@ -72,6 +72,7 @@ from typing import Dict, List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from .._build import written
 from ..cache import kernel_cache
 from ..config import config
 from ..expr.node import Analysis, Expr
@@ -408,6 +409,7 @@ class _ReduceViewKernel:
         self.launcher((pl.tiles, pl.nsplit),
                       [out, part, ticket, *launch_args(leaves)], sch.ints,
                       (pl.ot, pl.rt, pl.ot * pl.rt, split), out.device)
+        written(out)
 
 
 def reduce_view_plain(inner: Expr, analysis: Analysis, types, leaves, op: str,

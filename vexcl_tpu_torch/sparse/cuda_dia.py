@@ -21,6 +21,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from .._build import written
+
 __all__ = ["dia_matvec", "dia_matvec_plain", "result_dtype"]
 
 _ENTRY = {
@@ -117,6 +119,7 @@ def dia_matvec(n: int, m: int, offsets: Sequence[int],
     if rc != 0:
         raise RuntimeError("DIA kernel launch failed: "
                            + lib.vex_cuda_error_string(rc).decode())
+    written(y)
     dia_matvec.launches += 1
     return y
 

@@ -37,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .._build import written
 from ..types import promote
 
 __all__ = ["C", "PACKET", "ROW_BLOCK_ENTRIES", "ROW_BLOCK_ROWS", "row_blocks",
@@ -230,6 +231,7 @@ def csr_spmv(n: int, ptr: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
         return y
     _run(_lib(), f"vex_csr_spmv_{_NAME[x.dtype]}", x, ptr, col, val, blocks,
          rows, x, y, blocks.shape[0] - 1, int(out is not None))
+    written(y)
     csr_spmv.launches += 1
     return y
 
