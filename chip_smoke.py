@@ -168,7 +168,23 @@ the Reductor's SUM/MIN/MAX over it (launches a call: one a part; the
 stencil's block and fix-up two; the scan one a part, one over the tails
 and a carry pass a part after the first); then, one part against four in
 turns, CG ms an iteration, the DIA and lognormal SpMV, the stencil and
-the scan through the API, and host µs a call.  Last, after
+the scan through the API, and host µs a call; (18) sort, the FFT, the
+keyed scans, reduce_by_key and any_of/all_of over the four parts of the
+one card, each against one part on the same inputs: ``sort_by_key`` of
+2^24 uniform i32 keys in [0, 2^30) with f32 values and a descending f32
+``sort`` (bit for bit; six merges), the 1-D FFT of 2^24 c64 forward and
+inverse and the 2-D FFT of 4096^2 c64 (the four-step route: two cuFFT
+executions and three, or two, tiled transposes a part, no gathered
+transform; within FFT_PART_TOL of one part's cuFFT relative to its
+largest magnitude), ``inclusive_scan_by_key`` of 2^24 f32 (within
+PART_SCAN_TOL), exclusive with ``init`` over integer-valued values and
+MAX (bit for bit), ``reduce_by_key`` likewise (counts and keys bit for
+bit), over i32 keys in runs of 63 that straddle the parts and one run
+longer than a part (a keyed launch, a map-reduce and a fix-up a part, one
+segmented scan over the tails), ``any_of``/``all_of`` of a 2^24
+expression (one map-reduce a part); then one part against four in turns
+(events ms, three timings each) and host µs a call, and the device µs of
+the four-step transform by the profiler.  Last, after
 every solver phase (so that no solver follows
 these timings' profiler session or cuSPARSE call), the device time per
 call by the profiler of the map-reduce, the compaction (one and two
@@ -348,6 +364,10 @@ MULTI_N = 1 << 24
 PARTS = 4                     # phase 17: the parts of one card's context
 PART_TURN_ITERS = 20          # CG iterations a timed solve, one part and four
 PART_SCAN_TOL = 1e-5          # an f32 add scan over parts: another association
+FFT_PART_TOL = 1e-5           # the four-step c64 FFT against one part's cuFFT
+KEY_RUN = 63                  # phase 18's key runs: they straddle the parts
+FFT2D_SIDE = 4096             # phase 18's 2-D FFT: 4096^2 c64 (2^24 points)
+SORT_REPS, FFT_REPS, KEYED_REPS = 3, 10, 20   # phase 18's calls a timing
 GRAD_STEPS = 4                # phase 16: steps of the Lorenz gradient
 GRAD_TOL = {"f32": 1e-5, "f64": 1e-12}   # of the largest magnitude
 GRAD_N = 1 << 20              # the second derivative's and vmap's size
@@ -4192,6 +4212,190 @@ def main() -> int:
 
     halo_x = None
     partitions_phase()
+
+    def algorithms_phase():
+        """Phase 18: sort, the FFT, the keyed scans, reduce_by_key and
+        any_of/all_of over four parts of the one card at the bench's sizes,
+        each against one part on the same inputs: bit for bit where the
+        order allows (the sorts, MAX, integer-valued sums, counts, keys,
+        the predicates), else within the printed tolerance; the launches
+        of the four-step FFT, the per-part keyed kernels and no gathered
+        transform; then one part against four in turns (events ms) and
+        the host's µs a call."""
+        from vexcl_tpu_torch.ops.sort_dist import sort_parts
+
+        t18 = time.perf_counter()
+        rec = {"tolerances": {"fft_c64_rel": FFT_PART_TOL,
+                              "sum_rel": PART_SCAN_TOL}}
+        ctxP = vex.Context(devices=[dev] * PARTS, set_current=False)
+        if torch.cuda.device_count() > 1:
+            print("phase 18: the parts share the first card; "
+                  "tests/test_torch_cuda_multidevice.py spreads them over "
+                  "the cards")
+        rng = np.random.default_rng(args.seed + 18)
+        timed = {}
+
+        def both(data):
+            return tuple(vex.vector(data=data, context=c)
+                         for c in (ctx, ctxP))
+
+        def same_bits(a, b, what):
+            a, b = a.to_numpy(), b.to_numpy()
+            check(a.dtype == b.dtype and np.array_equal(
+                a.view(np.uint8), b.view(np.uint8)),
+                f"phase 18 {what}: the parts differ from one part")
+
+        def close(a, b, tol, what):
+            a, b = (torch.from_numpy(v.to_numpy()) for v in (a, b))
+            if a.is_complex():
+                a, b = torch.view_as_real(a), torch.view_as_real(b)
+            _, rel = errors(a, b)
+            check(rel <= tol, f"phase 18 {what}: rel err {rel} > {tol}")
+            return rel
+
+        # sort_by_key of 2^24 uniform i32 keys in [0, 2^30) with f32
+        # values (bench.py:538), and a descending f32 sort
+        keys = rng.integers(0, 1 << 30, N_VEC, dtype=np.int32)
+        vals = rng.random(N_VEC, dtype=np.float32)
+        k1, kP = both(keys)
+        v1, vP = both(vals)
+        vex.sort_by_key(k1, v1)
+        merges = sort_parts.merges
+        vex.sort_by_key(kP, vP)
+        rec["sort_merges"] = sort_parts.merges - merges
+        check(rec["sort_merges"] == PARTS * (PARTS - 1) // 2,
+              f"sort over parts: {rec['sort_merges']} merges")
+        same_bits(kP, k1, "sort_by_key keys")
+        same_bits(vP, v1, "sort_by_key values")
+        f1, fP = both(vals)
+        vex.sort(f1, descending=True)
+        vex.sort(fP, descending=True)
+        same_bits(fP, f1, "descending sort")
+        # a timed sort sorts a fresh device copy of the keys and values
+        src, fresh = both(keys) + both(vals), both(keys) + both(vals)
+
+        def sort_fresh(i):
+            fresh[i].assign(src[i])
+            fresh[i + 2].assign(src[i + 2])
+            vex.sort_by_key(fresh[i], fresh[i + 2])
+
+        timed["sort_by_key"] = (lambda: sort_fresh(0),
+                                lambda: sort_fresh(1), SORT_REPS)
+        del k1, kP, v1, vP, f1, fP
+        # the 1-D FFT of 2^24 c64 forward and inverse, the 2-D 4096^2
+        x = (rng.standard_normal(N_VEC) + 1j * rng.standard_normal(N_VEC)
+             ).astype(np.complex64)
+        for name, shape, inverse in (("fft_2^24", (N_VEC,), False),
+                                     ("ifft_2^24", (N_VEC,), True),
+                                     ("fft2d_4096", (FFT2D_SIDE,) * 2,
+                                      False)):
+            f = vex.FFT(shape, inverse=inverse, dtype=torch.complex64)
+            x1, xP = both(x)
+            y1 = vex.vector(N_VEC, dtype=torch.complex64, context=ctx)
+            yP = vex.vector(N_VEC, dtype=torch.complex64, context=ctxP)
+            y1[:] = f(x1)
+            check(f(xP).plan.impl == "dist", f"{name}: not four-step")
+            _, launches = counted(("cufft", "complex"),
+                                  lambda: yP.assign(f(xP)))
+            # the gathered route would be one execution and no transpose
+            want = (2 * PARTS, (3 if len(shape) == 1 else 2) * PARTS)
+            check((launches["cufft"], launches["complex"]) == want,
+                  f"{name} over parts: {launches}")
+            add_launches(launches)
+            rec[f"{name}_launches"] = launches
+            rec[f"{name}_rel_err"] = close(yP, y1, FFT_PART_TOL, name)
+            if name != "ifft_2^24":
+                timed[name] = (lambda f=f, x1=x1, y1=y1: y1.assign(f(x1)),
+                               lambda f=f, xP=xP, yP=yP: yP.assign(f(xP)),
+                               FFT_REPS)
+        per_kernel, busy = profile_call(timed["fft_2^24"][1], FFT_REPS)
+        rec["fft_2^24_parts_device_us"] = per_kernel
+        rec["fft_2^24_parts_busy"] = busy
+        # keyed scans and reduce_by_key at 2^24 f32, i32 keys in runs of
+        # 63 and one run longer than a part
+        kk = (np.arange(N_VEC) // KEY_RUN).astype(np.int32)
+        lo = N_VEC // PARTS - N_VEC // 8
+        kk[lo:lo + N_VEC // PARTS + N_VEC // 4] = kk[lo]
+        xr = rng.random(N_VEC, dtype=np.float32)
+        xi = rng.integers(-3, 4, N_VEC).astype(np.float32)
+        kk1, kkP = both(kk)
+        xr1, xrP = both(xr)
+        xi1, xiP = both(xi)
+        # (name, function, arguments, values, bit for bit, fix-up
+        # launches: none for the first part of an inclusive scan)
+        for name, fn, kw, x_1, x_P, exact, fixups in (
+                ("inclusive_scan_by_key", vex.inclusive_scan_by_key, {},
+                 xr1, xrP, False, PARTS - 1),
+                ("exclusive_scan_by_key_init", vex.exclusive_scan_by_key,
+                 dict(init=2.0), xi1, xiP, True, PARTS),
+                ("inclusive_scan_by_key_max", vex.inclusive_scan_by_key,
+                 dict(op_name="max"), xr1, xrP, True, PARTS - 1)):
+            w1 = fn(kk1, x_1, **kw)
+            wP, launches = counted(
+                ("scan_by_key", "reduce", "segscan", "expr"),
+                lambda: fn(kkP, x_P, **kw))
+            check(launches == {"scan_by_key": PARTS, "reduce": PARTS,
+                               "segscan": 1, "expr": fixups},
+                  f"{name} over parts: {launches}")
+            add_launches(launches)
+            rec[f"{name}_launches"] = launches
+            if exact:
+                same_bits(wP, w1, name)
+            else:
+                rec[f"{name}_rel_err"] = close(wP, w1, PART_SCAN_TOL, name)
+        timed["inclusive_scan_by_key"] = (
+            lambda: vex.inclusive_scan_by_key(kk1, xr1),
+            lambda: vex.inclusive_scan_by_key(kkP, xrP), KEYED_REPS)
+        for name, x_1, x_P, exact in (("reduce_by_key", xr1, xrP, False),
+                                      ("reduce_by_key_ints", xi1, xiP, True)):
+            ok1, ov1, m1 = vex.reduce_by_key(kk1, x_1)
+            (okP, ovP, mP), launches = counted(
+                ("reduce_by_key",), lambda: vex.reduce_by_key(kkP, x_P))
+            check(launches["reduce_by_key"] == PARTS and mP == m1
+                  and ovP.nparts == PARTS,
+                  f"{name} over parts: {launches}, count {mP} / {m1}")
+            add_launches(launches)
+            same_bits(okP, ok1, f"{name} keys")
+            if exact:
+                same_bits(ovP, ov1, name)
+            else:
+                rec[f"{name}_rel_err"] = close(ovP, ov1, PART_SCAN_TOL, name)
+            rec[f"{name}_count"] = mP
+        timed["reduce_by_key"] = (lambda: vex.reduce_by_key(kk1, xr1),
+                                  lambda: vex.reduce_by_key(kkP, xrP),
+                                  KEYED_REPS)
+        # any_of / all_of of a 2^24 expression
+        preds = {}
+        for who, xv in (("one", xr1), ("parts", xrP)):
+            preds[who] = (vex.any_of(xv > 0.999999), vex.all_of(xv >= 0),
+                          vex.any_of(xv > 2), vex.all_of(xv > 0.5))
+        _, launches = counted(("reduce",), lambda: vex.any_of(xrP > 2))
+        check(launches["reduce"] == PARTS and preds["parts"] == preds["one"]
+              == (True, True, False, False),
+              f"any_of/all_of over parts: {preds}, {launches}")
+        add_launches(launches)
+        timed["any_of"] = (lambda: vex.any_of(xr1 > 2),
+                           lambda: vex.any_of(xrP > 2), KEYED_REPS)
+        # one part against four, in turns (events), and host µs a call
+        for name, (one, parts, reps) in timed.items():
+            got = {"one": [], "parts": []}
+            for r in range(3):
+                for who in (("one", "parts") if r % 2 == 0
+                            else ("parts", "one")):
+                    got[who].append(cuda_ms(one if who == "one" else parts,
+                                            reps))
+            rec[f"{name}_ms"] = {k_: statistics.median(v)
+                                 for k_, v in got.items()}
+            rec[f"{name}_ms_range"] = {k_: [min(v), max(v)]
+                                       for k_, v in got.items()}
+            rec[f"{name}_host_us"] = {"one": host_us(one, reps),
+                                      "parts": host_us(parts, reps)}
+        del x1, xP, y1, yP, kk1, kkP, xr1, xrP, xi1, xiP, src, fresh, timed
+        torch.cuda.empty_cache()
+        rec["s"] = time.perf_counter() - t18
+        report("algorithms_over_parts", rec)
+
+    algorithms_phase()
 
     # last, after every solver phase, so that no solver's ms per iteration
     # (compared between versions of this script) follows these timings'

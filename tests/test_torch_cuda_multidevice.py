@@ -15,7 +15,15 @@ per-part call launches its kernel once a part, the stencil twice (the
 block, then one launch over its boundary windows where a neighbour
 lies within the halo), the scan once a part
 and once over the parts' tails, with one carry pass of the assignment
-kernel a part after the first.  Other tolerances: ``tests/_cuda_common.py``.
+kernel a part after the first.  Sort, the FFT, the keyed scans,
+reduce_by_key and any_of/all_of over parts: the sort bit
+for bit one part's (six merges over four parts); the four-step FFT within
+2e-5 (c64) and 1e-12 (c128) of the one-part cuFFT transform relative to
+its largest magnitude, with two cuFFT executions and the tiled transposes
+a part, and the gathered route, one execution, where the geometry does
+not decompose; the keyed scans and reduce_by_key bit for bit for MAX, MIN
+and integer-valued sums, f32 sums within 1e-5, with one keyed-kernel
+launch a part.  Other tolerances: ``tests/_cuda_common.py``.
 """
 
 import numpy as np
@@ -25,7 +33,12 @@ import torch
 import vexcl_tpu_torch as vex
 from vexcl_tpu_torch.expr.triton_emit import assign
 from vexcl_tpu_torch.models import PoissonSolver
-from vexcl_tpu_torch.ops.cuda_scan import scan_apply
+from vexcl_tpu_torch.expr.triton_emit import assign_complex
+from vexcl_tpu_torch.ops.cuda_by_key import (reduce_by_key_launch,
+                                             scan_by_key_apply)
+from vexcl_tpu_torch.ops.cuda_scan import scan_apply, segscan_apply
+from vexcl_tpu_torch.ops.cufft import execute as cufft_execute
+from vexcl_tpu_torch.ops.sort_dist import sort_parts
 from vexcl_tpu_torch.ops.cuda_stencil import stencil_apply
 from vexcl_tpu_torch.ops.triton_reduce import map_reduce
 from vexcl_tpu_torch.sparse.cuda_dia import (dia_matvec, dia_matvec_halo,
@@ -268,11 +281,154 @@ def test_scan_over_parts(gpu, parts, op, exclusive):
                                       res[0].view(np.uint32))
 
 
+@pytest.mark.parametrize("case", ["nan_ties", "descending", "key_fn"])
+def test_sort_over_parts_bitwise(gpu, parts, case):
+    n = (1 << 20) + 3
+    rng = np.random.default_rng(11)
+    f = rng.integers(0, 1000, n).astype(np.float32)
+    f[rng.random(n) < 0.01] = np.nan
+    f[f == 0] = -0.0
+    i = rng.integers(-(1 << 20), 1 << 20, n).astype(np.int32)
+    keys, kw = {"nan_ties": (f, {}), "descending": (f, dict(descending=True)),
+                "key_fn": (i, dict(key_fn=lambda k: (k & 1, k)))}[case]
+    res = []
+    for c in (gpu, parts):
+        k = vex.vector(data=keys, context=c)
+        v = vex.vector(data=np.arange(n, dtype=np.int64), context=c)
+        merges = sort_parts.merges
+        vex.sort_by_key(k, v, **kw)
+        assert sort_parts.merges - merges == (6 if c is parts else 0)
+        res.append((k.to_numpy(), v.to_numpy()))
+    for a, b in zip(*res):
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+@pytest.mark.parametrize("dt", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("shape", [(1 << 20,), (1024, 1024),
+                                   ((1 << 20) + 4,)])
+def test_fft_over_parts(gpu, parts, shape, inverse, dt):
+    """The four-step transform (or, for (1 << 20) + 4 points, the gathered
+    one) over four parts against the one-part cuFFT transform."""
+    n = int(np.prod(shape))
+    rng = np.random.default_rng(12)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    f = vex.FFT(shape, inverse=inverse, dtype=dt)
+    res = []
+    for c in (gpu, parts):
+        xv = vex.vector(data=x, dtype=dt, context=c)
+        y = vex.vector(n, dtype=dt, context=c)
+        before = (cufft_execute.launches, assign_complex.launches)
+        y[:] = f(xv)
+        torch.cuda.synchronize()
+        got = (cufft_execute.launches - before[0],
+               assign_complex.launches - before[1])
+        if c is gpu or n % 16:
+            assert got == (1, 0)
+        else:
+            assert got == (2 * PARTS, (3 if len(shape) == 1 else 2) * PARTS)
+        res.append(torch.from_numpy(y.to_numpy()))
+    _close(torch.view_as_real(res[1]), torch.view_as_real(res[0]),
+           2e-5 if dt == torch.complex64 else 1e-12)
+
+
+def _keyed(n, seed=13):
+    """i32 keys in runs of 63 with one run of 2^19 (longer than a part of
+    2^20 + 5 over four), and a second key vector."""
+    rng = np.random.default_rng(seed)
+    k = (np.arange(n) // 63).astype(np.int32)
+    k[1000:1000 + (1 << 19)] = k[1000]
+    k2 = (rng.random(n) < 0.95).astype(np.int64)
+    return k, k2
+
+
+@pytest.mark.parametrize("mono", ["add", "add_integers", "max", "min"])
+@pytest.mark.parametrize("exclusive", [False, True])
+@pytest.mark.parametrize("init", [None, 2.0])
+def test_scan_by_key_over_parts(gpu, parts, mono, exclusive, init):
+    n = (1 << 20) + 5
+    k, k2 = _keyed(n)
+    rng = np.random.default_rng(14)
+    a = (rng.integers(-3, 4, n) if mono == "add_integers"
+         else rng.standard_normal(n)).astype(np.float32)
+    fn = vex.exclusive_scan_by_key if exclusive else vex.inclusive_scan_by_key
+    name = None if mono.startswith("add") else mono
+    res = []
+    for c in (gpu, parts):
+        keys = (vex.vector(data=k, context=c), vex.vector(data=k2, context=c))
+        x = vex.vector(data=a, context=c)
+        got = _launches(scan_by_key_apply, lambda: res.append(
+            fn(keys, x, init=init, op_name=name).to_numpy()))
+        assert got == (PARTS if c is parts else 1)
+    if mono == "add":
+        _close(torch.from_numpy(res[1]), torch.from_numpy(res[0]), 1e-5)
+    else:
+        np.testing.assert_array_equal(res[1].view(np.uint32),
+                                      res[0].view(np.uint32))
+
+
+def test_scan_by_key_key_eq_over_parts(gpu, parts):
+    """A key predicate takes the plain route a part (the segmented scan
+    kernel on its flags) with the same carries."""
+    n = (1 << 20) + 5
+    k, _ = _keyed(n)
+    a = np.random.default_rng(15).integers(-3, 4, n).astype(np.float32)
+    res = []
+    for c in (gpu, parts):
+        kv, x = vex.vector(data=k, context=c), vex.vector(data=a, context=c)
+        got = _launches(segscan_apply, lambda: res.append(
+            vex.exclusive_scan_by_key(kv, x, init=1.0, key_eq=lambda p, q:
+                                      (p // 3) == (q // 3)).to_numpy()))
+        assert got == (PARTS + 1 if c is parts else 1)
+    np.testing.assert_array_equal(res[1].view(np.uint32),
+                                  res[0].view(np.uint32))
+
+
+@pytest.mark.parametrize("mono", ["add", "add_integers", "max", "min"])
+def test_reduce_by_key_over_parts(gpu, parts, mono):
+    n = (1 << 20) + 5
+    k, k2 = _keyed(n)
+    rng = np.random.default_rng(16)
+    a = (rng.integers(-3, 4, n) if mono == "add_integers"
+         else rng.standard_normal(n)).astype(np.float32)
+    name = None if mono.startswith("add") else mono
+    res = []
+    for c in (gpu, parts):
+        keys = (vex.vector(data=k, context=c), vex.vector(data=k2, context=c))
+        got = _launches(reduce_by_key_launch, lambda: res.append(
+            vex.reduce_by_key(keys, vex.vector(data=a, context=c),
+                              op_name=name)))
+        assert got == (PARTS if c is parts else 1)
+    (ok, ov, om), (gk, gv, gm) = res
+    assert gm == om and gv.nparts == PARTS
+    for g, o in zip(gk, ok):
+        np.testing.assert_array_equal(g.to_numpy(), o.to_numpy())
+    if mono == "add":
+        _close(torch.from_numpy(gv.to_numpy()),
+               torch.from_numpy(ov.to_numpy()), 1e-5)
+    else:
+        np.testing.assert_array_equal(gv.to_numpy().view(np.uint32),
+                                      ov.to_numpy().view(np.uint32))
+
+
+def test_any_all_of_over_parts(gpu, parts):
+    n = (1 << 20) + 5
+    for last in (0.0, 1.0, float("nan")):
+        a = np.zeros(n, np.float32)
+        a[-1] = last
+        x = vex.vector(data=a, context=parts)
+        assert _launches(map_reduce, lambda: vex.any_of(x)) == PARTS
+        assert vex.any_of(x) == (last != 0)
+        assert vex.all_of(x + 1) and not vex.all_of(x)
+
+
 def test_parts_over_distinct_cards(gpu):
     """The per-part paths with one part a card, where the host has
     several: peer copies of halos (the stencil, DIA in a CG solve),
     ghosts and the gathered x (the irregular SpMV) and the scan's tails;
-    the Reductor's partials combined on the first card."""
+    the Reductor's partials combined on the first card; the sort's
+    merges, the FFT's all-to-alls, the keyed scan's carries and
+    reduce_by_key's runs across cards."""
     count = torch.cuda.device_count()
     if count < 2:
         pytest.skip("needs two CUDA devices or more")
@@ -293,7 +449,19 @@ def test_parts_over_distinct_cards(gpu):
         A = vex.SpMat(n, n, ptr, col, val, context=c)
         z = vex.vector(n, dtype=torch.float32, context=c)
         z[:] = A * y
-        got = {"y": y, "scan": s, "spmv": z}
+        keys = vex.vector(data=(np.arange(n) // 63).astype(np.int32),
+                          context=c)
+        sk = vex.vector(data=a, context=c)
+        sv = vex.vector(data=np.arange(n, dtype=np.int32), context=c)
+        vex.sort_by_key(sk, sv)
+        xf = vex.vector(data=a[:1 << 20], dtype=torch.complex64, context=c)
+        fx = vex.vector(1 << 20, dtype=torch.complex64, context=c)
+        fx[:] = vex.FFT(1 << 20, dtype=torch.complex64)(xf)
+        kx = vex.inclusive_scan_by_key(keys, x, op_name="max")
+        rk, rv, _ = vex.reduce_by_key(keys, x, op_name="min")
+        got = {"y": y, "scan": s, "spmv": z, "sort_keys": sk,
+               "sort_vals": sv, "keyed": kx, "rbk_keys": rk, "rbk_vals": rv}
+        res.setdefault("fft", []).append(torch.from_numpy(fx.to_numpy()))
         if c is cards:
             assert [p.device for p in y.parts] == cards.devices
             g = vex.vector(n, dtype=torch.float32, context=c)
@@ -305,8 +473,11 @@ def test_parts_over_distinct_cards(gpu):
         got["sum"] = vex.Reductor(vex.SUM)(y * y)
         res[c.size] = got
     one, many = res[1], res[count]
-    for k in ("y", "scan", "spmv"):
+    for k in ("y", "scan", "spmv", "sort_keys", "sort_vals", "keyed",
+              "rbk_keys", "rbk_vals"):
         np.testing.assert_array_equal(many[k], one[k])
+    f1, fm = res["fft"]
+    _close(torch.view_as_real(fm), torch.view_as_real(f1), 2e-5)
     np.testing.assert_array_equal(many["ghost_sets"], one["spmv"])
     (u1, i1), (u, i) = one["cg"], many["cg"]
     assert i == i1

@@ -188,17 +188,21 @@ def test_ct_engine_c64_planner():
 
 
 def test_sig_separates_engines_and_dist_raises(tctx):
-    """xla and ct plans of one geometry have distinct signatures;
-    impl='dist' waits for several devices."""
+    """xla, ct and dist plans of one geometry have distinct signatures;
+    impl='dist' (the four-step transform over parts) raises over a vector
+    of one part."""
     from vexcl_tpu_torch.ops.fft import FFTExpr, Plan
 
     x = vt.vector(64, dtype=np.complex64, context=tctx)
     sx = FFTExpr(Plan((64,), None, False, torch.complex64), x).extra_sig()
     sc = FFTExpr(Plan((64,), None, False, torch.complex64, "ct"),
                  x).extra_sig()
-    assert sx != sc
-    with pytest.raises(NotImplementedError):
-        vt.FFT(64, impl="dist")
+    sd = FFTExpr(Plan((64,), None, False, torch.complex64, "dist"),
+                 x).extra_sig()
+    assert len({sx, sc, sd}) == 3
+    with pytest.raises(ValueError, match="several parts"):
+        vt.vector(64, dtype=np.complex64, context=tctx).assign(
+            vt.FFT(64, impl="dist")(x))
 
 
 @pytest.mark.parametrize("inverse", [False, True])

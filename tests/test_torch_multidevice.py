@@ -21,7 +21,9 @@ same seeded numpy inputs go through both:
 * ``interop.cg`` on the 16^3 Poisson matrix: x within 1e-10 of the JAX
   solve (f64);
 * every operation that is not partition-aware raises NotImplementedError
-  naming itself, and no module of the port imports jax or vexcl_tpu.
+  naming itself, and no module of the port imports jax or vexcl_tpu
+  (sort, the FFT, the keyed scans, reduce_by_key and any_of/all_of run
+  over parts: ``tests/test_torch_multidevice_algorithms.py``).
 
 Tolerances are relative to the largest magnitude of the JAX result.
 """
@@ -458,7 +460,6 @@ def _ops(tc, c1):
     n = 16
     x = vt.vector(data=np.arange(n, dtype=np.float32), context=tc)
     y = vt.vector(n, dtype=np.float32, context=tc)
-    k = vt.vector(data=np.arange(n, dtype=np.int32) // 4, context=tc)
     idx = vt.vector(data=np.arange(n, dtype=np.int32)[::-1].copy(),
                     context=tc)
     img = vt.image2d(np.ones((4, 4), np.float32), context=c1)
@@ -467,10 +468,6 @@ def _ops(tc, c1):
         np.ones(16), (3, 3), levels=1)
     s = vt.symbolic()
     return {
-        "sort": lambda: vt.sort(x),
-        "scan_by_key": lambda: vt.inclusive_scan_by_key(k, x),
-        "reduce_by_key": lambda: vt.reduce_by_key(k, x),
-        "FFTExpr": lambda: y.assign(vt.FFT(n)(x)),
         "MBAExpr": lambda: y.assign(fit(x, x)),
         "ImageSample": lambda: y.assign(img(x, x)),
         "SliceTerminal": lambda: y.assign(x[0:16]),
@@ -485,16 +482,15 @@ def _ops(tc, c1):
         "Kernel.as_function": lambda: vt.generator.Kernel(
             "k", [s], [s]).as_function()(x),
         "enqueue": lambda: vt.enqueue(c1)(y).assign(x * 2),
-        "any_of": lambda: vt.any_of(x),
         "CustomKernel": lambda: vt.CustomKernel(
             'extern "C" __global__ void k(float *x) {}')(x),
     }
 
 
-OPS = ["sort", "scan_by_key", "reduce_by_key", "FFTExpr", "MBAExpr",
-       "ImageSample", "SliceTerminal", "PermutationView", "PointerDeref",
-       "ReducedView", "assignment through a slice", "atomic_add", "gather",
-       "scatter", "Kernel.as_function", "enqueue", "any_of", "CustomKernel"]
+OPS = ["MBAExpr", "ImageSample", "SliceTerminal", "PermutationView",
+       "PointerDeref", "ReducedView", "assignment through a slice",
+       "atomic_add", "gather", "scatter", "Kernel.as_function", "enqueue",
+       "CustomKernel"]
 
 
 @pytest.mark.parametrize("op", OPS)

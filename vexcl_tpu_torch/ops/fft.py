@@ -45,8 +45,15 @@ Two engines (``impl``):
   is cleared around the engine's products and restored.  Its TPU tuning
   (the ``VEXTPU_FFT_RADIX``/``_FORM``/``_X3`` knobs, ``_dot_alg``'s bf16
   presets and the flat-cube form) is not ported.
-* ``"dist"`` (the JAX package's mesh four-step) raises
-  ``NotImplementedError`` until the port has several devices.
+* ``"dist"``: the JAX package's four-step transform over the parts of a
+  partitioned vector (``ops/fft_dist.py``), 1-D and full 2-D.  ``FFT``
+  swaps it in for an ``"xla"`` or ``"ct"`` plan where its input is a
+  partitioned vector whose equal parts the geometry decomposes over
+  (``fft_dist.decomposes``); over other parts the transform is gathered
+  to the first part's device and written back (``fft_dist.gathered``).
+  Over parts the transform writes into a partitioned target of its type
+  part by part (``FFTExpr.parts_into``), or into a partitioned temporary
+  inside a larger tree (``FFTExpr.materialize_parts``).
 
 The default type is c64, as the port's default float is f32.
 """
@@ -277,15 +284,14 @@ class Plan:
 
     def __init__(self, shape: Tuple[int, ...], dims: Optional[Sequence[int]],
                  inverse: bool, dtype, impl: str = "xla"):
-        if impl == "dist":
-            raise NotImplementedError(
-                "impl='dist' (the mesh four-step) needs several devices, "
-                "which the port does not have yet")
-        if impl not in ("xla", "ct"):
+        if impl not in ("xla", "ct", "dist"):
             raise ValueError(f"unknown FFT engine {impl!r}")
         self.shape = tuple(int(s) for s in shape)
         self.dims = (tuple(int(d) for d in dims) if dims is not None
                      else tuple(range(len(self.shape))))
+        if impl == "dist" and not (
+                len(self.shape) == len(self.dims) and len(self.shape) <= 2):
+            raise ValueError("impl='dist' supports 1-D and full 2-D")
         self.inverse = inverse
         self.dtype = dtype_of(dtype)
         if not self.dtype.is_complex:
@@ -297,11 +303,17 @@ class Plan:
         self.cufft_layout = cufft.layout(self.shape, self.dims)
         #: (device index, stream) -> its cuFFT plan
         self.cufft: dict = {}
+        #: a "dist" plan's (part devices, their streams) -> its four-step
+        #: workspace (``fft_dist.four_step``)
+        self.parts: dict = {}
 
     def __call__(self, x: torch.Tensor,
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The transform of ``x`` (the shape, or its flat length), cast to
         the plan's type first; into ``out`` where it is given."""
+        if self.impl == "dist":
+            raise ValueError("impl='dist' transforms the parts of a vector "
+                             "of a context of several parts")
         if (self.impl == "xla" and out is not None and x.is_cuda
                 and self.cufft_layout is not None and x.dtype == self.dtype
                 and out.dtype == self.dtype and out.device == x.device
@@ -383,6 +395,48 @@ class FFTExpr(Expr):
         self.plan(xt, out)
         return True
 
+    def _parts_io(self, ref):
+        """(the input's part tensors in the plan's type, ``ref``'s
+        points) over the partition of ``ref``; raises where the input is
+        not of the plan's size."""
+        from ..expr.compile import evaluate_parts
+
+        if ref.size != self.plan.size:
+            raise ValueError(f"FFT of {self.plan.size} points over "
+                             f"{ref.size} elements")
+        x = self.children[0]
+        if isinstance(x, VectorTerminal) and x.vec.nparts > 1:
+            from ..expr.compile import _same_partition
+
+            _same_partition(x.vec, ref)
+            xs = [p.to(self.plan.dtype) for p in x.vec.parts]
+        else:
+            xs = evaluate_parts(x, ref, self.plan.dtype).parts
+        return xs, ref._pts
+
+    def parts_into(self, target) -> bool:
+        """``target[:] = self`` over the parts of a partitioned target of
+        the transform's type: written part by part (``fft_dist``), the
+        last all-to-all or the gathered result straight into its parts."""
+        from .fft_dist import transform_parts
+
+        if target.dtype != self.plan.dtype:
+            return False
+        xs, pts = self._parts_io(target)
+        transform_parts(self.plan, xs, pts, target.parts)
+        return True
+
+    def materialize_parts(self, ref):
+        """The transform over the parts of ``ref``'s partition: a new
+        partitioned vector."""
+        from ..vector import vector
+        from .fft_dist import transform_parts
+
+        xs, pts = self._parts_io(ref)
+        outs = [torch.empty_like(x) for x in xs]
+        transform_parts(self.plan, xs, pts, outs)
+        return vector._from_parts(ref.context, pts, outs)
+
     def materialize(self, device: torch.device, n: Optional[int] = None,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The transform on ``device`` (its input evaluated first where it
@@ -426,7 +480,22 @@ class FFT:
             key, lambda: Plan(shape, dims, inverse, dtype, impl))
 
     def __call__(self, x) -> FFTExpr:
-        return FFTExpr(self.plan, x)
+        return FFTExpr(self._route(x), x)
+
+    def _route(self, x) -> Plan:
+        """The four-step plan in place of an ``"xla"`` or ``"ct"`` one
+        where ``x`` reads a partitioned vector whose parts the transform
+        decomposes over (``vexcl_tpu/ops/fft.py:538-572``)."""
+        from . import dispatch
+        from .fft_dist import decomposes
+
+        p = self.plan
+        ref = dispatch.partitioned(as_expr(x)) if p.impl != "dist" else None
+        if ref is None or not decomposes(p, ref._pts):
+            return p
+        key = (p.shape, p.dims, p.inverse, str(p.dtype), "dist")
+        return plan_cache.get_or_create(
+            key, lambda: Plan(p.shape, p.dims, p.inverse, p.dtype, "dist"))
 
 
 def fft(x, **kwargs) -> FFTExpr:

@@ -18,7 +18,10 @@ monoid runs the segmented scan kernel of ``cuda_scan.py`` and a custom
 through ``associative_scan``, and the epilogue is tensor code.  Exclusive
 scans give each head ``init`` (0 without one) and every other position
 ``op(init, previous inclusive value)``, as the JAX package's generic
-path does.  The mesh-distributed scan waits for multi-device contexts.
+path does.  Over the parts of partitioned vectors the scan is the JAX
+package's three-phase pair scan (``parallel.collectives.
+distributed_scan_by_key``): the same local kernel (or plain route) a part,
+the carries of the parts' tail pairs, one fix-up launch a part.
 """
 
 from __future__ import annotations
@@ -28,7 +31,6 @@ from typing import Any, Callable, Optional, Sequence, Tuple, Union
 import torch
 
 from ..vector import host_tensor, vector
-from . import dispatch
 from .cuda_by_key import (scan_by_key_apply, scan_by_key_epilogue,
                           segment_heads)
 from .cuda_scan import associative_scan, segscan_apply
@@ -73,9 +75,15 @@ def seg_scan(flags: torch.Tensor, x: torch.Tensor, mono: Optional[str],
 
 def _run(keys, src: vector, dst: Optional[vector], op, op_name, key_eq,
          exclusive: bool, init) -> vector:
-    dispatch.one_part("scan_by_key", src, dst, *(
-        keys if isinstance(keys, (tuple, list)) else (keys,)))
+    kv = tuple(keys) if isinstance(keys, (tuple, list)) else (keys,)
     mono, op = monoid_of(op, op_name)
+    if any(getattr(v, "nparts", 1) > 1 for v in (src, dst, *kv)):
+        from ..parallel.collectives import distributed_scan_by_key
+
+        if not all(isinstance(k, vector) for k in kv):
+            raise TypeError("scan_by_key over parts takes key vectors")
+        return distributed_scan_by_key(kv, src, dst, mono, op, key_eq,
+                                       exclusive, init)
     x = src.storage
     if mono is not None and key_eq is None:
         ks = _key_tensors(keys)

@@ -11,18 +11,18 @@ or a tuple of them (the reference's "even first" is ``lambda k: (k & 1,
 k)``).  ``descending`` maps each sort key to one of reversed order as the
 JAX package does (``~k`` for integers, ``-k`` for floats) and sorts
 ascending, so NaN sorts last either way.  Unsigned keys sort through an
-order-preserving int64 view and move as signed bits.  The
-mesh-distributed sort waits for multi-device contexts.
+order-preserving int64 view and move as signed bits.  Vectors of a
+context of several parts sort by odd-even block merge-split
+(``ops/sort_dist.py``), bit for bit the one-part sort.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from ..vector import vector
-from . import dispatch
 
 __all__ = ["sort", "sort_by_key"]
 
@@ -52,9 +52,10 @@ def _neg_order(k: torch.Tensor) -> torch.Tensor:
     return -k if k.is_floating_point() else ~k
 
 
-def _order(ks: Sequence[torch.Tensor], descending: bool,
-           key_fn: Optional[Callable]) -> torch.Tensor:
-    """The stable lexicographic sorting permutation of ``ks``."""
+def _sort_keys(ks: Sequence[torch.Tensor], descending: bool,
+               key_fn: Optional[Callable]) -> List[torch.Tensor]:
+    """The keys that sort ascending in the order asked for: ``key_fn``'s
+    transform, made sortable, each reversed where ``descending``."""
     if key_fn is not None:
         skeys = _as_tuple(key_fn(*ks))
     else:
@@ -63,6 +64,11 @@ def _order(ks: Sequence[torch.Tensor], descending: bool,
              for k in skeys]
     if descending:
         skeys = [_neg_order(k) for k in skeys]
+    return skeys
+
+
+def _perm(skeys: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The stable lexicographic sorting permutation of ``skeys``."""
     perm = None
     for k in reversed(skeys):
         kk = k if perm is None else k[perm]
@@ -71,15 +77,22 @@ def _order(ks: Sequence[torch.Tensor], descending: bool,
     return perm
 
 
+def _signed(t: torch.Tensor) -> torch.Tensor:
+    """CUDA gathers no unsigned type: the bits as signed ones."""
+    return t.view(_SIGNED.get(t.dtype, t.dtype))
+
+
 def _sort_vectors(ks, vs, descending, key_fn) -> None:
     if ks[0].size == 0:
         return
-    dispatch.one_part("sort", *ks, *vs)
-    perm = _order([k.storage for k in ks], descending, key_fn)
+    if any(v.nparts > 1 for v in (*ks, *vs)):
+        from .sort_dist import sort_parts
+
+        sort_parts(ks, vs, descending, key_fn)
+        return
+    perm = _perm(_sort_keys([k.storage for k in ks], descending, key_fn))
     for v in (*ks, *vs):
-        # CUDA gathers no unsigned type: move the bits as signed ones
-        t = v.storage
-        t = t.view(_SIGNED.get(t.dtype, t.dtype))
+        t = _signed(v.storage)
         t.copy_(t[perm])
 
 
