@@ -198,7 +198,21 @@ f32 and f64 (one K1 launch a part), ``reinterpret`` to u16 and f64 and
 ``dryrun_multichip(4)`` at 2^24 and ``Context()``'s parts; each bit for
 bit one part's (the four-step FFT within FFT_PART_TOL, the custom op's
 carries within PART_SCAN_TOL), then one part against four in turns
-(events ms), host µs a call and device µs by kernel.  Last, after
+(events ms), host µs a call and device µs by kernel; (21) gradients
+through ``as_function`` of trees that read a view or a partial
+reduction (``view_gradients_phase``): sum(w (permutation(p)(u + c) *
+2)) over a 2^24 random permutation and over an index with duplicates
+and keys out of range, f32 and f64, sum(w slicer[:, 1:4095](u + c)) and
+reduce_view sum and max over the 4096^2 grid; each backward step's
+launches by kernel (the scatter, V2, K1, V3: none of the plain
+versions), its gradient against the same stages' plain versions (bit
+for bit where no sum reorders: the permutation, the slice, the sum's
+spread; the duplicates' adds SUM_TOL, the chooser rule TOL) and
+against PyTorch's autograd over the forward's plain forms (GRAD_TOL),
+the forward and the backward by events, device and host µs; then the
+thirteen examples of ``examples/torch/`` in this process at the tier-1
+test's sizes (``tests/test_torch_examples.CASES``), each printing its
+verification lines.  Last, after
 every solver phase (so that no solver follows
 these timings' profiler session or cuSPARSE call), the device time per
 call by the profiler of the map-reduce, the compaction (one and two
@@ -347,6 +361,7 @@ RUN = 64                      # the bench's key runs (bench.py:584-609)
 RBK_N_LARGE = (1 << 25) + 7
 KERNEL_REPS = 100             # launches per timing of the kernels line
 TURNS = 5                     # timings each of a kernel and its library call
+STEP_REPS = 20                # backward steps per timing of phase 21
 PROFILE_LEAD = 256            # spin kernels a trace launches first
 PROFILE_TRIES = 4             # traces of one call, 4x the lead-in each
 SPIN_KERNEL = "spin_kernel"   # torch.cuda._sleep's kernel
@@ -530,15 +545,15 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def in_turns(fns):
+def in_turns(fns, reps: int = KERNEL_REPS):
     """Functions timed in turns (in the given order, then reversed, ...),
-    TURNS timings of KERNEL_REPS launches each: name -> {"ms": median,
+    TURNS timings of ``reps`` launches each: name -> {"ms": median,
     "ms_range": [min, max], "times": [each timing, in turn order]}."""
     got = {name: [] for name in fns}
     order = list(fns)
     for r in range(TURNS):
         for name in (order if r % 2 == 0 else order[::-1]):
-            got[name].append(cuda_ms(fns[name], KERNEL_REPS))
+            got[name].append(cuda_ms(fns[name], reps))
     return {name: {"ms": statistics.median(v), "ms_range": [min(v), max(v)],
                    "times": v}
             for name, v in got.items()}
@@ -5131,6 +5146,230 @@ def main() -> int:
 
     runtime_parts_phase()
 
+    # -- phase 21: gradients through views and partial reductions, and the
+    # port's examples -------------------------------------------------------
+    def view_gradients_phase():
+        """Phase 21, in a scope of its own: the gradient of sum(w f(u))
+        through ``as_function`` where f reads a view or a partial
+        reduction, each backward step's launches by kernel, held against
+        the same stages' plain versions and PyTorch's autograd over the
+        forward's plain forms, the forward and the backward timed by
+        events; then the port's examples at the tier-1 test's sizes."""
+        t21 = time.perf_counter()
+        rec = {}
+        stage_keys = ("multi", "indexed", "expr", "to_view",
+                      "scatter_ranges", "scatter_privatized", "reduce_view",
+                      "reduce_multi", "backward")
+
+        def kernel_of(body):
+            param, out = tgen.symbolic(), tgen.symbolic()
+            out[:] = body(param)
+            return tgen.build_kernel("view_grad", [out], [param])
+
+        from vexcl_tpu_torch.expr.compile import evaluate_multi
+        from vexcl_tpu_torch.expr.node import ArrayTerminal
+
+        def grad_case(tag, kern, u, w, tol, nbytes, library=None):
+            """The backward step of one case: (its row, its launches).
+            The step, the plain stages and the library call are timed in
+            turns (TURNS timings of STEP_REPS steps), beside the K1 copy
+            of the gradient that ``Kernel._hoisted`` saves (the stage's
+            tensor is returned as the output)."""
+            fn = kern.as_function()
+            ui = u.clone().requires_grad_()
+            (y,) = fn(ui)
+
+            def step():
+                return torch.autograd.grad(y, ui, w, retain_graph=True)[0]
+
+            step()
+            got, _ = counted((), step)
+            launches = {k: counters[k].launches for k in stage_keys
+                        if counters[k].launches}
+            # the same stages' plain versions, and PyTorch's autograd over
+            # the forward's plain forms
+            bk = kern.backward_kernel([u], [w], [True])
+            with torch.no_grad():
+                (plain,) = bk.plain(u, w)
+            ur = u.clone().requires_grad_()
+            (yp,) = kern.plain(ur)
+            (auto,) = torch.autograd.grad(yp, ur, w, retain_graph=True)
+            abs_p, rel_p = errors(got, plain)
+            _, rel_a = errors(got, auto)
+            if tol == 0:
+                check(torch.equal(got, plain), f"{tag}: the gradient "
+                      f"differs from its plain stages' (abs {abs_p})")
+            else:
+                check(rel_p <= tol, f"{tag}: rel err {rel_p} against the "
+                      "plain stages")
+            dname = "f64" if u.dtype == torch.float64 else "f32"
+            check(rel_a <= GRAD_TOL[dname], f"{tag}: rel err {rel_a} "
+                  "against autograd over the plain forms")
+            fns = {"step": step, "plain": lambda: bk.plain(u, w),
+                   "k1_copy": lambda: evaluate_multi(
+                       [ArrayTerminal(got)], n=got.numel(), device=dev)}
+            if library is not None:
+                _, rel_l = errors(library(), got)
+                check(rel_l <= tol, f"{tag}: the library call's gradient "
+                      f"differs (rel {rel_l})")
+                fns["library"] = library
+            turns = in_turns(fns, STEP_REPS)
+            row = kernel_row(abs_p, turns["step"]["ms"],
+                             turns["plain"]["ms"], nbytes, 0,
+                             turns.get("library", {}).get("ms"))
+            row.update({f"{k}_ms_range" if k != "step" else "ms_range":
+                        t["ms_range"] for k, t in turns.items()},
+                       k1_copy_ms=turns["k1_copy"]["ms"])
+            per_kernel, busy = profile_call(step, 10)
+            row.update(forward_ms=cuda_ms(lambda: fn(u)),
+                       step_launches=launches,
+                       device_us=sum(per_kernel.values()),
+                       device_us_by_kernel=per_kernel, busy=busy,
+                       host_us=host_us(step, 50),
+                       rel_err_plain=rel_p, rel_err_autograd=rel_a,
+                       autograd_plain_ms=cuda_ms(lambda: torch.autograd.grad(
+                           yp, ur, w, retain_graph=True)))
+            report(f"view_grad_{tag}", row)
+            del y, yp, got, plain, auto
+            return row, launches
+
+        scatters = ("scatter_ranges", "scatter_privatized", "to_view")
+        perm_rows = {}
+        for dname, dt in (("f32", torch.float32), ("f64", torch.float64)):
+            n = N_VEC
+            u, c, w = (torch.rand(n, generator=gen, device=dev, dtype=dt)
+                       for _ in range(3))
+            cv = vex.vector(data=c, context=ctx)
+            item = torch.tensor([], dtype=dt).element_size()
+            for form, idx in (
+                    ("permutation", torch.randperm(n, generator=gen,
+                                                   device=dev)),
+                    ("duplicates", torch.randint(
+                        -n - n // 16, n + n // 16, (n,), generator=gen,
+                        device=dev))):
+                idx = idx.to(torch.int32)
+                pv = vex.vector(data=idx, context=ctx)
+                kern = kernel_of(lambda p_: vex.permutation(pv)(p_ + cv)
+                                 * 2.0)
+                lib = None
+                if form == "permutation":
+                    lib = lambda: torch.zeros_like(u).index_add_(  # noqa
+                        0, idx, w, alpha=2.0)
+                row, got = grad_case(
+                    f"{form}_{dname}", kern, u, w,
+                    0 if form == "permutation" else SUM_TOL[dname],
+                    n * (2 * item + 4), lib)
+                check(any(got.get(k) for k in scatters) and got.get("multi"),
+                      f"{form} {dname}: no scatter or K1 launch: {got}")
+                add_launches({"vb_permutation": sum(
+                    got.get(k, 0) for k in scatters)})
+                perm_rows[(form, dname)] = row
+            del u, c, w, cv, pv, idx, kern
+            torch.cuda.empty_cache()
+        kernels["vb_permutation"] = dict(
+            perm_rows[("permutation", "f32")],
+            route="cuda" if any(perm_rows[("permutation", "f32")][
+                "step_launches"].get(k) for k in scatters[:2])
+            else "triton",
+            others={f"{f}_{d}": r for (f, d), r in perm_rows.items()
+                    if (f, d) != ("permutation", "f32")},
+            workload="the gradient of sum(w (permutation(p)(u + c) * 2)) "
+            "in u, 2^24 f32, p a random permutation (one K1 launch for "
+            "2w, the scatter's add into zeros)")
+
+        g = VIEW_GRID
+        n = g * g
+        u, c = (torch.rand(n, generator=gen, device=dev) for _ in range(2))
+        cv = vex.vector(data=c, context=ctx)
+        grid = vex.slicer([g, g])
+        cases = {
+            "slice": (lambda p_: grid[:, 1:g - 1](p_ + cv), g * (g - 2),
+                      4 * (g * (g - 2) + n), ("to_view",)),
+            "reduce_sum": (lambda p_: vex.reduce_view(
+                "sum", grid[:, :](p_ + cv), 1), g, 4 * (g + n),
+                ("to_view",)),
+            "reduce_max": (lambda p_: vex.reduce_view(
+                "max", grid[:, :](p_ + cv), 1), g, 4 * (g + 3 * n),
+                ("to_view", "reduce_view", "multi")),
+        }
+        # one PyTorch call that gives the same gradient, where there is
+        # one: the slice's cotangent padded by the two edge columns, the
+        # row sum's spread along each row
+        libraries = {
+            "slice": lambda w: lambda: torch.nn.functional.pad(
+                w.view(g, g - 2), (1, 1)).view(-1),
+            "reduce_sum": lambda w: lambda: w.repeat_interleave(g),
+        }
+        for tag, (body, m, nbytes, must) in cases.items():
+            w = torch.rand(m, generator=gen, device=dev)
+            lib = libraries[tag](w) if tag in libraries else None
+            row, got = grad_case(tag, kernel_of(body), u, w,
+                                 0 if tag != "reduce_max" else TOL["f32"],
+                                 nbytes, lib)
+            check(all(got.get(k) for k in must),
+                  f"{tag}: the backward did not launch {must}: {got}")
+            add_launches({f"vb_{tag}": sum(got.get(k, 0) for k in must)})
+            kernels[f"vb_{tag}"] = dict(row, workload={
+                "slice": "the gradient of sum(w slicer[:, 1:4095](u + c)) "
+                         "in u, a 4096^2 f32 grid (V3 stores into zeros)",
+                "reduce_sum": "the gradient of sum(w reduce_view(sum, "
+                              "slicer[:, :](u + c), 1)) in u, 4096^2 f32 "
+                              "(the cotangent spread along the rows by "
+                              "V3's stores)",
+                "reduce_max": "the same with max: V2 for the maxima and "
+                              "for the ties' counts, K1 for w / count, V3 "
+                              "for the spread"}[tag])
+            del w
+        del u, c, cv
+        torch.cuda.empty_cache()
+        rec["view_gradients_s"] = time.perf_counter() - t21
+
+        # the port's examples at the tier-1 test's sizes, on the cards
+        import contextlib
+        import importlib.util
+        import io
+        import runpy
+
+        from vexcl_tpu_torch import context as tcontext
+
+        spec = importlib.util.spec_from_file_location(
+            "example_cases", os.path.join(HERE, "tests",
+                                          "test_torch_examples.py"))
+        cases_mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(cases_mod)
+        keep = (list(sys.argv), list(sys.path), tcontext._current_context)
+        times, outputs = {}, {}
+        try:
+            for name, (argv, lines) in sorted(cases_mod.CASES.items()):
+                path = os.path.join(HERE, "examples", "torch", name + ".py")
+                sys.argv = [path, *argv]
+                out = io.StringIO()
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    runpy.run_path(path, run_name="__main__")
+                torch.cuda.synchronize()
+                times[name] = time.perf_counter() - t
+                text = out.getvalue()
+                missing = [ln for ln in lines if ln not in text]
+                check(not missing, f"example {name} did not print "
+                      f"{missing}:\n{text[-2000:]}")
+                outputs[name] = text
+                print(f"example {name}: {times[name]:.2f} s, "
+                      + " | ".join(ln.strip() for ln in text.splitlines()
+                                   if " on " in ln and ("/s" in ln
+                                                        or "ms" in ln))[:600])
+        finally:
+            sys.argv, sys.path, tcontext._current_context = keep
+            tcontext.release_exclusive_locks()
+        check("jax" not in sys.modules and "vexcl_tpu" not in sys.modules,
+              "an example imported jax or vexcl_tpu")
+        rec["examples_s"] = times
+        rec["s"] = time.perf_counter() - t21
+        report("view_gradients_examples", rec)
+        results["example_output"] = outputs     # with --json
+
+    view_gradients_phase()
+
     # last, after every solver phase, so that no solver's ms per iteration
     # (compared between versions of this script) follows these timings'
     # profiler session or cuSPARSE call: the
@@ -5297,6 +5536,26 @@ def main() -> int:
         ("dia_spmv_halo", "cuda", "vexcl_tpu_torch/csrc/dia_spmv.cu",
          "vexcl_tpu/sparse/pallas_dia.py:147, "
          "vexcl_tpu/sparse/pallas_dia.py:305 (prepadded)", "dia_halo"),
+        ("view_backward_permutation", "cuda",
+         "vexcl_tpu_torch/expr/adjoint.py, vexcl_tpu_torch/csrc/scatter.cu",
+         "none (XLA's transpose of jnp.take in jax.grad through "
+         "vexcl_tpu/generator.py:175-206)", "vb_permutation"),
+        ("view_backward_slice", "triton",
+         "vexcl_tpu_torch/expr/adjoint.py, "
+         "vexcl_tpu_torch/expr/triton_emit.py",
+         "none (XLA's transpose of a slice in jax.grad through "
+         "vexcl_tpu/generator.py:175-206)", "vb_slice"),
+        ("view_backward_reduce_sum", "triton",
+         "vexcl_tpu_torch/expr/adjoint.py, "
+         "vexcl_tpu_torch/expr/triton_emit.py",
+         "none (XLA's transpose of jnp.sum, vexcl_tpu/expr/view.py:357)",
+         "vb_reduce_sum"),
+        ("view_backward_reduce_max", "triton",
+         "vexcl_tpu_torch/expr/adjoint.py, "
+         "vexcl_tpu_torch/ops/triton_reduce_view.py, "
+         "vexcl_tpu_torch/expr/triton_emit.py",
+         "none (XLA's chooser rule of jnp.max, vexcl_tpu/expr/view.py:359)",
+         "vb_reduce_max"),
     ]
     # the cluster kernel's launches: its band and cluster forms
     main_launches["mba_cluster_kernel"] = (

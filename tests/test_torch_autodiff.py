@@ -298,13 +298,15 @@ def test_no_gradient_through_integers(ctx1, tctx):
 
 def test_nextafter_and_uncovered_nodes_raise(tctx):
     """Where JAX defines no derivative, or the adjoint would need a kernel
-    of its own (a gather's is a scatter, a reduction's a broadcast), a
+    the backward does not have (the SpMV's transposed product, a
+    stencil's, the FFT's inverse, an image's scatter of its taps), a
     gradient asked through the node raises NotImplementedError naming it;
     the forward and gradients elsewhere still run."""
+    import scipy.sparse as sp
+
     rng = np.random.default_rng(306)
     x = torch.tensor(rng.random(8), requires_grad=True)
     y = torch.tensor(rng.random(8), requires_grad=True)
-    idx = vt.vector(data=np.arange(8)[::-1].copy(), context=tctx)
     c = vt.vector(data=rng.random(8), context=tctx)
 
     fn = _function(tgen, vt, lambda m, u, v: m.nextafter(u, 0.5) + v, 2)
@@ -313,19 +315,360 @@ def test_nextafter_and_uncovered_nodes_raise(tctx):
     (gy,) = torch.autograd.grad(fn(x.detach(), y)[0].sum(), y)
     assert torch.equal(gy, torch.ones(8, dtype=torch.float64))
 
-    # a view and a reduction read their operand through a vector leaf,
+    # the SpMV and a stencil read their operand through a vector leaf,
     # which gives them their size
-    fn = _function(tgen, vt, lambda m, u: m.permutation(idx)(u + c) * 2.0,
-                   1)
-    with pytest.raises(NotImplementedError, match="PermutationView"):
+    a = sp.random(8, 8, density=0.4, random_state=1, format="csr") \
+        + sp.eye(8, format="csr")
+    mat = vt.SpMat(8, 8, a.indptr, a.indices, a.data, context=tctx)
+    fn = _function(tgen, vt, lambda m, u: mat * (u + c) + u, 1)
+    with pytest.raises(NotImplementedError, match="SpMVExpr"):
         torch.autograd.grad(fn(x)[0].sum(), x)
     with torch.no_grad():
-        assert torch.equal(fn(x)[0], (x + c.storage).flip(0) * 2.0)
+        assert torch.allclose(fn(x)[0], torch.from_numpy(
+            a @ (x.numpy() + c.to_numpy())) + x, rtol=1e-12)
 
-    fn = _function(tgen, vt, lambda m, u: m.reduce_view(
-        "sum", m.reshape(u + c, (8, 1)), 1) + u, 1)
-    with pytest.raises(NotImplementedError, match="ReducedView"):
+    st = vt.stencil([1.0, -2.0, 1.0], 1, context=tctx)
+    fn = _function(tgen, vt, lambda m, u: st * (u + c) * u, 1)
+    with pytest.raises(NotImplementedError, match="StencilExpr"):
         torch.autograd.grad(fn(x)[0].sum(), x)
+
+    # the FFT (a complex value) and an image sample (a view of its own)
+    fn = _function(tgen, vt, lambda m, u: m.FFT(8)(u + c), 1)
+    with pytest.raises(NotImplementedError, match="FFTExpr"):
+        torch.autograd.grad(fn(x)[0].real.sum(), x)
+    img = vt.image2d(rng.random((4, 4)), filter="linear", context=tctx)
+    fn = _function(tgen, vt, lambda m, u: img(u * 3.0, c * 3.0), 1)
+    with pytest.raises(NotImplementedError, match="ImageSample"):
+        torch.autograd.grad(fn(x)[0].sum(), x)
+
+
+# -- views and partial reductions: gradients and vmap ----------------------
+
+#: a permutation's index over 8 elements: a duplicate (7, 7), a negative
+#: key that wraps onto it (-1), keys beyond the end (9, 12, and -9, which
+#: wraps to -1): read as NaN, dropped by the scatter
+PERM = np.array([3, 1, 0, 7, 7, 2, -1, 9, 5, 5, 12, -9], np.int32)
+#: an index-array key: a duplicate and a negative key that wraps onto
+#: another (a key beyond the end: ``test_clamped_key_gradient``)
+KEY = np.array([2, 2, -1, 7, 0], np.int64)
+#: a 2 x 4 operand with ties along both axes (min and max)
+TIES = np.array([1.0, 3.0, 3.0, 0.5, 1.0, 3.0, 2.0, 2.0])
+#: a 2 x 4 operand with zeros: row 0 and column 2 hold one, row 1 and
+#: column 0 two (prod)
+ZEROS = np.array([0.0, 3.0, 2.0, 0.5, 0.0, 1.5, 0.0, 1.25])
+
+
+def _view_module(m):
+    import importlib
+
+    return importlib.import_module(m.__name__ + ".expr.view")
+
+
+#: name -> (body(m, vec, u), the operand u): each view class over an
+#: expression of the parameter u (8 elements) and a vector c
+VIEWS = {
+    "permutation": (lambda m, vec, u: m.permutation(vec(PERM))(
+        u + vec("c")) * 2.0, None),
+    "pointer": (lambda m, vec, u: m.raw_pointer(u * u + vec("c"))[
+        vec(PERM)], None),
+    # a bare parameter as the operand: its length comes with the call
+    "permutation_of_parameter": (lambda m, vec, u: m.permutation(
+        vec(PERM))(u), None),
+    "pointer_to_parameter": (lambda m, vec, u: m.raw_pointer(u)[
+        vec(PERM)] * 2.0, None),
+    "slice": (lambda m, vec, u: _view_module(m).SliceTerminal(
+        u * u + vec("c"), slice(1, 7, 2)), None),
+    "slice_index_array": (lambda m, vec, u: _view_module(m).SliceTerminal(
+        u * u + vec("c"), KEY) * 3.0, None),
+    "slicer": (lambda m, vec, u: m.slicer([2, 4])[:, 1:3](u + vec("c")),
+               None),
+    "slicer_negative_steps": (lambda m, vec, u: m.slicer([2, 4])[
+        ::-1, 3:0:-2](u * u + vec("c")), None),
+    "slicer_index_array": (lambda m, vec, u: m.slicer([2, 4])[
+        :, np.array([3, 0, 3])](u * u + vec("c")), None),
+    "slicer_one_element": (lambda m, vec, u: m.slicer([2, 4])[1, 2](
+        u * u + vec("c")) * u, None),
+    "reshape_transpose": (lambda m, vec, u: m.reshape(
+        u * u + vec("c"), (4, 2), (1, 0)), None),
+    "reshape_broadcast": (lambda m, vec, u: m.reshape(
+        u * u + vec("c"), (3, 8), (1,)), None),
+    **{f"reduce_{op}_axis{axis}": (
+        lambda m, vec, u, op=op, axis=axis: m.reduce_view(
+            op, m.slicer([2, 4])[:, :](u * vec("one")), axis),
+        {"sum": None, "min": TIES, "max": TIES, "prod": ZEROS}[op])
+       for op in ("sum", "min", "max", "prod") for axis in (0, 1)},
+}
+
+
+def _vectors(m, dt, ctx1, tctx, seed):
+    """``vec(h)``: a vector of h in package m (c and one by name)."""
+    named = {"c": np.random.default_rng(seed).random(8).astype(dt),
+             "one": np.ones(8, dt)}
+
+    def vec(h):
+        h = named.get(h) if isinstance(h, str) else h
+        if m is vex:
+            return vex.vector(data=h, context=ctx1)
+        return vt.vector(data=h, context=tctx)
+
+    return vec
+
+
+def _view_function(gen, m, body, dt, ctx1, tctx, nargs=1, seed=310):
+    vec = _vectors(m, dt, ctx1, tctx, seed)
+    return _function(gen, m, lambda m_, *p: body(m_, vec, *p), nargs)
+
+
+@pytest.mark.parametrize("dt", [np.float32, np.float64])
+@pytest.mark.parametrize("case", sorted(VIEWS))
+def test_view_gradient_matches_jax(ctx1, tctx, case, dt):
+    """The gradient of sum(w f(u)) through each view class and every
+    reduce_view op on axes 0 and 1 against jax.grad of vexcl_tpu's
+    kernel: duplicate, wrapped, clamped and dropped keys, ties of min and
+    max (split equally), prod rows and columns with one zero and two."""
+    body, hu = VIEWS[case]
+    rng = np.random.default_rng(311)
+    hu = (rng.uniform(0.5, 1.5, 8) if hu is None else hu).astype(dt)
+    jf = _view_function(jgen, vex, body, dt, ctx1, tctx)
+    tf = _view_function(tgen, vt, body, dt, ctx1, tctx)
+    with torch.no_grad():
+        n = tf(torch.from_numpy(hu))[0].numel()
+    w = rng.uniform(0.5, 1.5, n).astype(dt)
+    import jax
+    import jax.numpy as jnp
+
+    (want,) = [jax.grad(lambda u: jnp.sum(jnp.asarray(w) * jnp.ravel(
+        jf(u)[0])))(jnp.asarray(hu))]
+    u = torch.tensor(hu, requires_grad=True)
+    (out,) = tf(u)
+    np.testing.assert_array_equal(np.isnan(out.detach().numpy()),
+                                  np.isnan(np.ravel(jf(jnp.asarray(hu))[0])))
+    (got,) = torch.autograd.grad(
+        torch.nansum(torch.from_numpy(w) * out), u)
+    assert got.dtype == vt.dtype_of(dt) and got.shape == (8,)
+    _close(got.numpy(), want, TOL[dt])
+    # the same through torch.func.grad
+    got = torch.func.grad(lambda t: torch.nansum(
+        torch.from_numpy(w) * tf(t)[0]))(torch.from_numpy(hu))
+    _close(got.numpy(), want, TOL[dt])
+
+
+def test_clamped_key_gradient(ctx1, tctx):
+    """An index-array key beyond the end reads the last element (numpy's
+    advanced indexing, clamped, in both packages), and its cotangent goes
+    where it read: the port's scatter follows its forward.  JAX's
+    gradient of the clamped gather drops it instead (its scatter drops
+    what lies out of bounds), so the gradients differ there and only
+    there."""
+    import jax
+    import jax.numpy as jnp
+
+    key = np.array([2, 2, -1, 9, 0])
+    w = np.array([1.0, 2.0, 3.0, 4.0, 5.0])
+    hu = np.random.default_rng(316).random(8)
+
+    def body(m, vec, u):
+        return _view_module(m).SliceTerminal(u * u + vec("c"), key)
+
+    jf = _view_function(jgen, vex, body, np.float64, ctx1, tctx)
+    tf = _view_function(tgen, vt, body, np.float64, ctx1, tctx)
+    u = torch.tensor(hu, requires_grad=True)
+    (out,) = tf(u)
+    _close(out.detach().numpy(), jf(jnp.asarray(hu))[0], 1e-12)
+    (got,) = torch.autograd.grad((torch.from_numpy(w) * out).sum(), u)
+    want = np.zeros(8)
+    np.add.at(want, [2, 2, 7, 7, 0], w * 2 * hu[[2, 2, 7, 7, 0]])
+    _close(got.numpy(), want, 1e-12)
+    jax_g = np.asarray(jax.grad(lambda t: jnp.sum(
+        jnp.asarray(w) * jf(t)[0]))(jnp.asarray(hu)))
+    _close(np.delete(got.numpy(), 7), np.delete(jax_g, 7), 1e-12)
+    assert abs(got[7].item() - jax_g[7] - 4.0 * 2 * hu[7]) < 1e-12
+
+
+def test_zero_d_argument_beneath_a_view(ctx1, tctx):
+    """A 0-d a read beneath a permutation sums its adjoint over the
+    operand's 8 elements, not the view's 12; read beneath it and beside
+    it, it is read over two lengths and raises, naming itself."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(312)
+    hu, w = rng.random(8), rng.random(len(PERM))
+
+    def body(m, vec, u, a):
+        return m.permutation(vec(PERM))(u * a + vec("c"))
+
+    jf = _view_function(jgen, vex, body, np.float64, ctx1, tctx, 2)
+    tf = _view_function(tgen, vt, body, np.float64, ctx1, tctx, 2)
+    wu, wa = jax.grad(lambda u, a: jnp.nansum(jnp.asarray(w) * jf(u, a)[0]),
+                      argnums=(0, 1))(jnp.asarray(hu), jnp.asarray(1.7))
+    u = torch.tensor(hu, requires_grad=True)
+    a = torch.tensor(1.7, dtype=torch.float64, requires_grad=True)
+    gu, ga = torch.autograd.grad(
+        torch.nansum(torch.from_numpy(w) * tf(u, a)[0]), (u, a))
+    assert ga.shape == ()
+    _close(gu.numpy(), wu, 1e-10)
+    _close(ga.numpy(), wa, 1e-10)
+
+    fn = _view_function(tgen, vt, lambda m, vec, u, a: body(m, vec, u, a) * a,
+                        np.float64, ctx1, tctx, 2)
+    with pytest.raises(NotImplementedError, match="read over"):
+        torch.autograd.grad(fn(u, a)[0].nansum(), (u, a))
+
+
+@pytest.mark.parametrize("case", ["permutation", "reduce_sum_axis1"])
+def test_second_order_through_a_view_raises(ctx1, tctx, case):
+    """A second derivative through a view's scatter raises, naming the
+    view; the first derivative with create_graph=True still runs."""
+    body, _ = VIEWS[case]
+    tf = _view_function(tgen, vt, body, np.float64, ctx1, tctx)
+    u = torch.rand(8, dtype=torch.float64, requires_grad=True)
+    (g,) = torch.autograd.grad(torch.nansum(tf(u)[0] ** 2), u,
+                               create_graph=True)
+    name = "PermutationView" if case == "permutation" else "MultiSliceView"
+    with pytest.raises(NotImplementedError, match=name):
+        torch.autograd.grad((g * g).sum(), u)
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max", "prod"])
+def test_second_order_through_reduce_view_matches_jax(ctx1, tctx, op):
+    """A second derivative through reduce_view of a 1-D expression (its
+    backward spreads the cotangent without a scatter) against
+    jax.grad(jax.grad(...))."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(317)
+    hu = rng.uniform(0.5, 1.5, 8)
+
+    def body(m, vec, u):
+        return m.reduce_view(op, u * u + vec("c"), 0)
+
+    jf = _view_function(jgen, vex, body, np.float64, ctx1, tctx)
+    tf = _view_function(tgen, vt, body, np.float64, ctx1, tctx)
+    want = jax.grad(lambda t: jnp.sum(jax.grad(
+        lambda v: jnp.sum(jf(v)[0]))(t) ** 2))(jnp.asarray(hu))
+    u = torch.tensor(hu, requires_grad=True)
+    (g,) = torch.autograd.grad(tf(u)[0].sum(), u, create_graph=True)
+    (got,) = torch.autograd.grad((g * g).sum(), u)
+    _close(got.numpy(), want, 1e-10)
+
+
+#: view classes and reductions for vmap: body(m, vec, u, v)
+VMAPS = {
+    "permutation": lambda m, vec, u, v: m.permutation(vec(PERM))(
+        u * v + vec("c")),
+    "pointer": lambda m, vec, u, v: m.raw_pointer(u * v + vec("c"))[
+        vec(PERM)],
+    "slice": lambda m, vec, u, v: _view_module(m).SliceTerminal(
+        u * v + vec("c"), slice(1, 7, 2)),
+    "slicer": lambda m, vec, u, v: m.slicer([2, 4])[:, 1:3](u * v + vec("c")),
+    "reshape": lambda m, vec, u, v: m.reshape(u * v + vec("c"), (4, 2),
+                                              (1, 0)),
+    "reduce_sum": lambda m, vec, u, v: m.reduce_view(
+        "sum", m.slicer([2, 4])[:, :](u * v + vec("c")), 1),
+    "reduce_max": lambda m, vec, u, v: m.reduce_view(
+        "max", m.slicer([2, 4])[:, :](u * v + vec("c")), 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(VMAPS))
+def test_vmap_through_views_matches_jax(ctx1, tctx, case):
+    """torch.func.vmap through a kernel that holds a view or a
+    reduce_view, u batched on axis 1 and v unbatched, then both batched
+    on axis 0, against jax.vmap: one call a batch element."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(313)
+    hu, hv, hb = rng.random((8, 3)), rng.random(8), rng.random((3, 8))
+    jf = _view_function(jgen, vex, VMAPS[case], np.float64, ctx1, tctx, 2)
+    tf = _view_function(tgen, vt, VMAPS[case], np.float64, ctx1, tctx, 2)
+    want = jax.vmap(lambda u: jnp.ravel(jf(u, jnp.asarray(hv))[0]),
+                    in_axes=1)(jnp.asarray(hu))
+    got = torch.func.vmap(lambda u: tf(u, torch.from_numpy(hv))[0],
+                          in_dims=1)(torch.from_numpy(hu))
+    assert got.shape == want.shape
+    _close(got.numpy(), want, 1e-12)
+    want = jax.vmap(lambda u, v: jnp.ravel(jf(u, v)[0]))(
+        jnp.asarray(hb), jnp.asarray(hb[::-1].copy()))
+    got = torch.func.vmap(lambda u, v: tf(u, v)[0])(
+        torch.from_numpy(hb), torch.from_numpy(hb[::-1].copy()))
+    _close(got.numpy(), want, 1e-12)
+
+
+@pytest.mark.parametrize("case", ["permutation", "reduce_max", "slicer"])
+def test_vmap_of_gradients_through_views_matches_jax(ctx1, tctx, case):
+    """torch.func.vmap of torch.func.grad through a view, in u (a batch
+    of 3) and in a 0-d v of each batch element (its gradient a sum per
+    batch element), against jax.vmap of jax.grad."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(314)
+    hu, hv = rng.random((3, 8)), rng.random(3)
+    jf = _view_function(jgen, vex, VMAPS[case], np.float64, ctx1, tctx, 2)
+    tf = _view_function(tgen, vt, VMAPS[case], np.float64, ctx1, tctx, 2)
+    want = jax.vmap(jax.grad(lambda u, v: jnp.nansum(jf(u, v)[0] ** 2),
+                             argnums=(0, 1)))(jnp.asarray(hu),
+                                              jnp.asarray(hv))
+    got = torch.func.vmap(torch.func.grad(
+        lambda u, v: torch.nansum(tf(u, v)[0] ** 2), argnums=(0, 1)))(
+        torch.from_numpy(hu), torch.from_numpy(hv))
+    for g, v in zip(got, want):
+        assert g.shape == v.shape
+        _close(g.numpy(), v, 1e-10)
+
+
+def test_vmap_of_a_gradient_of_a_0d_argument(tctx):
+    """vmap of the gradient in a 0-d a of an elementwise tree: a sum per
+    batch element (the backward kernel runs once a batch element), as
+    jax.vmap(jax.grad(...)) gives."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(315)
+    hx, ha = rng.random((4, 16)), rng.random(4)
+
+    def body(m, x, a):
+        return m.sin(x) * a + x * x
+
+    jf, tf = _function(jgen, vex, body, 2), _function(tgen, vt, body, 2)
+    want = jax.vmap(jax.grad(lambda x, a: jnp.sum(jf(x, a)[0] ** 2),
+                             argnums=(0, 1)))(jnp.asarray(hx),
+                                              jnp.asarray(ha))
+    got = torch.func.vmap(torch.func.grad(
+        lambda x, a: (tf(x, a)[0] ** 2).sum(), argnums=(0, 1)))(
+        torch.from_numpy(hx), torch.from_numpy(ha))
+    for g, v in zip(got, want):
+        assert g.shape == v.shape
+        _close(g.numpy(), v, 1e-10)
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+def test_vmap_of_an_elementwise_gradient_folds(tctx, axis):
+    """vmap of the gradient in a vector x of an elementwise tree, beside
+    an unbatched vector a: the backward kernel folds the batch into the
+    elements (its gradient as long as the folded x), as
+    jax.vmap(jax.grad(...)) gives."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(316)
+    hx, ha = rng.random((4, 16)), rng.random(16)
+    hx = hx if axis == 0 else hx.T.copy()
+
+    def body(m, x, a):
+        return m.sin(x) * a + x * x
+
+    jf, tf = _function(jgen, vex, body, 2), _function(tgen, vt, body, 2)
+    want = jax.vmap(jax.grad(lambda x, a: jnp.sum(jf(x, a)[0] ** 2)),
+                    in_axes=(axis, None))(jnp.asarray(hx), jnp.asarray(ha))
+    got = torch.func.vmap(torch.func.grad(
+        lambda x, a: (tf(x, a)[0] ** 2).sum()), in_dims=(axis, None))(
+        torch.from_numpy(hx), torch.from_numpy(ha))
+    assert got.shape == want.shape == (4, 16)
+    _close(got.numpy(), want, 1e-10)
 
 
 def _backward_source(kernel, arrays, cots, needs):

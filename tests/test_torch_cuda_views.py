@@ -687,3 +687,161 @@ def test_patched_sample_reads_a_row_in_16_byte_loads(gpu, dt, monkeypatch):
     wide = re.findall(r"ld\.global[\w.:]*?\.v(\d)\.b(\d+)", ptx)
     want = [("4", "32")] if dt == torch.float32 else [("2", "64")] * 2
     assert sorted(wide) == sorted(want), wide
+
+
+# -- the staged backward through views and partial reductions ---------------
+#
+# The gradient of sum(w f(u)) through ``Kernel.as_function`` where f reads
+# a view or a partial reduction: the backward runs in stages on the card
+# (a scatter a view, V2 a reduction the rule needs, K1 a materialised
+# cotangent) and is held against the same stages' plain versions on the
+# card (``Kernel.plain`` of the backward kernel).  A permutation's scatter
+# adds each cotangent into zeros once, and slices and the sum's spread
+# store theirs: bitwise.  Duplicate keys add in an order that changes
+# from run to run: 1e-5 (f32) and 1e-12 (f64) relative to the largest
+# magnitude; the chooser rule's division and the product's: RTOL.
+
+_SCATTER = ("to_view", "ranges", "privatized")
+
+
+def _scatter_launches():
+    from vexcl_tpu_torch.expr import triton_emit
+    from vexcl_tpu_torch.ops import cuda_scatter
+
+    return (triton_emit.assign_to_view.launches,
+            cuda_scatter.scatter_ranges.launches,
+            cuda_scatter.scatter_privatized.launches)
+
+
+def _grad_kernel(body):
+    from vexcl_tpu_torch import generator as tgen
+
+    param, out = tgen.symbolic(), tgen.symbolic()
+    out[:] = body(param)
+    return tgen.build_kernel("view_grad", [out], [param])
+
+
+def _grad_and_plain(kern, u, w):
+    """(the gradient through the kernels, the plain stages' gradient, the
+    launches of the backward step by V3 and the two scatter forms, of
+    V2 and of K1)."""
+    from vexcl_tpu_torch.expr.triton_emit import assign_multi
+    from vexcl_tpu_torch.ops.triton_reduce_view import reduce_view_apply
+
+    ui = u.clone().requires_grad_()
+    (y,) = kern.as_function()(ui)
+    torch.autograd.grad(y, ui, w, retain_graph=True)
+    torch.cuda.synchronize()
+    before = (*_scatter_launches(), reduce_view_apply.launches,
+              assign_multi.launches)
+    (g,) = torch.autograd.grad(y, ui, w)
+    torch.cuda.synchronize()
+    after = (*_scatter_launches(), reduce_view_apply.launches,
+             assign_multi.launches)
+    with torch.no_grad():
+        (p,) = kern.backward_kernel([u], [w], [True]).plain(u, w)
+    return g, p, [b - a for a, b in zip(before, after)]
+
+
+@pytest.mark.parametrize("n", [1000, (1 << 16) + 123, 1 << 24])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_permutation_gradient_matches_plain(gpu, n, dt):
+    """Through a random permutation: the scatter (V3 or a form of
+    ``csrc/scatter.cu``) launches and the gradient is the plain stages'
+    bit for bit; with duplicate keys and keys out of range on both sides
+    (dropped), within the atomic adds' tolerance."""
+    g_ = torch.Generator(device=gpu.device).manual_seed(n)
+    u, c, w = (torch.rand(n, generator=g_, device=gpu.device, dtype=dt)
+               for _ in range(3))
+    cv = _vec(gpu, c)
+    for idx, exact in ((torch.randperm(n, generator=g_, device=gpu.device),
+                        True),
+                       (torch.randint(-n - n // 8, n + n // 8, (n,),
+                                      generator=g_, device=gpu.device),
+                        False)):
+        pv = _vec(gpu, idx.to(torch.int32))
+        kern = _grad_kernel(lambda p_: vex.permutation(pv)(p_ + cv) * 2.0)
+        g, p, launched = _grad_and_plain(kern, u, w)
+        assert sum(launched[:3]) >= 1 and launched[4] <= 1, launched
+        if exact:
+            _bitwise(g, p)
+        else:
+            _close(g, p, 1e-5 if dt == torch.float32 else 1e-12)
+
+
+@pytest.mark.parametrize("key", ["interior", "strided", "transpose",
+                                 "broadcast", "index_array"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_affine_view_gradient_matches_plain(gpu, key, dt):
+    """Through slices, a transpose, a broadcast reshape and an index-array
+    key of a 300 x 257 grid: one V3 launch (stores where the view cannot
+    collide, atomic adds where it can), the plain stages' values (bitwise
+    for the stores)."""
+    a, b = 300, 257
+    g_ = torch.Generator(device=gpu.device).manual_seed(7)
+    u, c = (torch.rand(a * b, generator=g_, device=gpu.device, dtype=dt)
+            for _ in range(2))
+    cv = _vec(gpu, c)
+    keys = _vec(gpu, np.array([3, 3, -1, 250, 0] * 20, np.int64))
+    body = {
+        "interior": lambda p_: vex.slicer((a, b))[1:a - 1, 1:b - 1](p_ + cv),
+        "strided": lambda p_: vex.slicer((a, b))[::-3, 5:200:2](p_ * cv),
+        "transpose": lambda p_: vex.reshape(p_ + cv, (b, a), (1, 0)),
+        "broadcast": lambda p_: vex.reshape(p_ * cv, (3, a * b), (1,)),
+        "index_array": lambda p_: vex.slicer((a, b))[:, keys](p_ + cv),
+    }[key]
+    kern = _grad_kernel(body)
+    with torch.no_grad():
+        m = kern.as_function()(u)[0].numel()
+    w = torch.rand(m, generator=g_, device=gpu.device, dtype=dt)
+    g, p, launched = _grad_and_plain(kern, u, w)
+    assert launched[0] == 1 and launched[3] == 0, launched
+    if key in ("broadcast", "index_array"):
+        _close(g, p, 1e-5 if dt == torch.float32 else 1e-12)
+    else:
+        _bitwise(g, p)
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("op", ["sum", "min", "max", "prod"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_reduce_view_gradient_matches_plain(gpu, op, axis, dt):
+    """Through reduce_view of a 96 x 130 grid, with ties (min, max) and
+    rows and columns holding one zero and two (prod): V2 for the values
+    the rule needs (none for the sum), K1 for the materialised cotangent,
+    V3 for the spread; within RTOL of the plain stages."""
+    a, b = 96, 130
+    rng = np.random.default_rng(axis)
+    h = rng.integers(1, 4, a * b).astype(np.float64) / 2
+    if op == "prod":
+        h = rng.uniform(0.9, 1.1, a * b)
+        h[[0, 5 * b + 3, 5 * b + 9, 7]] = 0.0
+    u = torch.tensor(h, dtype=dt, device=gpu.device)
+    one = _vec(gpu, torch.ones(a * b, dtype=dt))
+    kern = _grad_kernel(lambda p_: vex.reduce_view(
+        op, vex.slicer((a, b))[:, :](p_ * one), axis))
+    w = torch.rand(b if axis == 0 else a, device=gpu.device, dtype=dt)
+    g, p, launched = _grad_and_plain(kern, u, w)
+    assert launched[0] == 1, launched
+    assert launched[3] == {"sum": 0, "prod": 2}.get(op, 2), launched
+    _close(g, p, RTOL[dt])
+
+
+def test_vmap_of_a_view_gradient_matches_unbatched_calls(gpu):
+    """torch.func.vmap of torch.func.grad through a permutation on the
+    card: one backward a batch element, each the unbatched call's bits."""
+    n = (1 << 16) + 123
+    g_ = torch.Generator(device=gpu.device).manual_seed(11)
+    ub = torch.rand(3, n, generator=g_, device=gpu.device)
+    pv = _vec(gpu, torch.randperm(n, generator=g_,
+                                  device=gpu.device).to(torch.int32))
+    cv = _vec(gpu, torch.rand(n, generator=g_, device=gpu.device))
+    fn = _grad_kernel(lambda p_: vex.permutation(pv)(p_ * p_ + cv)
+                      ).as_function()
+
+    def loss(t):
+        return fn(t)[0].sum()
+
+    got = torch.func.vmap(torch.func.grad(loss))(ub)
+    for i in range(3):
+        assert torch.equal(got[i], torch.func.grad(loss)(ub[i]))

@@ -160,3 +160,25 @@ def test_vector_valued_matrices_raise(tctx):
                      np.ones((1, 2)), context=tctx)
     with pytest.raises(TypeError, match="multivector"):
         C * x
+
+
+@pytest.mark.parametrize("planes, xs", [
+    (torch.complex64, torch.complex64), (torch.complex128, torch.complex128),
+    (torch.float32, torch.complex64), (torch.complex64, torch.float32)])
+def test_complex_dia_by_real_parts(planes, xs):
+    """On the card a complex DIA product runs the real kernel over the
+    parts (``DIA.by_real_parts``); here that arithmetic, through the
+    kernel's plain version, against the complex plain product."""
+    rng = np.random.default_rng(17)
+    n, offs = 40, (-2, 0, 3)
+    v = rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n))
+    x = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    vals = torch.from_numpy(v if planes.is_complex else v.real).to(planes)
+    xt = torch.from_numpy(x if xs.is_complex else x.real).to(xs)
+    A = DIA(n, n, offs, vals, device=torch.device("cpu"), compress=False)
+    got = A.by_real_parts(xt)
+    want = A.apply(xt)
+    assert got.dtype == want.dtype
+    tol = 1e-5 if torch.complex64 in (planes, xs) or \
+        torch.float32 in (planes, xs) else 1e-12
+    assert torch.allclose(got, want, rtol=0, atol=tol * want.abs().max())

@@ -96,7 +96,7 @@ __all__ = ["ASSIGN_OPS", "evaluate", "evaluate_multi", "assign_value",
            "assign_vectors", "assign_to_view", "prepare_view_assign",
            "eval_expr", "hoist", "prepare", "prepare_multi", "hoist_parts",
            "part_trees", "evaluate_parts", "gather_whole", "on_device",
-           "whole_on", "whole_parts"]
+           "whole_on", "whole_parts", "Stages"]
 
 # Assignment operator table (vexcl/operations.hpp:63-96): op -> the
 # operator combining the old value with the new one.
@@ -115,22 +115,45 @@ ASSIGN_OPS = {
 }
 
 
+class Stages:
+    """The stages of one call of a kernel whose trees hold nodes that run
+    their own kernel first (a staged backward): the value of each such
+    node that ran, by (id, length), so that a node two stages read runs
+    once; and whether they run their kernels' plain versions
+    (``generator.Kernel.plain``).  ``prepare_multi`` and ``hoist`` pass it
+    to the ``materialize`` of the nodes that take it (``takes_stages``:
+    ``ReducedView``, ``adjoint.Stage``, ``adjoint.ViewAdjoint``)."""
+
+    def __init__(self, plain: bool = False):
+        self.plain = plain
+        self.memo: Dict[tuple, tuple] = {}
+
+
 def hoist(expr: Expr, device: torch.device, n: Optional[int] = None,
-          memo: Optional[Dict[int, Expr]] = None) -> Expr:
+          memo: Optional[Dict[int, Expr]] = None,
+          stages: Optional[Stages] = None) -> Expr:
     """Replace every non-elementwise node by what its own kernel computes
     for the n elements of the assignment: an array leaf holding its value,
     or (the ``"hw"`` generator) an elementwise node over the array leaves
-    its kernel wrote."""
+    its kernel wrote.  With ``stages``, such a node runs once in them."""
     memo = {} if memo is None else memo
     hit = memo.get(id(expr))
     if hit is not None:
         return hit
     if not expr._elementwise:
-        out = expr.materialize(device, n)
-        if not isinstance(out, Expr):
-            out = ArrayTerminal(out)
+        kept = None if stages is None else stages.memo.get((id(expr), n))
+        if kept is not None and kept[0] is expr:
+            out = kept[1]
+        else:
+            out = (expr.materialize(device, n, stages=stages)
+                   if stages is not None and expr.takes_stages
+                   else expr.materialize(device, n))
+            if not isinstance(out, Expr):
+                out = ArrayTerminal(out)
+            if stages is not None:
+                stages.memo[(id(expr), n)] = (expr, out)
     elif expr.children:
-        kids = [hoist(c, device, m, memo)
+        kids = [hoist(c, device, m, memo, stages)
                 for c, m in zip(expr.children, expr.child_sizes(n))]
         changed = any(k is not c for k, c in zip(kids, expr.children))
         out = expr.with_children(kids) if changed else expr
@@ -268,18 +291,19 @@ def _gathers_target(analysis: Analysis, leaves,
 
 
 def prepare_multi(exprs: Sequence[Any], n: Optional[int],
-                  device: torch.device):
+                  device: torch.device, stages: Optional[Stages] = None):
     """Hoist, analyse and type several expressions together: (exprs,
     analysis, types, leaves on ``device``); a node they share is hoisted
     and analysed once.  One walk analyses the trees; only where it meets a
     node that runs its own kernel first are they hoisted and walked
     again.  The types are inferred at their first lookup (``LazyTypes``):
-    a launch of a kernel built already reads none."""
+    a launch of a kernel built already reads none.  ``stages``: see
+    ``hoist``."""
     exprs = [as_expr(e) for e in exprs]
     analysis = analyze(*exprs)
     if analysis.hoist:
         memo: Dict[int, Expr] = {}
-        exprs = [hoist(e, device, n, memo) for e in exprs]
+        exprs = [hoist(e, device, n, memo, stages) for e in exprs]
         analysis = analyze(*exprs)
     return (exprs, analysis, LazyTypes(*exprs),
             _check_leaves(exprs, analysis, n, device))
@@ -372,14 +396,16 @@ def evaluate_multi(exprs: Sequence[Any],
                    ops: Optional[Sequence[str]] = None, *,
                    n: Optional[int] = None,
                    out_dtypes: Optional[Sequence[Any]] = None,
-                   device: Optional[torch.device] = None
+                   device: Optional[torch.device] = None,
+                   stages: Optional[Stages] = None
                    ) -> Tuple[torch.Tensor, ...]:
     """Fused evaluation of k expressions in ONE kernel
     (``vexcl_tpu/expr/compile.py::evaluate_multi``): into ``outs`` in
     place (one length, one device), each combined with its old value by
     its op of ``ops`` (default ``=``); or, without ``outs``, into k new
     tensors of ``n`` elements on ``device`` (default: the first
-    expression's context's), typed ``out_dtypes`` or by inference."""
+    expression's context's), typed ``out_dtypes`` or by inference.
+    ``stages``: see ``hoist``."""
     exprs: List[Expr] = [as_expr(e) for e in exprs]
     ops = list(ops) if ops is not None else ["="] * len(exprs)
     if len(ops) != len(exprs) or (outs is not None
@@ -404,7 +430,7 @@ def evaluate_multi(exprs: Sequence[Any],
             raise ValueError("expressions have no size: include a vector or "
                              "give n")
         device = device or _device_of(exprs[0])
-    exprs, analysis, types, leaves = prepare_multi(exprs, n, device)
+    exprs, analysis, types, leaves = prepare_multi(exprs, n, device, stages)
     if outs is None:
         dts = out_dtypes or [None] * len(exprs)
         outs = [torch.empty(n, device=device, dtype=dtype_of(dt)

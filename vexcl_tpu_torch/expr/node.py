@@ -221,6 +221,9 @@ class Expr:
     #: Evaluation computes them first into a temporary (``hoist``), so the
     #: elementwise kernel never reads an index it does not write.
     _elementwise = True
+    #: True on nodes whose ``materialize`` takes the ``stages`` of a
+    #: staged backward (``compile.Stages``)
+    takes_stages = False
     #: a method on nodes that can write their value straight into a
     #: target (``compile.evaluate``): the value's type, or None
     direct_dtype = None

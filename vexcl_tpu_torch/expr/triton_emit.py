@@ -102,9 +102,8 @@ from ..config import config
 from ..ops import cuda_gather, cuda_scatter
 from ..types import (COMPLEX_CODES, code_of, dtype_of_code, real_code,
                      scalar_code)
-from .node import (_INT_WIDTH, Analysis, ArrayTerminal, BinOp, CastExpr,
-                   ConstantTerminal, EmitEnv, Expr, ScalarTerminal, UnOp,
-                   VectorTerminal, convert, int_edges)
+from .node import (_INT_WIDTH, Analysis, BinOp, CastExpr, ConstantTerminal,
+                   EmitEnv, Expr, ScalarTerminal, UnOp, convert, int_edges)
 
 __all__ = ["Emitter", "assign_source", "assign_multi_source", "assign",
            "assign_plain", "assign_multi", "assign_multi_plain",
@@ -1498,12 +1497,14 @@ def _gather_operands(expr: Expr, analysis: Analysis, types, leaves,
             or dtype_of_code(types[id(expr)]) != out.dtype:
         return None
     n = out.numel()
+    # the extent as the analysis took it (a lazy one with its parameter)
+    extent = int(leaves[analysis.slot_of[id(expr.children[2])]])
     idx = _leaf_tensor(expr.children[1], analysis, leaves, n,
                        (torch.int32, torch.int64), out.device)
-    if idx is None or not cuda_gather.route(out.dtype, expr.extent, n,
+    if idx is None or not cuda_gather.route(out.dtype, extent, n,
                                             idx.dtype):
         return None
-    src = _leaf_tensor(expr.children[0], analysis, leaves, expr.extent,
+    src = _leaf_tensor(expr.children[0], analysis, leaves, extent,
                        (out.dtype,), out.device)
     return None if src is None else (idx, src)
 
@@ -1769,9 +1770,10 @@ def _host_scalar(value: Expr, analysis: Analysis, types, leaves,
 
 def _leaf_tensor(node: Expr, analysis: Analysis, leaves, n: int, dtypes,
                  device: torch.device):
-    """The tensor of a vector or array leaf of n elements of one of
-    ``dtypes`` on ``device``, or None."""
-    if not isinstance(node, (VectorTerminal, ArrayTerminal)):
+    """The tensor of a leaf (a vector, an array, a kernel's bound
+    parameter) of n elements of one of ``dtypes`` on ``device``, or
+    None."""
+    if node.children or id(node) not in analysis.slot_of:
         return None
     t = leaves[analysis.slot_of[id(node)]]
     if isinstance(t, torch.Tensor) and t.ndim == 1 and t.shape[0] == n \

@@ -187,10 +187,14 @@ class _View(Expr):
     def _infer(self, child_codes):
         return child_codes[0]
 
+    def extent_in(self, env: EmitEnv) -> int:
+        """``extent`` in a plain evaluation."""
+        return self.extent
+
     def emit(self, env: EmitEnv):
         idx, valid = self.plain_index(env)
         x = torch.broadcast_to(self.children[0].emit_cached(env),
-                               (self.extent,))
+                               (self.extent_in(env),))
         out = x[idx]
         if valid is not None:
             fill = torch.tensor(fill_value(out.dtype), dtype=out.dtype,
@@ -602,11 +606,36 @@ def reshape(x: Any, dst_dims: Sequence[int],
     return ReshapeView(x, dst_dims, order)
 
 
+class _Extent(ScalarTerminal):
+    """The length of a permutation's operand where only a call gives it
+    (a parameter of a recorded kernel, ``raw_pointer(u)``): taken when the
+    analysis reads the leaf, the parameter bound."""
+
+    def __init__(self, inner: Expr):
+        self.inner = inner
+
+    @property
+    def value(self) -> int:
+        return _sized(self.inner, "a permutation")
+
+
+def _bound_later(e: Expr) -> bool:
+    """Whether ``e`` reads a parameter of a recorded kernel."""
+    stack = [e]
+    while stack:
+        node = stack.pop()
+        if node._opname == "symp":
+            return True
+        stack.extend(node.children)
+    return False
+
+
 class PermutationView(_View):
     """permutation(idx)(x): x at idx (vector_view.hpp:601-698), as
     ``jnp.take(x, idx.astype(int32))``; idx may be a vector, an array or
     an index expression (expr_permutation).  Children: the inner, the
-    index, the inner's length."""
+    index, the inner's length (an ``_Extent`` where the inner is sized by
+    a kernel's parameter alone)."""
 
     _opname = "perm"
     own_children = (1,)
@@ -616,9 +645,27 @@ class PermutationView(_View):
         """``extent``: the inner's length where it is not the inner's size
         (a part of a partitioned vector)."""
         inner = as_expr(inner)
-        self.extent = (_sized(inner, "a permutation") if extent is None
-                       else int(extent))
-        self.children = (inner, as_expr(index), ScalarTerminal(self.extent))
+        if extent is None and inner.size_hint() is None \
+                and _bound_later(inner):
+            self._extent = None
+            size = _Extent(inner)
+        else:
+            self._extent = (_sized(inner, "a permutation") if extent is None
+                            else int(extent))
+            size = ScalarTerminal(self._extent)
+        self.children = (inner, as_expr(index), size)
+
+    @property
+    def extent(self) -> int:
+        if self._extent is not None:
+            return self._extent
+        return _sized(self.children[0], "a permutation")
+
+    def with_children(self, children: Sequence[Expr]) -> "PermutationView":
+        out = super().with_children(children)
+        if self._extent is None and children[0] is not self.children[0]:
+            out.children = (*out.children[:2], _Extent(out.children[0]))
+        return out
 
     def child_sizes(self, m):
         return [self.extent, m, m]
@@ -628,10 +675,16 @@ class PermutationView(_View):
             return self._part[1] - self._part[0]
         return self.children[1].size_hint()
 
+    def extent_in(self, env: EmitEnv) -> int:
+        """The leaf's value, which a lazy extent took with its parameter
+        bound."""
+        return int(env.leaves[id(self.children[2])])
+
     def plain_index(self, env: EmitEnv):
         j = self.children[1].emit_cached(env).to(torch.int32).to(torch.int64)
-        j = torch.where(j < 0, j + self.extent, j)
-        valid = (j >= 0) & (j < self.extent)
+        extent = self.extent_in(env)
+        j = torch.where(j < 0, j + extent, j)
+        valid = (j >= 0) & (j < extent)
         return torch.where(valid, j, torch.zeros_like(j)), valid
 
     def emit_index(self, em):
@@ -673,6 +726,7 @@ class ReducedView(Expr):
 
     _size_transparent = False
     _elementwise = False
+    takes_stages = True
     _opname = "vreduce"
 
     def __init__(self, op: str, inner: Expr, axes: Sequence[int]):
@@ -720,11 +774,11 @@ class ReducedView(Expr):
     #: the inner is read whole, not at the element's index
     reads_whole = True
 
-    def materialize(self, device: torch.device,
-                    n: Optional[int] = None) -> torch.Tensor:
+    def materialize(self, device: torch.device, n: Optional[int] = None,
+                    stages=None) -> torch.Tensor:
         from ..ops.triton_reduce_view import reduce_view_eval
 
-        return reduce_view_eval(self, device)
+        return reduce_view_eval(self, device, stages)
 
     def materialize_parts(self, ref):
         """Over the parts of ``ref``: V2 once a distinct device over the

@@ -40,15 +40,28 @@ as ``jax.grad`` and ``jax.vmap`` compose with the JAX package's:
   in one launch of the k-output kernel, those of 0-d tensor inputs (the
   sum over the elements of their adjoint) in one launch of the
   several-reduction kernel (``ops/triton_reduce.map_reduce_multi``), so
-  at most two launches a backward call.  It recomputes the forward from
-  the inputs and stores no intermediate.  The backward kernel is called
-  through its own ``as_function``, so ``create_graph=True`` gives second
-  derivatives by the same machinery.  On the CPU the same adjoint trees
-  run through their plain forms;
-* under ``torch.func.vmap`` the batched arguments move their batch
-  dimension to the front and flatten to B·n elements, an unbatched vector
-  is repeated B times and a scalar stays: one launch, outputs of shape
-  (B, n).
+  at most two launches a backward call of elementwise trees.  It
+  recomputes the forward from the inputs and stores no intermediate.
+  Trees with views and partial reductions run their backward in stages
+  first (``expr/adjoint.py``: a scatter a view, a V2 launch a reduction
+  the rule needs, a K1 launch a materialised cotangent), with one
+  ``compile.Stages`` a call, so a stage two trees read runs once.  The
+  backward kernel is called through its own ``as_function``, so
+  ``create_graph=True`` gives second derivatives by the same machinery.
+  On the CPU the same adjoint trees run through their plain forms;
+* under ``torch.func.vmap`` elementwise trees fold the batch into the
+  elements: the batched arguments move their batch dimension to the
+  front and flatten to B·n elements, an unbatched vector is repeated B
+  times and a scalar stays: one launch, outputs of shape (B, n).  A tree
+  that reads other indices than its own (a view, a pointer, a partial
+  reduction, ``element_index()``) or a backward kernel with a 0-d
+  gradient (a sum per batch element) runs once a batch element instead
+  (B calls, each its own launches), outputs stacked.
+
+An output's length is its tree's size where the tree has one (a view, a
+reduction: ``slicer([8])[1:5](u + c)`` gives 4 elements), else the first
+vector argument's; a backward kernel's gradients have their arguments'
+lengths.
 
 A call with no input that needs a gradient, outside ``torch.func``'s
 transforms, launches the kernel with no autograd node.  Either way a
@@ -72,10 +85,12 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 import torch
 
 from .expr.adjoint import adjoint
-from .expr.compile import _gathers_target, evaluate_multi, prepare_multi
+from .expr.compile import (Stages, _gathers_target, evaluate_multi,
+                           prepare_multi)
 from .expr.function import Function
-from .expr.node import (Analysis, CastExpr, ConstantTerminal, Expr, as_expr,
-                        infer_types)
+from .expr.node import (Analysis, ArrayTerminal, CastExpr, ConstantTerminal,
+                        ElementIndex, Expr, analyze, as_expr, infer_types)
+from .expr.view import _View
 from .expr.triton_emit import (_Launches, assign_multi,
                                assign_multi_plain, launch_key,
                                plain_values)
@@ -136,6 +151,9 @@ class _SymbolicParam(Expr):
         return em.scalar(self)
 
     def size_hint(self):
+        v = self.bound
+        if isinstance(v, torch.Tensor) and v.ndim == 1:
+            return int(v.shape[0])
         return None
 
 
@@ -207,6 +225,21 @@ def _binding_class(arg) -> tuple:
     return (scalar_code(arg),)
 
 
+def _length(e: Expr, memo: Dict[int, Optional[int]]) -> Optional[int]:
+    """The number of elements a tree gives, as the JAX package's arrays
+    broadcast: a view's, a reduction's or a vector's own size, the
+    largest of an elementwise node's operands' (a one-element view
+    broadcasts), or None where no node fixes it."""
+    if id(e) not in memo:
+        if e.children and e._elementwise and e._size_transparent:
+            hs = [h for h in (_length(c, memo) for c in e.children)
+                  if h is not None]
+            memo[id(e)] = max(hs) if hs else None
+        else:
+            memo[id(e)] = e.size_hint()
+    return memo[id(e)]
+
+
 class Kernel:
     """A recorded kernel (generator.hpp kernel :547)."""
 
@@ -226,6 +259,15 @@ class Kernel:
         #: (outputs with a cotangent, inputs needing a gradient, binding)
         #: -> the backward kernel
         self._backward: Dict[tuple, "Kernel"] = {}
+        #: a backward kernel's: the argument whose gradient each output
+        #: is, and the elements a 0-d argument's gradient sums over (None
+        #: for a vector's); None for a recorded kernel (``_sizes``)
+        self._grad_of: Optional[List[int]] = None
+        self._lengths: Optional[List[Optional[int]]] = None
+        #: the outputs' lengths by binding (``_sizes``)
+        self._size_of: Dict[tuple, Optional[List[int]]] = {}
+        #: whether vmap folds the batch into the elements (``_folds``)
+        self._fold: Optional[bool] = None
 
     def _bind(self, args) -> None:
         if len(args) != len(self.params):
@@ -286,6 +328,10 @@ class Kernel:
         ``out_dtypes`` (the trees' own types where None)."""
         self._bind(args)
         try:
+            if analyze(*trees).hoist:
+                # a node runs its own kernel first: hoisted on every call
+                self._bindings[key] = None
+                return None
             exprs, analysis, types, leaves = prepare_multi(trees, n, device)
             if out_dtypes is None:
                 out_dtypes = [dtype_of_code(types[id(e)]) for e in exprs]
@@ -479,48 +525,113 @@ class Kernel:
         return tuple(outs)
 
     def _evaluate(self, arrays, plain: bool = False) -> tuple:
-        """The outputs over the arguments' n elements: the elementwise
-        ones in one launch of the k-output kernel, a backward kernel's
-        summed ones in one launch of the several-reduction kernel; with
-        ``plain``, both kernels' plain versions."""
+        """The outputs over their lengths (``_sizes``): the elementwise
+        ones of one length in one launch of the k-output kernel, a
+        backward kernel's summed ones in one launch of the
+        several-reduction kernel; with ``plain``, both kernels' plain
+        versions."""
         n, device = self._extent(arrays)
         # a kept record passes a tensor to the kernel as it is: a strided
         # one (the stride-0 cotangent of a sum) is made contiguous first,
         # as the analysis would
         arrays = [a.contiguous() if isinstance(a, torch.Tensor) else a
                   for a in arrays]
+        key = tuple(map(_binding_class, arrays))
+        sizes = self._sizes(n, key, arrays)
+        if sizes is None:
+            # outputs of one length, none summed: one launch
+            return tuple(self._part(arrays, key, self._exprs, False, n,
+                                    device, plain))
         summed = self._summed or [False] * len(self._exprs)
-        parts = {}
-        for red in (False, True):
-            trees = [e for e, s in zip(self._exprs, summed) if s == red]
-            if trees:
-                parts[red] = self._part(arrays, trees, red, n, device, plain)
-        its = {red: iter(v) for red, v in parts.items()}
-        return tuple(next(its[s]) for s in summed)
+        groups: Dict[tuple, List[int]] = {}
+        for i, red_m in enumerate(zip(summed, sizes)):
+            groups.setdefault(red_m, []).append(i)
+        outs: List[Any] = [None] * len(self._exprs)
+        for (red, m), idx in sorted(groups.items()):
+            got = self._part(arrays, key, [self._exprs[i] for i in idx], red,
+                             m, device, plain)
+            for i, v in zip(idx, got):
+                outs[i] = v
+        return tuple(outs)
 
-    def _part(self, arrays, trees, red: bool, n: int, device,
+    def _sizes(self, n: int, key: tuple, arrays) -> Optional[List[int]]:
+        """Each output's length over ``arrays`` (binding ``key``): a
+        backward kernel's gradient has its argument's length, or sums
+        over ``_lengths``' elements (a 0-d argument's); a recorded
+        kernel's output its tree's (``_length``, the parameters bound),
+        else n (the first vector argument's length).  None where every
+        output has n elements and none is summed."""
+        got = self._size_of.get(key, False)
+        if got is False:
+            if self._grad_of is not None:
+                got = [arrays[i].shape[0] if arrays[i].ndim else m
+                       for i, m in zip(self._grad_of, self._lengths)]
+            else:
+                memo: Dict[int, Optional[int]] = {}
+                self._bind(arrays)
+                try:
+                    hints = [_length(e, memo) for e in self._exprs]
+                finally:
+                    self._unbind()
+                got = [n if h is None else int(h) for h in hints]
+            if all(m == n for m in got) and not any(self._summed or ()):
+                got = None
+            self._size_of[key] = got
+        return got
+
+    def _part(self, arrays, key: tuple, trees, red: bool, n: int, device,
               plain: bool) -> list:
         """The values of ``trees`` over n elements: new tensors of their
         types, or (``red``) their sums, 0-d tensors of their types.  A
-        kernel's call looks up the record of its binding (``_record``,
-        made at the first call), as ``__call__`` does; the plain versions
-        and a tree hoisted anew on every call analyse the trees again."""
-        rec = None if plain else self._record_of(
-            ("fn", red, *map(_binding_class, arrays)), arrays, trees, n,
-            device)
+        kernel's call looks up the record of its binding ``key``
+        (``_record``, made at the first call), as ``__call__`` does; the
+        plain versions and a tree hoisted anew on every call analyse the
+        trees again, the stages of one call in one ``compile.Stages``
+        (``plain``: by their plain versions)."""
+        rec = None if plain else self._record_of(("fn", red, n, *key), arrays,
+                                                 trees, n, device)
         if rec is None:
             self._bind(arrays)
             try:
-                exprs, analysis, types, leaves = prepare_multi(trees, n,
-                                                               device)
-                dts = [dtype_of_code(types[id(e)]) for e in exprs]
-                return self._run(exprs, analysis, types, leaves, dts, None,
-                                 red, n, device, plain)
+                return self._hoisted(trees, red, n, device, plain)
             finally:
                 self._unbind()
         return self._run(rec.exprs, rec.analysis, rec.types,
                          self._leaves(rec, arrays), rec.dtypes, rec.keyed,
                          red, n, device, False)
+
+    def _hoisted(self, trees, red: bool, n: int, device,
+                 plain: bool) -> list:
+        """``_part`` of trees analysed anew: an output that a stage wrote
+        whole (a tree that is one view's scatter or one reduction) is that
+        stage's tensor, which saves a K1 copy of it; the rest go through
+        the kernel."""
+        stages = Stages(plain)
+        exprs, analysis, types, leaves = prepare_multi(trees, n, device,
+                                                       stages)
+        dts = [dtype_of_code(types[id(e)]) for e in exprs]
+        made: Dict[int, torch.Tensor] = {}
+        if not red:
+            seen = set()
+            for i, (e, t, dt) in enumerate(zip(exprs, trees, dts)):
+                if e is not t and isinstance(e, ArrayTerminal) \
+                        and e.array.dtype == dt \
+                        and tuple(e.array.shape) == (n,):
+                    a = e.array
+                    made[i] = a.clone() if id(a) in seen else a
+                    seen.add(id(a))
+        if not made:
+            return self._run(exprs, analysis, types, leaves, dts, None, red,
+                             n, device, plain)
+        rest = [i for i in range(len(exprs)) if i not in made]
+        if rest:
+            exprs, analysis, types, leaves = prepare_multi(
+                [exprs[i] for i in rest], n, device, stages)
+            for i, v in zip(rest, self._run(
+                    exprs, analysis, types, leaves, [dts[i] for i in rest],
+                    None, red, n, device, plain)):
+                made[i] = v
+        return [made[i] for i in range(len(trees))]
 
     def _run(self, exprs, analysis, types, leaves, dts, keyed, red: bool,
              n: int, device, plain: bool) -> list:
@@ -572,6 +683,8 @@ class Kernel:
         and its plain version take, into tensors of the trees' types."""
         n, device = self._extent(arrays)
         summed = self._summed or [False] * len(self._exprs)
+        sizes = self._sizes(n, tuple(map(_binding_class, arrays)), arrays)
+        n = next((m for m, s in zip(sizes or (), summed) if not s), n)
         self._bind(arrays)
         try:
             prepared = prepare_multi([e for e, s in zip(self._exprs, summed)
@@ -617,14 +730,20 @@ class Kernel:
         csyms = [symbolic() if c is not None else None for c in cots]
         given = [(s, c) for s, c in zip(csyms, cots) if s is not None]
         wanted = [i for i, need in enumerate(needs) if need]
+        n = self._extent(arrays)[0]
+        sizes = (self._sizes(n, tuple(map(_binding_class, arrays)), arrays)
+                 or [n] * len(self._exprs))
         self._bind(arrays)
         for s, c in given:
             s._param.bound = c
         try:
-            types = infer_types(*self._exprs, *[s._param for s, _ in given])
-            trees = adjoint(self._exprs,
-                            [s._param if s is not None else None for s in csyms],
-                            [self.params[i]._param for i in wanted], types)
+            # typed as the walk reaches them: a node with no type rule
+            # raises there, naming itself
+            types: Dict[int, str] = {}
+            trees, lengths = adjoint(
+                self._exprs,
+                [s._param if s is not None else None for s in csyms],
+                [self.params[i]._param for i in wanted], types, sizes)
         finally:
             self._unbind()
             for s, _ in given:
@@ -638,14 +757,39 @@ class Kernel:
         bk = Kernel(f"{self.name}_backward", outs,
                     [*self.params, *(s for s, _ in given)])
         bk._summed = [arrays[i].ndim == 0 for i in wanted]
+        # a vector's gradient has its length; a 0-d one sums its adjoint
+        # over the elements it was read over
+        bk._grad_of = wanted
+        bk._lengths = [None if arrays[i].ndim else (n if m is None else m)
+                       for i, m in zip(wanted, lengths)]
         return bk
+
+    def _folds(self) -> bool:
+        """Whether vmap may fold the batch into the elements: every node
+        of the trees reads at its own index (no view, no node that runs
+        its own kernel, no ``element_index()``) and no output is summed."""
+        if self._fold is None:
+            fold = not any(self._summed or ())
+            seen, stack = set(), list(self._exprs)
+            while fold and stack:
+                e = stack.pop()
+                if id(e) in seen:
+                    continue
+                seen.add(id(e))
+                if isinstance(e, (_View, ElementIndex)) \
+                        or not e._elementwise:
+                    fold = False
+                stack.extend(e.children)
+            self._fold = fold
+        return self._fold
 
 
 class _KernelFunction(torch.autograd.Function):
     """``Kernel.as_function()`` under autograd and ``torch.func``: the
     forward is the kernel's one launch; the backward is its backward
     kernel's ``as_function`` (so it is differentiable in turn); ``vmap``
-    flattens the batch into the elements."""
+    flattens the batch into the elements where the trees allow it
+    (``Kernel._folds``), else calls the kernel once a batch element."""
 
     @staticmethod
     def forward(kernel, *arrays):
@@ -671,11 +815,15 @@ class _KernelFunction(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, kernel, *arrays):
-        if kernel._summed is not None and any(kernel._summed):
-            raise NotImplementedError(
-                f"vmap of {kernel.name!r}: the gradients of 0-d tensors "
-                "are sums over the whole batch's elements")
         b, dims = info.batch_size, in_dims[1:]
+        if not kernel._folds():
+            # one call a batch element: a view's index map addresses the
+            # elements of one batch element
+            cols = [_KernelFunction.apply(kernel, *[
+                a.select(d, i) if d is not None else a
+                for a, d in zip(arrays, dims)]) for i in range(b)]
+            outs = tuple(torch.stack(c) for c in zip(*cols))
+            return outs, (0,) * len(outs)
         shapes = [a.shape if d is None else a.shape[:d] + a.shape[d + 1:]
                   for a, d in zip(arrays, dims) if isinstance(a, torch.Tensor)]
         ns = {s[0] for s in shapes if len(s) == 1}

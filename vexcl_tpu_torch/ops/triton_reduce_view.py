@@ -471,15 +471,16 @@ def reduce_view_apply(inner: Expr, analysis: Analysis, types, leaves,
 reduce_view_apply.launches = 0
 
 
-def prepare_reduce_view(node, device: torch.device):
+def prepare_reduce_view(node, device: torch.device, stages=None):
     """The arguments of the V2 kernel for a ``ReducedView``: (inner,
     analysis, types, leaves, op, shape, axes, a new output tensor), the
-    inner expression hoisted, analysed and checked over its length."""
+    inner expression hoisted (``compile.hoist``'s ``stages``), analysed
+    and checked over its length."""
     from ..expr.compile import fit_index_bits, prepare_multi
 
     m = int(np.prod(node.shape, dtype=np.int64))
     (inner,), analysis, types, leaves = prepare_multi([node.children[0]], m,
-                                                      device)
+                                                      device, stages)
     fit_index_bits(analysis, m)
     code = node._infer([types[id(inner)]])
     out = torch.empty(node.size_hint(), dtype=dtype_of_code(code),
@@ -487,9 +488,11 @@ def prepare_reduce_view(node, device: torch.device):
     return inner, analysis, types, leaves, node.op, node.shape, node.axes, out
 
 
-def reduce_view_eval(node, device: torch.device) -> torch.Tensor:
+def reduce_view_eval(node, device: torch.device,
+                     stages=None) -> torch.Tensor:
     """A ``ReducedView`` into a new tensor on ``device``: one V2 launch
-    (the plain version on the CPU)."""
-    args = prepare_reduce_view(node, device)
-    reduce_view_apply(*args)
+    (the plain version on the CPU, or where ``stages`` ask for it)."""
+    args = prepare_reduce_view(node, device, stages)
+    plain = stages is not None and stages.plain
+    (reduce_view_plain if plain else reduce_view_apply)(*args)
     return args[-1]

@@ -53,6 +53,9 @@ class DIA:
         self.vals = t.to(device).contiguous()
         self.offsets_dev = torch.tensor(self.offsets, dtype=torch.int64,
                                         device=device)
+        #: the planes' real and imaginary parts, tensors that a copy onto
+        #: another device moves (``by_real_parts``)
+        self._re = self._im = None
         self.nnz = int(torch.count_nonzero(self.vals))
 
     @classmethod
@@ -73,9 +76,38 @@ class DIA:
     def apply(self, x: torch.Tensor,
               out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """y = A x (the DIA kernel on CUDA, its plain version on CPU),
-        into ``out`` where it is given (``dia_matvec``)."""
+        into ``out`` where it is given (``dia_matvec``).  Complex planes
+        or x on CUDA go through ``by_real_parts``."""
+        if x.device.type == "cuda" and (self.vals.is_complex()
+                                        or x.is_complex()):
+            y = self.by_real_parts(x)
+            return y if out is None else out.copy_(y)
         return dia_matvec(self.n, self.m, self.offsets, self.offsets_dev,
                           self.vals, x, out)
+
+    def by_real_parts(self, x: torch.Tensor) -> torch.Tensor:
+        """A x of complex planes or a complex x by the real kernel (the
+        kernel has no complex form): (Ar + i Ai)(xr + i xi) as
+        Ar xr - Ai xi + i (Ar xi + Ai xr), one DIA launch a product of
+        nonzero parts (four at most), the planes' parts made contiguous
+        once."""
+        if self._re is None:
+            v = self.vals
+            self._re, self._im = ((v.real.contiguous(), v.imag.contiguous())
+                                  if v.is_complex() else (v, None))
+        ar, ai = self._re, self._im
+        xr, xi = ((x.real.contiguous(), x.imag.contiguous())
+                  if x.is_complex() else (x, None))
+
+        def mv(a, v):
+            return dia_matvec(self.n, self.m, self.offsets,
+                              self.offsets_dev, a, v)
+
+        re = [mv(ar, xr)] + ([-mv(ai, xi)] if ai is not None
+                             and xi is not None else [])
+        im = ([mv(ar, xi)] if xi is not None else []) + (
+            [mv(ai, xr)] if ai is not None else [])
+        return torch.complex(sum(re[1:], re[0]), sum(im[1:], im[0]))
 
 
 def try_build_dia(n: int, m: int, ptr: np.ndarray, col: np.ndarray,
